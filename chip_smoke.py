@@ -6,11 +6,16 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 0. card and toolchain: nvidia-smi's name and power limit, torch and CUDA;
-1. build the hand-written CUDA kernels (csrc/*.cu, nvcc for sm_90a);
-2. each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with the tolerances below, and both timed
-   (median of 20 calls with CUDA events, and device time per call under
-   the profiler);
+1. build the hand-written CUDA kernels (csrc/*.cu, one nvcc per source,
+   all started together, for sm_90a);
+2. each kernel against its plain PyTorch version on the card, with the
+   tolerances below, and both timed (median of 20 calls with CUDA events,
+   and device time per call under the profiler): the packed and dense
+   weights at the serving path's shapes, their backwards, the bitonic sort
+   and the windowed table-gradient accumulation (both payloads) at the
+   training path's shapes, the accumulation on cells laid out as training
+   lays them out (a hot window, and the packed buffer's pad tail in one
+   cell with a zero cotangent), so its split-window branch runs;
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
    of 2048 rays, 64 packed samples per ray): a checkpoint of seeded random
@@ -19,7 +24,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    `render_only` with eval_render="dense" on view 0.  Both kernels must
    have launched during those runs; the packed and dense renders of view 0
    must agree; and a 32x32 view rendered at f32 through the kernels must
-   match the same view rendered on the CPU through the plain versions.
+   match the same view rendered on the CPU through the plain versions;
+4. the K-Planes training slice at full width: `train()` with TrainConfig
+   defaults (batch 2048 rays, 400 samples, cap 819,200, bf16 compute) for
+   64 steps from seeded random parameters on four generated 800x800 views,
+   crossing the occupancy updates at steps 0 and 32.  The loss must be
+   finite and fall; the packed weights, their backward, the sort and the
+   accumulation must have launched inside `train()`.  Then the gradients of
+   one full-width dense chunk (2048 rays drawn over the views x 400
+   samples, f32 compute) through the dense weights' backward kernel must
+   match the plain version's: d loss / d sigma and every parameter's.
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -51,6 +65,21 @@ PACKED_DENSE_MAX_ABS = 2e-2
 PACKED_DENSE_MEAN_ABS = 1e-4
 # the same small view at f32 compute, kernels on the card vs plain on the CPU
 SMALL_VIEW_ATOL = 1e-4
+# weight gradients, kernel vs plain: f32 sums of up to 400 terms in another
+# order; and the table-gradient accumulation, f32 sums over a cell's samples
+# in another (atomic) order: both relative to the largest magnitude
+GRAD_RTOL_OF_MAX = 1e-5
+# one full-width dense chunk at f32 compute, through the kernels vs through
+# the plain dense weights: d loss / d sigma (kernel 3's own output) to
+# GRAD_RTOL_OF_MAX; the decoders' parameter gradients (f32 sums over the
+# chunk's samples) to 1e-4 of each leaf's largest; the plane tables'
+# gradients pass the training default bf16 payload, which rounds each
+# sample's cotangent to bf16, so a cotangent that differs in its last f32
+# bits may round to the neighbouring bf16 value, 2^-8 of that one
+# contribution: 2^-8 of each table leaf's largest
+CHUNK_GRAD_RTOL_OF_MAX = 1e-4
+CHUNK_TABLE_GRAD_RTOL_OF_MAX = 2.0 ** -8
+TRAIN_STEPS = 64
 
 
 def card_line() -> str:
@@ -182,6 +211,254 @@ def check_kernels(dev):
     return results
 
 
+def training_packed_problem(rng, n_rays=2048, cap=819_200, max_count=400):
+    """Training-shaped packed buffer: ray-major samples of 2048 rays (counts
+    in 0..400) filling ~95% of cap = 2048 x 400, then the pad tail."""
+    counts = rng.integers(0, max_count + 1, n_rays)
+    counts = (counts * (0.95 * cap / counts.sum())).astype(np.int64)
+    n_valid = int(counts.sum())
+    seg = np.full(cap, n_rays, np.int32)
+    seg[:n_valid] = np.repeat(np.arange(n_rays), counts)
+    valid = (seg < n_rays).astype(np.float32)
+    sig = rng.uniform(0.0, 50.0, cap).astype(np.float32) * valid
+    dlt = np.full(cap, np.float32(5.196152 / 400), np.float32)
+    return sig, dlt, valid, seg, n_valid
+
+
+def accumulation_problem(rng, n=819_200, n_cells=512 * 512, w_window=256, n_pad=300_000,
+                         n_hot=40_000, n_pad_window=3_000):
+    """Training-shaped cells of the three projections' samples [3, n], and
+    the mask of samples whose cotangent is zero.  Uniform cells, then per
+    projection a hot window of `n_hot` samples, `n_pad_window` real samples
+    in the pad's window, and the packed buffer's pad tail: `n_pad` samples
+    in ONE cell with a zero cotangent (every pad copies sample 0's
+    position).  The hot and pad windows each span many chunks of the
+    kernel's ACCUM_CHUNK samples, so its split-window branch runs."""
+    cell = rng.integers(0, n_cells, (3, n))
+    zero = np.zeros((3, n), bool)
+    for p in range(3):
+        hot_w, pad_w = rng.choice(n_cells // w_window, 2, replace=False)
+        idx = rng.choice(n - n_pad, n_hot + n_pad_window, replace=False)
+        cell[p, idx[:n_hot]] = hot_w * w_window + rng.integers(0, w_window, n_hot)
+        cell[p, idx[n_hot:]] = pad_w * w_window + rng.integers(0, w_window, n_pad_window)
+        cell[p, n - n_pad:] = pad_w * w_window + rng.integers(0, w_window)
+        zero[p, n - n_pad:] = True
+    return cell.astype(np.int32), zero
+
+
+def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def check_training_kernels(dev):
+    """The backward kernels, the sort and the accumulation at the training
+    path's shapes, against their plain versions."""
+    from tinynerf_tpu_torch.ops import bitonic, segscan, table_grad, weights, weights_dense
+
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    results = {}
+
+    # kernel 1's reverse scan: packed weights backward at [819,200]
+    sig, dlt, valid, seg, n_valid = training_packed_problem(rng)
+    sig_t, dlt_t, val_t, seg_t = t(sig), t(dlt), t(valid), t(seg)
+    w = segscan.compute_weights_packed(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=2048)
+    g = torch.randn(sig.size, device=dev)
+    out = segscan.weights_packed_bwd(sig_t, dlt_t, val_t, seg_t, w, g, 2048)
+    ref = segscan.weights_packed_bwd_plain(sig_t, dlt_t, val_t, seg_t, w, g, 2048)
+    err = _rel_err(out, ref)
+    print(f"kernel segscan backward: max|kernel-plain| / max|plain| = {err:.3e} "
+          f"(tol {GRAD_RTOL_OF_MAX:g}), {n_valid} valid samples of {sig.size}")
+    if not err <= GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"packed weights backward disagrees: {err}")
+    results["segscan_bwd"] = dict(max_abs_err=float((out - ref).abs().max()), **time_pair(
+        f"kernel segscan backward [{sig.size}]",
+        lambda: segscan.weights_packed_bwd(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
+        lambda: segscan.weights_packed_bwd_plain(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
+    ))
+
+    # kernel 3: dense weights backward at [2048, 400]
+    r, s = 2048, 400
+    sig2 = t(rng.uniform(0.0, 50.0, (r, s)).astype(np.float32))
+    dlt2 = t(np.full((r, s), np.float32(5.196152 / 400), np.float32))
+    msk2 = t((rng.random((r, s)) < 0.3).astype(np.float32))
+    w2 = weights_dense.compute_weights_dense(sig2, dlt2, msk2, 1e-4)
+    g2 = torch.randn(r, s, device=dev)
+    out = weights_dense.weights_dense_bwd(sig2, dlt2, msk2, w2, g2)
+    ref = weights.compute_weights_bwd(sig2, dlt2, msk2, w2, g2)
+    err = _rel_err(out, ref)
+    print(f"kernel weights_dense backward: max|kernel-plain| / max|plain| = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
+    if not err <= GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"dense weights backward disagrees: {err}")
+    results["weights_dense_bwd"] = dict(max_abs_err=float((out - ref).abs().max()), **time_pair(
+        f"kernel weights_dense backward [{r}, {s}]",
+        lambda: weights_dense.weights_dense_bwd(sig2, dlt2, msk2, w2, g2),
+        lambda: weights.compute_weights_bwd(sig2, dlt2, msk2, w2, g2),
+    ))
+
+    # kernel 4: the sort of the three projections' packed keys [3, 819,200]
+    n, n_cells, w_window = 819_200, 512 * 512, 256
+    cell_np, zero_np = accumulation_problem(rng, n, n_cells, w_window)
+    cell = t(cell_np)
+    keys = bitonic.pack_keys(cell >> 8, 20)
+    out = bitonic.sort_i32(keys)
+    ref = bitonic.sort_i32_plain(keys)
+    if not torch.equal(out, ref):
+        raise AssertionError("sort_i32 differs from torch.sort")
+    print(f"kernel bitonic sort [3, {n}]: bit-equal to torch.sort")
+    results["sort"] = dict(max_abs_err=0.0, **time_pair(
+        f"kernel bitonic sort [3, {n}]", lambda: bitonic.sort_i32(keys),
+        lambda: bitonic.sort_i32_plain(keys)))
+
+    # kernel 5: windowed accumulation, 3 x 819,200 samples into 262,144 x 384
+    f, nc = 96, 4
+    gen = torch.Generator(dev).manual_seed(1)
+    gq = torch.randn(3, n, f, device=dev, generator=gen)
+    gq[t(zero_np)] = 0.0
+    wq = torch.rand(3, n, nc, device=dev, generator=gen)
+    perm, offsets = table_grad.sort_by_window(cell, n_cells, w_window)
+    gidx = (perm.long() + (torch.arange(3, device=dev) * n)[:, None]).reshape(-1)
+    counts = (offsets[:, 1:] - offsets[:, :-1]).cpu().numpy()
+    n_split = (counts > table_grad.ACCUM_CHUNK).sum(axis=1)
+    print(f"kernel windowed_accumulate input: windows split into chunks of {table_grad.ACCUM_CHUNK} "
+          f"per projection {n_split.tolist()}, largest window {counts.max(axis=1).tolist()} samples, "
+          f"{int(zero_np.sum())} samples with a zero cotangent")
+    if not (n_split >= 2).all():
+        raise AssertionError("the accumulation input splits too few windows")
+    empty = t(np.stack([np.bincount(c, minlength=n_cells) == 0 for c in cell_np]))
+    entry = {}
+    for payload, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        rows = table_grad.pack_payload(gq, wq, cell, w_window, payload)
+        rows = rows.reshape(3 * n, -1)[gidx].reshape(3, n, -1)
+        out = table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window)
+        ref = table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window)
+        err, abs_err = _rel_err(out, ref), float((out - ref).abs().max())
+        print(f"kernel windowed_accumulate {label} payload: max|kernel-plain| / max|plain| = "
+              f"{err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
+        if not err <= GRAD_RTOL_OF_MAX:
+            raise AssertionError(f"windowed accumulation ({label}) disagrees: {err}")
+        if not bool((out[empty] == 0).all()):
+            raise AssertionError(f"windowed accumulation ({label}): a cell with no samples is not 0")
+        del out, ref
+        timed = time_pair(
+            f"kernel windowed_accumulate {label} payload [3, {n}] -> [3, {n_cells}, {nc * f}]",
+            lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window),
+            lambda: table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window),
+        )
+        entry[label] = dict(max_abs_err=abs_err, **timed)
+    # the training default is the bf16 payload (ops/interp.py); f32 rides along
+    results["accumulate"] = {
+        **entry["bf16"],
+        "max_abs_err": max(entry["f32"]["max_abs_err"], entry["bf16"]["max_abs_err"]),
+        **{f"f32_payload_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"},
+    }
+    return results
+
+
+def run_training(tmp: str, card: str):
+    """Phase 4: `train()` at full width, the launch counts inside it, and a
+    full-width dense chunk's gradient through the backward kernel."""
+    from tinynerf_tpu_torch.core import renderer as renderer_module
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.ops import bitonic, segscan, table_grad, weights, weights_dense
+    from tinynerf_tpu_torch.train import TrainConfig, train
+    from tinynerf_tpu_torch.utils import make_spheres_data
+
+    cfg = TrainConfig(output=tmp, steps=TRAIN_STEPS, seed=0)
+    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    counters = {
+        "segscan": segscan.compute_weights_packed,
+        "segscan_bwd": segscan.weights_packed_bwd,
+        "sort": bitonic.sort_i32,
+        "accumulate": table_grad.windowed_accumulate,
+    }
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(cfg, pool, device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train launches during train(): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the training path")
+
+    losses = np.array([m.loss for m in out["train_metrics"]])
+    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses: shape {losses.shape} or non-finite values")
+    first, last = losses[:8].mean(), losses[-8:].mean()
+    print(f"train loss: first 8 steps {first:.5f}, last 8 steps {last:.5f} "
+          f"(every 8th: {np.round(losses[::8], 5).tolist()})")
+    if not last < first:
+        raise AssertionError("the training loss did not fall")
+    occ = [m.occupancy for m in out["train_metrics"]]
+    print(f"train occupancy after the updates at steps 0 and 32: {occ[0]:.4f}, {occ[-1]:.4f}")
+    ms = out["elapsed_s"] / TRAIN_STEPS * 1e3
+    print(f"train: {ms:.2f} ms/step over {TRAIN_STEPS} steps (occupancy updates and host syncs "
+          f"included), {out['rays_per_sec_per_chip']:,.0f} rays/s used by the loss, "
+          f"peak device memory {peak_gb:.2f} GB [{card}]")
+
+    # kernel 3 on a driven path: one full-width dense chunk, f32 compute,
+    # its gradients through the kernels vs through the plain dense weights
+    # (put in the renderer module's place for the reference pass): d loss /
+    # d sigma, kept by a hook on the sigma decoder, and every parameter's
+    renderer = out["renderer"]
+    renderer.compute_dtype = torch.float32
+    gen = torch.Generator("cuda").manual_seed(0)
+    # rays drawn over all views (an image's first rows may miss the scene)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:cfg.batch_size]
+    o, d = pool.rays_o[rays], pool.rays_d[rays]
+    cot = torch.randn(cfg.batch_size, 3, device="cuda", generator=gen)
+    sigma_out = {}
+
+    def keep_sigma(module, args, y):
+        y.retain_grad()
+        sigma_out["y"] = y
+
+    hook = renderer.sigma_decoder.register_forward_hook(keep_sigma)
+    grads, dsigma = {}, {}
+    weights_dense.weights_dense_bwd.launches = 0
+    weights_dense.compute_weights_dense.launches = 0
+    for impl in ("kernel", "plain"):
+        renderer.zero_grad(set_to_none=True)
+        if impl == "plain":
+            renderer_module.compute_weights_dense = weights.compute_weights
+        try:
+            res = renderer.render_dense(out["occ_state"], o, d)
+            (res.rgb * cot).sum().backward()
+        finally:
+            renderer_module.compute_weights_dense = weights_dense.compute_weights_dense
+        grads[impl] = {k: p.grad.detach().clone() for k, p in renderer.named_parameters()}
+        dsigma[impl] = sigma_out["y"].grad.detach().clone()
+        if impl == "kernel":
+            chunk_launches = {"weights_dense": weights_dense.compute_weights_dense.launches,
+                              "weights_dense_bwd": weights_dense.weights_dense_bwd.launches}
+    hook.remove()
+    torch.cuda.synchronize()
+    n_valid = int(res.n_samples)
+    n_zero = sum(int(float(g.abs().max()) == 0.0) for g in grads["plain"].values())
+    err_sigma = _rel_err(dsigma["kernel"], dsigma["plain"])
+    errs = {k: _rel_err(grads["kernel"][k], grads["plain"][k]) for k in grads["plain"]}
+    err_tables = max(e for k, e in errs.items() if k.startswith("field."))
+    err_dec = max(e for k, e in errs.items() if not k.startswith("field."))
+    print(f"train dense chunk [{cfg.batch_size} x {cfg.n_samples}] f32, {n_valid} valid samples, "
+          f"kernels vs plain, max|diff| / max|plain|: d loss/d sigma {err_sigma:.3e} "
+          f"(tol {GRAD_RTOL_OF_MAX:g}); decoder leaves {err_dec:.3e} (tol {CHUNK_GRAD_RTOL_OF_MAX:g}); "
+          f"plane tables {err_tables:.3e} (tol {CHUNK_TABLE_GRAD_RTOL_OF_MAX:g}, bf16 payload); "
+          f"{n_zero} of {len(errs)} leaves with a zero gradient; launches {chunk_launches}")
+    if n_valid == 0 or n_zero or not float(dsigma["plain"].abs().max()) > 0.0:
+        raise AssertionError("the dense chunk's check is empty: no valid samples or zero gradients")
+    if not (err_sigma <= GRAD_RTOL_OF_MAX and err_dec <= CHUNK_GRAD_RTOL_OF_MAX
+            and err_tables <= CHUNK_TABLE_GRAD_RTOL_OF_MAX):
+        raise AssertionError("dense chunk gradients disagree")
+    for name, n in chunk_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the dense chunk's gradient")
+    return dict(launches, weights_dense_bwd=chunk_launches["weights_dense_bwd"])
+
+
 def run_slice(tmp: str, card: str):
     from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
     from tinynerf_tpu_torch.ops import segscan, weights_dense
@@ -279,18 +556,29 @@ def main() -> None:
 
     dev = torch.device("cuda")
     kern = check_kernels(dev)
+    kern.update(check_training_kernels(dev))
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_slice(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = run_training(tmp, card)
+
+    def entry(name, key, source, replaces, n):
+        return {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, **kern[key]}
 
     record = {"kernels": [
-        {"name": "segscan.compute_weights_packed", "route": "cuda",
-         "source": "tinynerf_tpu_torch/csrc/segscan.cu",
-         "replaces": "tinynerf_tpu/ops/segscan.py:48", "launches": launches["segscan"],
-         **kern["segscan"]},
-        {"name": "weights_dense.compute_weights_dense", "route": "cuda",
-         "source": "tinynerf_tpu_torch/csrc/weights_dense.cu",
-         "replaces": "tinynerf_tpu/ops/weights_pallas.py:60",
-         "launches": launches["weights_dense"], **kern["weights_dense"]},
+        entry("segscan.compute_weights_packed", "segscan", "segscan.cu",
+              "tinynerf_tpu/ops/segscan.py:48", launches["segscan"]),
+        entry("weights_dense.compute_weights_dense", "weights_dense", "weights_dense.cu",
+              "tinynerf_tpu/ops/weights_pallas.py:60", launches["weights_dense"]),
+        entry("segscan.weights_packed_bwd", "segscan_bwd", "segscan.cu",
+              "tinynerf_tpu/ops/segscan.py:48", train_launches["segscan_bwd"]),
+        entry("weights_dense.weights_dense_bwd", "weights_dense_bwd", "weights_dense.cu",
+              "tinynerf_tpu/ops/weights_pallas.py:70", train_launches["weights_dense_bwd"]),
+        entry("bitonic.sort_i32", "sort", "bitonic.cu",
+              "tinynerf_tpu/ops/bitonic.py:73", train_launches["sort"]),
+        entry("table_grad.windowed_accumulate", "accumulate", "table_grad.cu",
+              "tinynerf_tpu/ops/table_grad.py:66", train_launches["accumulate"]),
     ]}
     print(f"card: {card}")
     print(json.dumps(record))

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
-the wrappers' device dispatch.
+the wrappers' device dispatch: the packed and dense weights and their
+backwards, the bitonic sort and the windowed table-gradient accumulation.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -9,15 +10,19 @@ a machine with a GPU and no jax:
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX suite).  The
 plain versions are themselves held against the JAX package in
-test_torch_ops.py.  Tolerances: weights atol 1e-5, cumsums rtol 1e-5 /
-atol 1e-4 (f32 scans in another summation order).
+test_torch_ops.py and test_torch_train_ops.py.  Tolerances: weights atol
+1e-5, cumsums rtol 1e-5 / atol 1e-4 (f32 scans in another summation
+order); weight gradients 1e-5 of their largest magnitude (f32 sums of up
+to 400 terms in another order); sorts bit-equal (the keys are the same
+multiset); accumulated table gradients 1e-5 of their largest magnitude
+(f32 sums in another order, the atomics' order changing run to run).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tinynerf_tpu_torch.ops import cuda_lib, segscan, weights_dense
+from tinynerf_tpu_torch.ops import bitonic, cuda_lib, segscan, table_grad, weights, weights_dense
 
 torch.set_num_threads(2)
 
@@ -52,10 +57,20 @@ def test_segment_starts():
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
     """A tensor on another device is refused; nothing falls back."""
     m = torch.empty(8, device="meta")
+    mi = torch.empty(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        segscan.compute_weights_packed(m, m, m, torch.empty(8, dtype=torch.int32, device="meta"))
+        segscan.compute_weights_packed(m, m, m, mi)
+    with pytest.raises(ValueError):
+        segscan.weights_packed_bwd(m, m, m, mi, m, m)
     with pytest.raises(ValueError):
         weights_dense.compute_weights_dense(m[None], m[None], m[None])
+    with pytest.raises(ValueError):
+        weights_dense.weights_dense_bwd(m[None], m[None], m[None], m[None], m[None])
+    with pytest.raises(ValueError):
+        bitonic.sort_i32(mi)
+    with pytest.raises(ValueError):
+        table_grad.windowed_accumulate(
+            torch.empty(1, 8, 128, device="meta"), torch.empty(1, 2, dtype=torch.int32), 4, 4, 256, 256)
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_inputs("x", torch.float32, (4,), torch.zeros(4))
 
@@ -81,6 +96,47 @@ def test_packed_plain_matches_dense_plain():
         packed = segscan.compute_weights_packed(T(sig_c), T(dlt_c), T(val_c), T(seg_c), thr, n_segments=r)
         np.testing.assert_allclose(packed.numpy()[: idx.size], dense.numpy().reshape(-1)[idx], atol=1e-6)
         assert np.all(packed.numpy()[idx.size:] == 0.0)
+
+
+@pytest.mark.parametrize("thr", [0.0, 1e-4])
+def test_packed_backward_plain_matches_dense_backward_plain(thr):
+    """The packed gradient of a ray-major buffer is the dense gradient of the
+    same samples; the pad tail gets 0 (plain versions, CPU)."""
+    rng = np.random.default_rng(9)
+    r, s = 24, 50
+    sig = rng.uniform(0, 8, (r, s)).astype(np.float32)
+    dlt = rng.uniform(0.01, 0.1, (r, s)).astype(np.float32)
+    msk = rng.random((r, s)) > 0.35
+    g = rng.normal(size=(r, s)).astype(np.float32)
+    idx = np.nonzero(msk.reshape(-1))[0]
+    cap = idx.size + 13
+    sig_c, dlt_c = np.zeros(cap, np.float32), np.ones(cap, np.float32)
+    val_c, seg_c = np.zeros(cap, np.float32), np.full(cap, r, np.int32)
+    g_c = rng.normal(size=cap).astype(np.float32)
+    sig_c[: idx.size], dlt_c[: idx.size] = sig.reshape(-1)[idx], dlt.reshape(-1)[idx]
+    val_c[: idx.size], seg_c[: idx.size] = 1.0, idx // s
+    g_c[: idx.size] = g.reshape(-1)[idx]
+    sd = T(sig).requires_grad_()
+    weights_dense.compute_weights_dense(sd, T(dlt), T(msk.astype(np.float32)), thr).backward(T(g))
+    sp = T(sig_c).requires_grad_()
+    segscan.compute_weights_packed(sp, T(dlt_c), T(val_c), T(seg_c), thr, n_segments=r).backward(T(g_c))
+    np.testing.assert_allclose(sp.grad.numpy()[: idx.size], sd.grad.numpy().reshape(-1)[idx], atol=1e-6)
+    assert np.all(sp.grad.numpy()[idx.size:] == 0.0)
+
+
+def test_dense_backward_plain_matches_autograd():
+    """The closed form is the derivative: at threshold 0 (no early
+    termination) it equals autograd through the forward's value."""
+    rng = np.random.default_rng(10)
+    sig = T(rng.uniform(0, 8, (16, 40)).astype(np.float32))
+    dlt = T(rng.uniform(0.01, 0.1, (16, 40)).astype(np.float32))
+    msk = T((rng.random((16, 40)) > 0.3).astype(np.float32))
+    g = T(rng.normal(size=(16, 40)).astype(np.float32))
+    a = sig.clone().requires_grad_()
+    weights.compute_weights_value(a, dlt, msk, 0.0).backward(g)
+    b = sig.clone().requires_grad_()
+    weights.compute_weights(b, dlt, msk, 0.0).backward(g)
+    np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), atol=1e-5)
 
 
 def test_c_entry_points_declared_in_sources():
@@ -130,3 +186,118 @@ def test_dense_weights_kernel_matches_plain(cuda_device, thr):
         out = weights_dense.compute_weights_dense(*a, thr)
         ref = weights_dense.compute_weights_dense_plain(*a, thr)
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+
+
+def _grad_tol(ref: torch.Tensor) -> float:
+    return 1e-5 * max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_packed_weights_backward_kernel_matches_plain(cuda_device):
+    """Ragged rays (longer than a warp, empty, a pad tail) and the training
+    shape: 2048 rays, cap 819,200."""
+    cases = [_packed(11)]
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 401, 2048)
+    counts = (counts * (819_200 / counts.sum() * 0.95)).astype(np.int64)
+    n_valid = int(counts.sum())
+    seg = np.full(819_200, 2048, np.int32)
+    seg[:n_valid] = np.repeat(np.arange(2048), counts)
+    valid = (seg < 2048).astype(np.float32)
+    cases.append((rng.uniform(0, 50, 819_200).astype(np.float32) * valid,
+                  np.full(819_200, np.float32(5.196152 / 400)), valid, seg, 2048))
+    for sig, dlt, valid, seg, n_rays in cases:
+        a = [T(x).to(cuda_device) for x in (sig, dlt, valid, seg)]
+        w = segscan.compute_weights_packed(*a, 1e-4, n_segments=n_rays)
+        g = torch.randn(sig.size, device=cuda_device)
+        before = segscan.weights_packed_bwd.launches
+        out = segscan.weights_packed_bwd(*a, w, g, n_rays)
+        assert segscan.weights_packed_bwd.launches == before + 1
+        ref = segscan.weights_packed_bwd_plain(*a, w, g, n_rays)
+        torch.testing.assert_close(out, ref, atol=_grad_tol(ref), rtol=0)
+        # through autograd, the kernel runs as the gradient
+        s = a[0].clone().requires_grad_()
+        segscan.compute_weights_packed(s, *a[1:], 1e-4, n_segments=n_rays).backward(g)
+        torch.testing.assert_close(s.grad, ref, atol=_grad_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+def test_dense_weights_backward_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(13)
+    for r, s in ((3, 1), (37, 33), (2048, 400)):
+        a = [T(x).to(cuda_device) for x in (
+            rng.uniform(0, 8, (r, s)).astype(np.float32),
+            rng.uniform(0.01, 0.1, (r, s)).astype(np.float32),
+            (rng.random((r, s)) > 0.3).astype(np.float32),
+        )]
+        g = torch.randn(r, s, device=cuda_device)
+        w = weights_dense.compute_weights_dense(*a, 1e-4)
+        before = weights_dense.weights_dense_bwd.launches
+        out = weights_dense.weights_dense_bwd(*a, w, g)
+        assert weights_dense.weights_dense_bwd.launches == before + 1
+        ref = weights.compute_weights_bwd(*a, w, g)
+        torch.testing.assert_close(out, ref, atol=_grad_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+def test_sort_kernel_bit_equal_to_torch_sort(cuda_device):
+    """Any length (padded to a power of two >= 256), batched rows, negative
+    and repeated keys, and the training shape [3, 819,200]."""
+    rng = np.random.default_rng(14)
+    for shape in ((1,), (255,), (5000,), (3, 1000), (2, 2049), (4, 4096), (3, 819_200)):
+        keys = rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
+        keys.reshape(-1)[::7] = 3
+        k = T(keys).to(cuda_device)
+        before = bitonic.sort_i32.launches
+        out = bitonic.sort_i32(k)
+        assert bitonic.sort_i32.launches == before + 1
+        assert torch.equal(out, torch.sort(k, dim=-1).values), shape
+
+
+def _accum_case(rng, p, n, f, n_cells, skew=False):
+    g = rng.normal(size=(p, n, f)).astype(np.float32)
+    w4 = torch.from_numpy(rng.uniform(size=(p, n, 4)).astype(np.float32))
+    cell = rng.integers(0, n_cells, size=(p, n)).astype(np.int32)
+    if skew:
+        # every sample in one cell of window 2 (the other windows empty), a
+        # window long enough to be split over several blocks, and half the
+        # samples with a zero cotangent (the renderer's pad tail)
+        cell[:] = 2 * 256 + 5
+        g[:, ::2] = 0.0
+    return torch.from_numpy(g), w4, torch.from_numpy(cell)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [torch.float32, torch.bfloat16])
+def test_windowed_accumulate_kernel_matches_plain(cuda_device, payload):
+    """Kernel vs plain decode + index_add_ on the same sorted payload, and the
+    whole sorted pipeline vs the scatter reference; ragged sizes, empty and
+    skewed windows, and the training shape (3 x 819,200 samples into
+    262,144 cells x 384)."""
+    rng = np.random.default_rng(15)
+    cases = [(2, 1500, 8, 600, False), (1, 5000, 4, 1000, True), (3, 819_200, 96, 262_144, False)]
+    for p, n, f, n_cells, skew in cases:
+        g, w4, cell = (x.to(cuda_device) for x in _accum_case(rng, p, n, f, n_cells, skew))
+        w_window = 256
+        n_cells_pad = -(-n_cells // w_window) * w_window
+        perm, offsets = table_grad.sort_by_window(cell, n_cells_pad, w_window)
+        for pi in range(p):  # the partition groups every window's samples
+            c = cell[pi][perm[pi].long()] // w_window
+            assert bool((c[1:] >= c[:-1]).all())
+        out = table_grad.table_grad_sorted(g, w4, cell, n_cells, w_window, payload)
+        g_ref = g.to(payload).float()  # the bf16 payload rounds g only
+        ref = table_grad.windowed_accumulate_ref(g_ref, w4, cell, n_cells)
+        # the bf16 payload's weights are a (hi, lo) pair, ~2^-16 relative
+        tol = _grad_tol(ref) if payload == torch.float32 else 3e-5 * float(ref.abs().max())
+        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+        if skew:
+            assert float(out[:, : 2 * 256].abs().max()) == 0.0  # cells with no samples are 0
+        # kernel vs plain on one payload
+        gidx = perm.long() + (torch.arange(p, device=cuda_device) * n)[:, None]
+        rows = table_grad.pack_payload(g, w4, cell, w_window, payload)
+        sorted_rows = rows.reshape(p * n, -1)[gidx.reshape(-1)].reshape(p, n, -1)
+        before = table_grad.windowed_accumulate.launches
+        k = table_grad.windowed_accumulate(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
+        assert table_grad.windowed_accumulate.launches == before + 1
+        plain = table_grad.windowed_accumulate_plain(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
+        torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)

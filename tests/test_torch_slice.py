@@ -140,8 +140,9 @@ def test_checkpoint_round_trip_and_refusal(world, tmp_path):
 
 
 def test_cli_render_only(world, scene, tmp_path):
-    """`python -m tinynerf_tpu_torch --render_only` on the CPU; training and
-    unported data formats raise, naming ROADMAP.md."""
+    """`python -m tinynerf_tpu_torch --render_only` on the CPU; unported
+    methods and data formats raise, naming ROADMAP.md (training K-Planes is
+    in test_torch_train_slice.py)."""
     exp = tmp_path / "exp"
     r = world["renderers"]["float32"]
     occ = make_shell_occupancy(OccupancyGrid.cube(128, r.marcher.step_size))  # the CLI's grid size
@@ -152,7 +153,7 @@ def test_cli_render_only(world, scene, tmp_path):
     cli_main(base + ["--render_only", "--device", "cpu"])
     assert (exp / "render_0000.png").exists() and (exp / "metrics_render.json").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(base)
+        cli_main([a if a != "kplanes" else "vanilla" for a in base] + ["--resume", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main([a if a != "synthetic" else "nerfstudio" for a in base] + ["--render_only"])
     # a checkpoint whose occupancy grid does not fit the config is refused

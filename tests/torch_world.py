@@ -1,6 +1,7 @@
 """Shared setup of the port-vs-JAX renderer tests (test_torch_render.py,
-test_torch_slice.py): one generated scene, JAX-initialized parameters
-carried into port renderers, and the shell occupancy state."""
+test_torch_slice.py, test_torch_train_slice.py): one generated scene,
+JAX-initialized parameters carried into port renderers, and the shell
+occupancy state."""
 
 import jax
 import numpy as np

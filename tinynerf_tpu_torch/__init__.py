@@ -2,10 +2,12 @@
 
 The JAX package `tinynerf_tpu` stays the reference; this package mirrors its
 module names (ops, core, models, data, train, utils) and is tested against
-it.  The ported slice is the K-Planes serving path (`render_only`), with the
-packed and dense transmittance-weights kernels hand-written in CUDA
-(`csrc/`).  Importing the package imports neither jax nor optax and builds
-nothing; kernels are compiled at their first launch.
+it.  The ported slices are K-Planes serving (`render_only`) and K-Planes
+training on one GPU (`train`, dense march), with every TPU kernel on their
+path hand-written in CUDA (`csrc/`): the packed and dense transmittance
+weights and their backwards, the bitonic sort and the windowed
+table-gradient accumulation.  Importing the package imports neither jax
+nor optax and builds nothing; kernels are compiled at their first launch.
 """
 
 __version__ = "0.1.0"

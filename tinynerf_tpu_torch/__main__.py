@@ -1,26 +1,29 @@
 """Command line: `python -m tinynerf_tpu_torch`, with `train.py`'s flags.
 
-`--render_only` renders the test split from the latest checkpoint in
-`--output` (an experiment directory, written by either package) on
-`--device` and reports metrics.  Training, nerfstudio data and the other
-methods raise NotImplementedError naming the ROADMAP.md item.  Mesh and
-sharding flags are accepted for compatibility and have no effect.
+Without `--render_only` it trains on `--device` (K-Planes on Blender-
+synthetic AABB data) in a new experiment directory under `--output`, or,
+with `--resume`, continues the experiment `--output` names.  With
+`--render_only` it renders the test split from the latest checkpoint in
+`--output` (an experiment directory, written by either package) and
+reports metrics.  Nerfstudio data, unbounded scenes, the other methods and
+the sharding flags (`--shard_tables`, `--shard_bwd`) raise
+NotImplementedError naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import uuid
 from pathlib import Path
 
-from .data import PoseSet, parse_nerf_synthetic
-from .train import TrainConfig, render_only
-from .train.loop import TRAINING_NOT_PORTED
+from .data import PoseSet, RayPool, parse_nerf_synthetic
+from .train import TrainConfig, render_only, train
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        prog="tinynerf_tpu_torch", description="Render a radiance field on a GPU"
+        prog="tinynerf_tpu_torch", description="Train or render a radiance field on a GPU"
     )
     parser.add_argument("--data", type=str, required=True, help="path to the data folder")
     parser.add_argument("--datatype", type=str, required=True, choices=["synthetic", "nerfstudio"])
@@ -49,19 +52,27 @@ def main(argv=None) -> None:
     parser.add_argument("--shard_bwd", action="store_true")
     parser.add_argument("--field_scale", type=float, default=1.0)
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to render on (cuda, or cpu for the "
+                        help="torch device to run on (cuda, or cpu for the "
                              "kernels' plain versions)")
     args = parser.parse_args(argv)
 
-    if not args.render_only:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
     if args.datatype != "synthetic":
         raise NotImplementedError(
             "nerfstudio data is not ported yet (ROADMAP.md Queue 1, "
             "'Unbounded scenes and nerfstudio')"
         )
-    test_set = PoseSet(parse_nerf_synthetic(Path(args.data), "test"))
-    experiment_dir = Path(args.output)
+    data_path = Path(args.data)
+    test_set = PoseSet(parse_nerf_synthetic(data_path, "test"))
+    output = Path(args.output)
+    if args.resume or args.render_only:
+        experiment_dir = output  # an existing experiment directory
+    else:
+        while True:
+            name = f"{str(uuid.uuid4())[:8]}_{args.method}_{args.scene_type}_{args.n_samples}"
+            if not (output / name).is_dir():
+                break
+        experiment_dir = output / name
+        experiment_dir.mkdir(parents=True)
     print(f"Experiment saved to {experiment_dir}")
     cfg = TrainConfig(
         method=args.method,
@@ -85,7 +96,17 @@ def main(argv=None) -> None:
         shard_bwd=args.shard_bwd,
         field_scale=args.field_scale,
     )
-    render_only(cfg, test_set, device=args.device)
+    if args.render_only:
+        render_only(cfg, test_set, device=args.device)
+        return
+    # --eval without an explicit cadence evaluates 8 times over the run
+    if args.eval and cfg.eval_every is None:
+        cfg.eval_every = max(1, cfg.total_steps // 8)
+    train(
+        cfg, RayPool(parse_nerf_synthetic(data_path, "train"), device=args.device),
+        PoseSet(parse_nerf_synthetic(data_path, "val")), test_set,
+        resume=args.resume, device=args.device,
+    )
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ The JAX renderer's parameters are a pytree
      "rgb":   {"mlp": [...]}}
 
 of arrays; the port keeps the same tensors, in the same layouts, in the
-renderer's field and decoder modules.  Both directions go through numpy
-(the form checkpoints hold), so this module imports neither jax nor optax.
+renderer's field and decoder modules (`param_tree` lists them in that
+layout, which the optimizer state of a checkpoint shares).  Both directions
+go through numpy (the form checkpoints hold), so this module imports
+neither jax nor optax.
 """
 
 from __future__ import annotations
@@ -49,15 +51,51 @@ def load_params(renderer: NerfRenderer, params: dict) -> None:
     _mlp_into(renderer.rgb_decoder.mlp, params["rgb"]["mlp"], "rgb")
 
 
-def params_to_numpy(renderer: NerfRenderer) -> dict:
-    """The renderer's parameters as the JAX package's pytree of numpy arrays."""
-    arr = lambda t: t.detach().cpu().numpy().copy()
-    mlp = lambda m: [{"w": arr(w), "b": arr(b)} for w, b in zip(m.w, m.b)]
+def param_tree(renderer: NerfRenderer) -> dict:
+    """The renderer's parameters (the module tensors themselves) in the JAX
+    package's pytree layout."""
+    mlp = lambda m: [{"w": w, "b": b} for w, b in zip(m.w, m.b)]
     return {
-        "field": {"planes": [[arr(p) for p in scale] for scale in renderer.field.planes]},
+        "field": {"planes": [list(scale) for scale in renderer.field.planes]},
         "sigma": {"mlp": mlp(renderer.sigma_decoder.mlp)},
         "rgb": {"mlp": mlp(renderer.rgb_decoder.mlp)},
     }
+
+
+def tree_leaves_with_path(tree, path=()):
+    """(path, leaf) pairs in jax.tree_util's order: dict keys sorted, lists
+    in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """fn(path, leaf) applied to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def tree_map(fn, tree):
+    """`fn` applied to every leaf of a tree of dicts and lists."""
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def params_to_numpy(renderer: NerfRenderer) -> dict:
+    """The renderer's parameters as the JAX package's pytree of numpy arrays."""
+    return tree_map(to_numpy, param_tree(renderer))
 
 
 def occ_state_to_torch(state, device=None) -> OccupancyState:

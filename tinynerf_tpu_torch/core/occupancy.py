@@ -1,19 +1,30 @@
-"""Occupancy grid: state, adaptive threshold and the nearest-voxel query.
+"""Occupancy grid: state, adaptive threshold, the nearest-voxel query and
+the decay/confirm update.
 
-Counterpart of `tinynerf_tpu/core/occupancy.py` for serving: the grid is
-explicit state (`OccupancyState`, a NamedTuple of a `[r0, r1, r2]` float32
-grid indexed by (x, y, z) and its mean), queried at the nearest voxel in
-align_corners index space against the threshold min(base, mean).  The
-decay/confirm update and the trilinear query come with training
-(ROADMAP.md).
+Counterpart of `tinynerf_tpu/core/occupancy.py`: the grid is explicit
+state (`OccupancyState`, a NamedTuple of a `[r0, r1, r2]` float32 grid
+indexed by (x, y, z) and its mean), queried at the nearest voxel in
+align_corners index space against the threshold min(base, mean).  An update
+evaluates the density at one jittered point per voxel,
+
+    grid = 1 if 1 - exp(-sigma * step_size) > threshold else decay * grid,
+
+sweeping the grid in chunks of x-slices to bound the field's memory.  The
+jitter comes from an explicit `torch.Generator` (or is passed in: jax.random
+and torch cannot give the same numbers).  The trilinear query is not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+# field evaluations per chunk of the update sweep (16 x-slices of a 128^2
+# plane): bounds the sigma field's activations to a few hundred MB
+UPDATE_CHUNK_POINTS = 1 << 18
 
 
 class OccupancyState(NamedTuple):
@@ -64,3 +75,56 @@ class OccupancyGrid:
         iz = nearest_idx(coords[..., 2], r2)
         vals = state.grid.reshape(-1)[(ix * r1 + iy) * r2 + iz]
         return (vals > thr).float()
+
+    def occupancy(self, state: OccupancyState) -> torch.Tensor:
+        """Fraction of voxels considered occupied (a device scalar)."""
+        return (state.grid > self._threshold(state)).float().mean()
+
+    def update_slices(
+        self,
+        grid_slices: torch.Tensor,  # [n_slices, r1, r2]
+        x_indices: torch.Tensor,  # [n_slices] voxel x index of each slice
+        jitter: torch.Tensor,  # [n_slices, r1, r2, 3] uniform [0, 1)
+        threshold: torch.Tensor,
+        sigma_fn: Callable[[torch.Tensor], torch.Tensor],
+    ) -> torch.Tensor:
+        """Decay/confirm sweep over x-slices, in chunks of
+        UPDATE_CHUNK_POINTS field evaluations."""
+        _, r1, r2 = self.size
+        dev = grid_slices.device
+        size_f = torch.tensor(self.size, dtype=torch.float32, device=dev)
+        yz = torch.stack(torch.meshgrid(
+            torch.arange(r1, dtype=torch.float32, device=dev),
+            torch.arange(r2, dtype=torch.float32, device=dev), indexing="ij"), dim=-1)
+        per = max(1, UPDATE_CHUNK_POINTS // (r1 * r2))
+        out = torch.empty_like(grid_slices)
+        for a in range(0, grid_slices.shape[0], per):
+            xi = x_indices[a : a + per].float()
+            c = xi.shape[0]
+            idx = torch.cat([xi[:, None, None, None].expand(c, r1, r2, 1),
+                             yz.expand(c, r1, r2, 2)], dim=-1)  # voxel (x, y, z)
+            coords = -1.0 + 2.0 * (idx + jitter[a : a + per]) / size_f
+            sigma = sigma_fn(coords.reshape(-1, 3)).float().reshape(c, r1, r2)
+            alpha = 1.0 - torch.exp(-sigma * self.step_size)
+            out[a : a + per] = torch.where(alpha > threshold, 1.0, self.decay * grid_slices[a : a + per])
+        return out
+
+    def update(
+        self,
+        state: OccupancyState,
+        sigma_fn: Callable[[torch.Tensor], torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        jitter: Optional[torch.Tensor] = None,
+    ) -> OccupancyState:
+        """One full sweep: one jittered sigma sample per voxel.  `sigma_fn`
+        maps [n, 3] contracted coords to [n] densities; `jitter` [r0, r1,
+        r2, 3] in [0, 1) is drawn from `generator` when not given."""
+        dev = state.grid.device
+        if jitter is None:
+            jitter = torch.rand((*self.size, 3), generator=generator, device=dev)
+        with torch.no_grad():
+            grid = self.update_slices(
+                state.grid, torch.arange(self.size[0], device=dev), jitter,
+                self._threshold(state), sigma_fn,
+            )
+        return OccupancyState(grid=grid, mean=grid.mean())

@@ -1,8 +1,8 @@
-"""Volumetric renderer, forward: field + decoders + marcher + contraction +
-occupancy + transmittance weights + compositing.
+"""Volumetric renderer: field + decoders + marcher + contraction + occupancy
++ transmittance weights + compositing, for serving and training.
 
-Counterpart of `NerfRenderer` in `tinynerf_tpu/core/renderer.py` for
-serving.  Two paths with static shapes:
+Counterpart of `NerfRenderer` in `tinynerf_tpu/core/renderer.py`.  Two
+paths with static shapes:
 
   * `render_dense` evaluates every one of the [n_rays, n_samples] marched
     positions, with a validity mask (the reference semantics);
@@ -12,13 +12,16 @@ serving.  Two paths with static shapes:
     rays, and rays whose samples spilled past `cap` come back flagged
     (`ray_valid = 0`) so the caller can re-render them densely.
 
-The weights op is picked by the tensors' device (the JAX package picks by
-`jax.default_backend()`): on a CUDA tensor the hand-written kernels
-(`ops/segscan.py`, `ops/weights_dense.py`), on a CPU tensor their plain
-versions.  Parameters live in the field and decoder modules.  Marching is
-the dense march (every sample point queried against the occupancy grid);
-skip marching (`core/skipmarch.py`) is not ported yet, and selects exactly
-the same sample set.  Forward only: call under `torch.inference_mode()`.
+The weights ops and their gradients are picked by the tensors' device (the
+JAX package picks by `jax.default_backend()`): on a CUDA tensor the
+hand-written kernels (`ops/segscan.py`, `ops/weights_dense.py`), on a CPU
+tensor their plain versions.  Parameters live in the field and decoder
+modules, and gradients flow to them through both paths (serving calls
+them under `torch.inference_mode()`).  At train time every
+sample is jittered by the stateless hash of `ops/hashrng.py`, seeded with
+two uint32 words.  Marching is the dense march (every sample point queried
+against the occupancy grid); skip marching (`core/skipmarch.py`) is not
+ported yet, and selects exactly the same sample set.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.hashrng import hash_u01
 from ..ops.segscan import compute_weights_packed
 from ..ops.weights_dense import compute_weights_dense
 from .contraction import ContractionAABB
@@ -68,9 +72,29 @@ class NerfRenderer(nn.Module):
 
     # ------------------------------------------------------------- sub-fns
 
-    def _march(self, rays_o, rays_d, occ_state: Optional[OccupancyState]):
-        """Sample positions (contracted), step sizes and the validity mask."""
+    def sigma_fn(self, x: torch.Tensor) -> torch.Tensor:
+        """Density at contracted coords [n, 3] -> [n]; feeds occupancy updates."""
+        feats = self.field.apply_pieces(x, self.compute_dtype)
+        return self.sigma_decoder(feats, self.compute_dtype)
+
+    def _weights_dense(self, sigmas, deltas, maskf):
+        return compute_weights_dense(sigmas.float().contiguous(), deltas.contiguous(),
+                                     maskf.contiguous(), self.early_termination)
+
+    def _march(self, rays_o, rays_d, occ_state: Optional[OccupancyState], jitter_seed=None):
+        """Sample positions (contracted), step sizes and the validity mask.
+        With `jitter_seed` (two uint32 words) every sample moves by
+        u * delta, u = hash_u01(seed, ray, sample): the JAX package's
+        train-time jitter, given the words of its `fold_in(key, 0)`."""
         t, deltas = self.marcher(rays_o, rays_d)
+        if jitter_seed is not None:
+            dev = rays_o.device
+            u = hash_u01(
+                jitter_seed,
+                torch.arange(rays_o.shape[0], device=dev)[:, None],
+                torch.arange(t.shape[1], device=dev)[None, :],
+            )
+            t = t + u * deltas
         pos = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
         cpos, maskf = self.contraction(pos)
         if self.occupancy is not None and occ_state is not None:
@@ -87,15 +111,12 @@ class NerfRenderer(nn.Module):
 
     def render_dense(
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
-        rays_d: torch.Tensor,
+        rays_d: torch.Tensor, jitter_seed=None,
     ) -> RenderOutput:
-        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state)
+        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
         feats = self.field.apply_pieces(cpos, self.compute_dtype)
         sigmas = self.sigma_decoder(feats, self.compute_dtype)
-        w = compute_weights_dense(
-            sigmas.float().contiguous(), deltas.contiguous(), maskf.contiguous(),
-            self.early_termination,
-        )
+        w = self._weights_dense(sigmas, deltas, maskf)
         dirs = rays_d[:, None, :].expand(cpos.shape)
         rgbs = self.rgb_decoder(feats, dirs, self.compute_dtype)
         acc_rgb = torch.sum(w[..., None] * rgbs, dim=-2)
@@ -111,13 +132,15 @@ class NerfRenderer(nn.Module):
 
     def render_packed(
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
-        rays_d: torch.Tensor, cap: int,
+        rays_d: torch.Tensor, cap: int, jitter_seed=None,
+        rgb_dir_branch: str = "sample",
     ) -> RenderOutput:
-        """Fixed-capacity packed rendering, forward only.  The rgb decoder's
-        direction branch runs once per ray (the JAX package's
-        `rgb_dir_branch="ray"`, its serving form; same values as per sample)."""
+        """Fixed-capacity packed rendering.  `rgb_dir_branch="ray"` runs the
+        rgb decoder's direction branch once per ray and gathers it to the
+        samples (serving; the same values as "sample", the per-sample branch
+        training uses, as in the JAX package)."""
         n_rays = rays_o.shape[0]
-        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state)
+        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
         n_samples = self.marcher.n_samples
         total = n_rays * n_samples
         dev = rays_o.device
@@ -155,13 +178,16 @@ class NerfRenderer(nn.Module):
             seg_ids.to(torch.int32), self.early_termination, n_segments=n_rays,
         )
 
-        rgbs_cap = self.rgb_decoder.apply_per_ray(feats_cap, rays_d, ray_of, self.compute_dtype)
+        if rgb_dir_branch == "ray":
+            rgbs_cap = self.rgb_decoder.apply_per_ray(feats_cap, rays_d, ray_of, self.compute_dtype)
+        else:
+            rgbs_cap = self.rgb_decoder(feats_cap, rays_d[ray_of], self.compute_dtype)
 
         # --- per-ray reduction (a segment sum; pads land in row n_rays)
-        acc_rgb = torch.zeros(n_rays + 1, 3, dtype=torch.float32, device=dev)
-        acc_rgb.index_add_(0, seg_ids, w_cap[:, None] * rgbs_cap)
-        opacity = torch.zeros(n_rays + 1, dtype=torch.float32, device=dev)
-        opacity.index_add_(0, seg_ids, w_cap)
+        acc_rgb = torch.zeros(n_rays + 1, 3, dtype=torch.float32, device=dev).index_add(
+            0, seg_ids, w_cap[:, None] * rgbs_cap)
+        opacity = torch.zeros(n_rays + 1, dtype=torch.float32, device=dev).index_add(
+            0, seg_ids, w_cap)
         acc_rgb, opacity = acc_rgb[:n_rays], opacity[:n_rays]
 
         # --- rays whose samples spilled past `cap` are flagged; zero-sample

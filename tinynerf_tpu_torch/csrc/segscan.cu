@@ -2,7 +2,8 @@
 //
 // Replaces tinynerf_tpu/ops/segscan.py:_segscan_kernel (the Pallas TPU
 // segmented Hillis-Steele cumsum) together with the weights math around it
-// (segscan.py:_weights_packed_fwd_math).
+// (segscan.py:_weights_packed_fwd_math), and its reverse scan in the
+// backward (segscan.py:_cwp_bwd).
 //
 // What bounds it on an H100: memory.  Per sample it reads sigma, delta and
 // valid (12 B) and writes one weight (4 B), ~16 B of traffic for a few dozen
@@ -27,6 +28,15 @@
 // A segment longer than 32 samples loops; the serving path's rays hold up to
 // a few hundred samples, so no warp loops more than ~13 times.  Samples whose
 // segment is not listed (the renderer's pad tail) are not touched.
+//
+// Backward (weights_packed_bwd_kernel).  The TPU backward runs the segmented
+// scan in reverse for the strict suffix sums of w*g and reads the inclusive
+// optical depth c saved by its forward.  Here the forward keeps no c: the
+// same warp rescans s (two extra loads per sample, cheaper than writing and
+// re-reading c) and takes the suffix sum as total(w g) - incl(w g), one
+// reduction pass and one forward pass per segment (warp_scan.cuh).  Traffic
+// is ~28 B per sample read and 4 B written, so it is bound by memory like
+// the forward.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +79,17 @@ __global__ void segscan_kernel(const float* __restrict__ a,
   }
 }
 
+__global__ void weights_packed_bwd_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ deltas,
+    const float* __restrict__ valid, const float* __restrict__ w,
+    const float* __restrict__ g, const int* __restrict__ starts, int n_segments,
+    float* __restrict__ out) {
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x / tn::kWarp);
+  if (warp >= n_segments) return;  // warp-uniform
+  tn::weights_backward_run(sigmas, deltas, valid, w, g, starts[warp],
+                           starts[warp + 1], out);
+}
+
 int launch_blocks(int n_segments) {
   return (n_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
@@ -100,6 +121,24 @@ int tn_weights_packed(const void* sigmas, const void* deltas, const void* valid,
         static_cast<const float*>(sigmas), static_cast<const float*>(deltas),
         static_cast<const float*>(valid), static_cast<const int*>(starts),
         n_segments, threshold, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d loss / d sigmas of tn_weights_packed given the weights w and their
+// cotangent g; samples outside every listed segment are left untouched.
+int tn_weights_packed_bwd(const void* sigmas, const void* deltas,
+                          const void* valid, const void* w, const void* g,
+                          const void* starts, int n_segments, void* out,
+                          void* stream) {
+  if (n_segments > 0) {
+    weights_packed_bwd_kernel<<<launch_blocks(n_segments),
+                                kWarpsPerBlock * tn::kWarp, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(deltas),
+        static_cast<const float*>(valid), static_cast<const float*>(w),
+        static_cast<const float*>(g), static_cast<const int*>(starts),
+        n_segments, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

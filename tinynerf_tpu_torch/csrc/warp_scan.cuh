@@ -21,6 +21,13 @@ __device__ __forceinline__ float warp_inclusive_scan(float v) {
   return v;
 }
 
+// Sum over the 32 lanes of a warp, returned to every lane.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int k = kWarp / 2; k > 0; k >>= 1) v += __shfl_xor_sync(kFullMask, v, k);
+  return v;
+}
+
 // Transmittance weight of one sample from its optical depth s = sigma*delta*m
 // and the inclusive optical depth c of its ray up to and including it:
 //   w = exp(-(c - s)) * (1 - exp(-s)),  zero unless m > 0 and T_before > thr.
@@ -29,6 +36,41 @@ __device__ __forceinline__ float transmittance_weight(float s, float c, float m,
   const float t_before = expf(-(c - s));
   const float w = t_before * (1.0f - expf(-s));
   return (m > 0.0f && t_before > thr) ? w : 0.0f;
+}
+
+// Closed-form backward of the weights over one ray's samples [begin, end),
+// walked by one warp (every lane must call it):
+//   d sigma_k = delta_k * m_k * (incl_k(w g) - total(w g) + exp(-c_k) g_k)
+// with c_k the inclusive optical depth.  incl - total is minus the strict
+// suffix sum of w g, the reference's reverse scan.  Pass 1 reduces
+// total(w g); pass 2 scans s and w g together with both carries in
+// registers, so sums stay inside the ray.
+__device__ __forceinline__ void weights_backward_run(
+    const float* __restrict__ sigmas, const float* __restrict__ deltas,
+    const float* __restrict__ m, const float* __restrict__ w,
+    const float* __restrict__ g, int begin, int end, float* __restrict__ out) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  float total = 0.0f;
+  for (int i = begin + lane; i < end; i += kWarp) total += w[i] * g[i];
+  total = warp_sum(total);
+  float carry_s = 0.0f, carry_wg = 0.0f;
+  for (int base = begin; base < end; base += kWarp) {  // warp-uniform
+    const int i = base + lane;
+    const bool in = i < end;
+    float s = 0.0f, wg = 0.0f, gi = 0.0f, di = 0.0f, mi = 0.0f;
+    if (in) {
+      mi = m[i];
+      di = deltas[i];
+      s = sigmas[i] * di * mi;
+      gi = g[i];
+      wg = w[i] * gi;
+    }
+    const float c = carry_s + warp_inclusive_scan(s);
+    const float incl = carry_wg + warp_inclusive_scan(wg);
+    if (in) out[i] = di * (incl - total + expf(-c) * gi) * mi;
+    carry_s = __shfl_sync(kFullMask, c, kWarp - 1);
+    carry_wg = __shfl_sync(kFullMask, incl, kWarp - 1);
+  }
 }
 
 }  // namespace tn

@@ -1,9 +1,11 @@
-// Dense transmittance weights on an [R, S] ray-by-sample grid.
+// Dense transmittance weights on an [R, S] ray-by-sample grid, and their
+// backward.
 //
 // Replaces tinynerf_tpu/ops/weights_pallas.py:_fwd_kernel, the Pallas TPU
 // forward of compute_weights_pallas: per row, s = sigma*delta*m, inclusive
 // cumsum c along the row, w = exp(-(c - s)) * (1 - exp(-s)), zeroed where
-// m == 0 or T_before <= threshold.
+// m == 0 or T_before <= threshold; and weights_pallas.py:_bwd_kernel, its
+// closed-form backward d sigma = delta*(incl(wg) - total(wg) + exp(-c) g)*m.
 //
 // What bounds it on an H100: memory.  Each sample is read once as sigma,
 // delta and m (12 B) and written once as w (4 B); at the dense fallback's
@@ -18,6 +20,9 @@
 // __shfl_up_sync scan, a running carry in a register, and the fused exp/mask
 // epilogue, so sigma/delta/m are read once and w is written once.  Rows are
 // independent, so 2048 rows give 2048 warps, enough to fill the 132 SMs.
+// The backward keeps the layout: one warp per row, a reduction pass for
+// total(w g) and one scan pass for c and incl(w g) (warp_scan.cuh), ~28 B
+// read and 4 B written per sample, so memory bound as well.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +56,21 @@ __global__ void weights_dense_kernel(const float* __restrict__ sigmas,
   }
 }
 
+__global__ void weights_dense_bwd_kernel(const float* __restrict__ sigmas,
+                                         const float* __restrict__ deltas,
+                                         const float* __restrict__ mask,
+                                         const float* __restrict__ w,
+                                         const float* __restrict__ g,
+                                         int n_rows, int n_cols,
+                                         float* __restrict__ out) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / tn::kWarp);
+  if (row >= n_rows) return;  // warp-uniform
+  const int begin = row * n_cols;
+  tn::weights_backward_run(sigmas, deltas, mask, w, g, begin, begin + n_cols, out);
+}
+
+int row_blocks(int n_rows) { return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+
 }  // namespace
 
 extern "C" {
@@ -59,12 +79,26 @@ int tn_weights_dense(const void* sigmas, const void* deltas, const void* mask,
                      int n_rows, int n_cols, float threshold, void* out,
                      void* stream) {
   if (n_rows > 0 && n_cols > 0) {
-    const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    weights_dense_kernel<<<blocks, kWarpsPerBlock * tn::kWarp, 0,
+    weights_dense_kernel<<<row_blocks(n_rows), kWarpsPerBlock * tn::kWarp, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(deltas),
         static_cast<const float*>(mask), n_rows, n_cols, threshold,
         static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d loss / d sigmas of tn_weights_dense given the weights w and their
+// cotangent g, all [n_rows, n_cols].
+int tn_weights_dense_bwd(const void* sigmas, const void* deltas,
+                         const void* mask, const void* w, const void* g,
+                         int n_rows, int n_cols, void* out, void* stream) {
+  if (n_rows > 0 && n_cols > 0) {
+    weights_dense_bwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * tn::kWarp, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(deltas),
+        static_cast<const float*>(mask), static_cast<const float*>(w),
+        static_cast<const float*>(g), n_rows, n_cols, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

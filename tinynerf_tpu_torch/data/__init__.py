@@ -1,5 +1,8 @@
 from .formats import Intrinsics, NerfData, pinhole_rays
 from .parsers import parse_nerf_synthetic
-from .pipeline import PoseSet
+from .pipeline import PoseSet, RayPool, sample_ray_batch
 
-__all__ = ["Intrinsics", "NerfData", "pinhole_rays", "parse_nerf_synthetic", "PoseSet"]
+__all__ = [
+    "Intrinsics", "NerfData", "pinhole_rays", "parse_nerf_synthetic", "PoseSet",
+    "RayPool", "sample_ray_batch",
+]

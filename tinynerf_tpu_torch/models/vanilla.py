@@ -1,7 +1,8 @@
 """The sigma and color decoders every field shares.
 
 Counterpart of `OpacityDecoder` and `ColorDecoder` in
-`tinynerf_tpu/models/vanilla.py` (forward).  The vanilla feature field
+`tinynerf_tpu/models/vanilla.py`; gradients come from autograd (the
+clamped exp's through `ops/trunc_exp.py`).  The vanilla feature field
 itself is not ported yet (ROADMAP.md Queue 1).
 """
 

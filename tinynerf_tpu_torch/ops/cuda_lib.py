@@ -1,6 +1,7 @@
 """Build, load and call the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-`nvcc` compiles every source in `csrc/` into one shared library with a
+`nvcc` compiles every source in `csrc/` (one process per source, all
+started together) and links the objects into one shared library with a
 plain C interface, for `sm_90a` (H100), at first use.  The library is cached
 under `<checkout>/build/tinynerf_tpu_torch/`, keyed by a hash of the sources
 and the flags, and bound with ctypes: each C entry point takes pointers,
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tinynerf_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers / shared memory / spills per kernel, into the log
 )
 
@@ -35,6 +36,10 @@ _SIGNATURES = {
     "tn_segmented_cumsum": (_P, _P, _I, _P, _P),
     "tn_weights_packed": (_P, _P, _P, _P, _I, _F, _P, _P),
     "tn_weights_dense": (_P, _P, _P, _I, _I, _F, _P, _P),
+    "tn_weights_packed_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P),
+    "tn_weights_dense_bwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "tn_sort_i32": (_P, _I, _I, _P),
+    "tn_windowed_accumulate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -65,19 +70,35 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; raise with the log of any that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(c)}\n{o}" for c, rc, o in failed
+        ))
+    return "".join(outs)
+
+
 def _build(out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    return proc.stdout + proc.stderr
+    tag = f"tmp{os.getpid()}"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sorted(CSRC.glob("*.cu"))]
+    tmp = out.with_suffix(f".{tag}.so")
+    try:
+        log = _run_all([
+            [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)
+        ])
+        log += _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return log
 
 
 @functools.cache

@@ -1,10 +1,12 @@
-"""Bilinear plane lookups for the K-Planes forward.
+"""Bilinear plane lookups for K-Planes, and their table gradient.
 
-Counterpart of the semantic pieces of `tinynerf_tpu/ops/interp.py` that the
-serving forward uses: `_to_index_space`, `_cell_2d` and the per-scale value
-`_quad_lookup_fwd_value`.  Tables are feature-last `[r0, r1, F]`;
-coordinates are in [-1, 1] with align_corners=True semantics (-1 -> index
-0, +1 -> index r-1).
+Counterpart of the pieces of `tinynerf_tpu/ops/interp.py` that the K-Planes
+field uses: `_to_index_space`, `_cell_2d`, the per-scale value
+`_quad_lookup_fwd_value`, the exact 2x upsampling of nested grids and its
+transpose, and `multiscale_lookup_multiproj`, the lookup of every scale of
+every projection under one autograd Function.  Tables are feature-last
+`[r0, r1, F]`; coordinates are in [-1, 1] with align_corners=True semantics
+(-1 -> index 0, +1 -> index r-1).
 
 The JAX package builds a cell-packed `[(r0-1)(r1-1), 4F]` table so that a
 TPU gathers one row per sample; that is a TPU layout of the same values.
@@ -15,9 +17,12 @@ gathered rows equals gathering from a rounded table; the lerp is f32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
+
+from .bitonic import packed_bits_ok
+from .table_grad import table_grad_sorted
 
 
 def _to_index_space(c: torch.Tensor, res: int) -> torch.Tensor:
@@ -65,3 +70,181 @@ def _quad_lookup_fwd_value(
     rows = table.reshape(r0 * r1, f)[base[..., None] + offsets]  # [..., 4, F]
     vals = rows.to(gather_dtype).float()
     return torch.sum(vals * w[..., None], dim=-2)
+
+
+# --------------------------------------------------------------------------
+# Exact 2x upsampling of nested align_corners grids: a bilinear interpolant
+# on an (r, r) table is reproduced EXACTLY by bilinear interpolation of its
+# samples on the (2r-1, 2r-1) grid (nodes kept, midpoints averaged in).  So
+# every scale's gradient can be taken on the finest grid and pulled back
+# through the transpose of the upsampling.
+# --------------------------------------------------------------------------
+
+
+def _upsample2x_axis0(x: torch.Tensor) -> torch.Tensor:
+    """[r, ...] -> [2r-1, ...]: nodes kept, midpoints 0.5 * (left + right)."""
+    out = x.new_empty((2 * x.shape[0] - 1,) + tuple(x.shape[1:]))
+    out[0::2] = x
+    out[1::2] = 0.5 * (x[:-1] + x[1:])
+    return out
+
+
+def upsample2x_exact(table: torch.Tensor) -> torch.Tensor:
+    """[r0, r1, F] -> [2*r0-1, 2*r1-1, F], exact for bilinear interpolation."""
+    t = _upsample2x_axis0(table)
+    return _upsample2x_axis0(t.transpose(0, 1)).transpose(0, 1)
+
+
+def upsample_to(table: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Repeated exact 2x upsampling up to (r0, r1); the resolutions must nest
+    ((target-1) = 2^k * (source-1))."""
+    while table.shape[0] < r0 or table.shape[1] < r1:
+        table = upsample2x_exact(table)
+    if tuple(table.shape[:2]) != (r0, r1):
+        raise ValueError(f"resolutions do not nest: got {tuple(table.shape[:2])}, want {(r0, r1)}")
+    return table
+
+
+def _down_axis0(g: torch.Tensor) -> torch.Tensor:
+    """Transpose of `_upsample2x_axis0`: [2r-1, ...] -> [r, ...],
+    out[c] = g[2c] + 0.5 * (g[2c-1] + g[2c+1]) (terms past the edge are 0)."""
+    out = g[0::2].clone()
+    half = 0.5 * g[1::2]
+    out[:-1] += half
+    out[1:] += half
+    return out
+
+
+def _pullback_scales(fine: torch.Tensor, tables: Sequence[torch.Tensor]) -> tuple:
+    """Split the fused fine-grid gradient [r, r, f_tot] feature-wise and pull
+    each slice back to its table through the transpose of `upsample_to`
+    (per 2x level: axis 1, then axis 0, the reverse of the upsampling)."""
+    grads, off = [], 0
+    for t in tables:
+        g = fine[..., off : off + t.shape[-1]]
+        off += t.shape[-1]
+        while g.shape[0] > t.shape[0]:
+            g = _down_axis0(g.transpose(0, 1)).transpose(0, 1)
+            g = _down_axis0(g)
+        grads.append(g.contiguous())
+    return tuple(grads)
+
+
+def _fine_from_quad(gq: torch.Tensor, r_fine: int, f_tot: int) -> torch.Tensor:
+    """[n_cells, 4*f_tot] corner-major quad gradient -> [r, r, f_tot]: each
+    corner slice lands on its cell's corner node."""
+    r = r_fine - 1
+    gq4 = gq.reshape(r, r, 4 * f_tot)
+    fine = torch.zeros(r_fine, r_fine, f_tot, dtype=torch.float32, device=gq.device)
+    c = 0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            fine[dx : dx + r, dy : dy + r] += gq4[..., c * f_tot : (c + 1) * f_tot]
+            c += 1
+    return fine
+
+
+def _resolve_bwd_impl(bwd_impl: str, device: torch.device, n_cells: int, n: int) -> str:
+    """"auto" is the sorted-window pipeline with the bf16 payload on a CUDA
+    device (the JAX package's default on its accelerator) and the scatter
+    on the CPU; any sorted form falls back to the scatter when the packed
+    keys do not fit 31 bits (the JAX rule, `interp.py:895-896`).  The
+    scatter is the accumulation kernel's plain version, so on a CUDA device
+    it is taken only by that rule, never on request."""
+    impl = bwd_impl
+    if impl == "auto":
+        impl = "sorted_bf16" if device.type == "cuda" else "scatter"
+    if impl not in ("scatter", "sorted", "sorted_bf16"):
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
+    if impl == "scatter" and device.type == "cuda":
+        raise ValueError("bwd_impl='scatter' runs on CPU tensors only; on a CUDA device "
+                         "the table gradient goes through the sort and accumulation kernels")
+    if impl.startswith("sorted") and not packed_bits_ok(-(-n_cells // 256), n):
+        impl = "scatter"
+    return impl
+
+
+class _MultiProj(torch.autograd.Function):
+    """Forward: the per-scale lookups.  Backward: the gradient of every
+    projection's tables, taken on its finest grid (`_multiproj_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, gather_dtype, bwd_impl, n_proj, n_scales, *inputs):
+        coords, tables = inputs[:n_proj], inputs[n_proj:]
+        ctx.save_for_backward(*inputs)
+        ctx.meta = (bwd_impl, n_proj, n_scales)
+        return tuple(
+            _quad_lookup_fwd_value(tables[p * n_scales + s], coords[p], gather_dtype)
+            for p in range(n_proj) for s in range(n_scales)
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        bwd_impl, n_proj, n_scales = ctx.meta
+        saved = ctx.saved_tensors
+        coords, tables = saved[:n_proj], saved[n_proj:]
+        by_proj = [tables[p * n_scales : (p + 1) * n_scales] for p in range(n_proj)]
+        r_fine = max(t.shape[0] for t in by_proj[0])
+        f_tot = sum(t.shape[-1] for t in by_proj[0])
+        n_cells = (r_fine - 1) * (r_fine - 1)
+        n = coords[0][..., 0].numel()
+        impl = _resolve_bwd_impl(bwd_impl, coords[0].device, n_cells, n)
+
+        cells, ws, gs = [], [], []
+        for p in range(n_proj):
+            cell, w = _cell_2d(coords[p], r_fine, r_fine)
+            cells.append(cell.reshape(n))
+            ws.append(w.reshape(n, 4))
+            pieces = [
+                grads[p * n_scales + s] if grads[p * n_scales + s] is not None
+                else torch.zeros_like(coords[p][..., :1]).expand(*coords[p].shape[:-1], t.shape[-1])
+                for s, t in enumerate(by_proj[p])
+            ]
+            gs.append(torch.cat(pieces, dim=-1).reshape(n, f_tot).float())
+
+        if impl.startswith("sorted"):
+            gq_all = table_grad_sorted(
+                torch.stack(gs), torch.stack(ws), torch.stack(cells), n_cells,
+                payload_dtype=torch.bfloat16 if impl == "sorted_bf16" else torch.float32,
+            )
+            gq_by_proj = [gq_all[p] for p in range(n_proj)]
+        else:
+            # one scatter per projection, corner-major rows [c0(f_tot), .., c3]
+            gq_by_proj = [
+                torch.zeros(n_cells, 4 * f_tot, dtype=torch.float32, device=gs[p].device)
+                .index_add_(0, cells[p], (ws[p][:, :, None] * gs[p][:, None, :]).reshape(n, 4 * f_tot))
+                for p in range(n_proj)
+            ]
+        table_grads = []
+        for p in range(n_proj):
+            fine = _fine_from_quad(gq_by_proj[p], r_fine, f_tot)
+            table_grads.extend(_pullback_scales(fine, by_proj[p]))
+        return (None, None, None, None) + (None,) * n_proj + tuple(table_grads)
+
+
+def multiscale_lookup_multiproj(
+    tables_by_proj: Sequence[Sequence[torch.Tensor]],
+    coords_by_proj: Sequence[torch.Tensor],
+    gather_dtype: torch.dtype = torch.bfloat16,
+    bwd_impl: str = "auto",
+) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+    """Per-projection multiscale bilinear lookups with one shared backward.
+
+    tables_by_proj: per projection, its planes [r_s, r_s, F] whose (r - 1)
+    nest by powers of two; coords_by_proj: per projection [..., 2] in
+    [-1, 1].  Returns, per projection, the per-scale lookups [..., F] as a
+    tuple (the JAX op returns their feature concat; the pieces go straight
+    into the K-Planes product without that copy).
+
+    The backward follows `tinynerf_tpu/ops/interp.py:_multiproj_bwd`: the
+    cell and corner weights of every sample on the finest grid, the
+    corner-packed fine-cell gradient by the sorted-window pipeline
+    (`ops/table_grad.py`, all projections in one sort and one accumulation)
+    or by one scatter per projection (`bwd_impl`: "auto", "sorted",
+    "sorted_bf16" or "scatter"), then the fine table and each scale's table
+    through the upsampling transpose.  Coordinates get no gradient (sample
+    positions come from the no-grad march)."""
+    n_proj, n_scales = len(tables_by_proj), len(tables_by_proj[0])
+    flat = [t for ts in tables_by_proj for t in ts]
+    out = _MultiProj.apply(gather_dtype, bwd_impl, n_proj, n_scales, *coords_by_proj, *flat)
+    return tuple(tuple(out[p * n_scales : (p + 1) * n_scales]) for p in range(n_proj))

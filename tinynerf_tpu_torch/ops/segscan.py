@@ -1,10 +1,11 @@
 """Segmented scan over packed per-ray samples, and the packed weights on it.
 
-Counterpart of `tinynerf_tpu/ops/segscan.py` (forward only).  On a CUDA
-tensor each entry point launches the hand-written kernel in
-`csrc/segscan.cu` (one warp per segment, the carry in a register); on a CPU
-tensor it runs the plain PyTorch version beside it.  There is no fallback
-between the two: a CUDA input that the kernel cannot take raises.
+Counterpart of `tinynerf_tpu/ops/segscan.py`.  On a CUDA tensor each entry
+point launches the hand-written kernels in `csrc/segscan.cu` (one warp per
+segment, the carries in registers), the gradient of `compute_weights_packed`
+included; on a CPU tensor it runs the plain PyTorch version beside it.
+There is no fallback between the two: a CUDA input that the kernel cannot
+take raises.
 
 Input rule for the kernel: segment ids are contiguous runs in ASCENDING
 order (the renderer's ray-major ids are; `core/renderer.py`).  The JAX op
@@ -63,7 +64,8 @@ def compute_weights_packed_plain(
     sigmas, deltas, valid, seg, threshold: float = 1e-4,
     n_segments: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch packed weights (`segscan.py:_weights_packed_fwd_math`)."""
+    """Plain PyTorch packed weights (`segscan.py:_weights_packed_fwd_math`),
+    forward value only."""
     s = sigmas * deltas * valid
     c = segmented_cumsum_plain(s, seg)
     t_before = torch.exp(-(c - s))
@@ -73,6 +75,20 @@ def compute_weights_packed_plain(
     if in_range is not None:
         keep = keep & in_range
     return torch.where(keep, t_before * alpha, 0.0)
+
+
+def weights_packed_bwd_plain(
+    sigmas, deltas, valid, seg, w, g, n_segments: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch d loss / d sigmas (`segscan.py:_cwp_bwd`): the strict
+    segment suffix sum of w*g from a reversed segmented cumsum."""
+    s = sigmas * deltas * valid
+    c = segmented_cumsum_plain(s, seg)
+    wg = w * g
+    suffix_incl = segmented_cumsum_plain(wg.flip(0), seg.flip(0)).flip(0)
+    grad = deltas * (torch.exp(-c) * g - (suffix_incl - wg)) * valid
+    keep = _in_range(seg, n_segments)
+    return grad if keep is None else torch.where(keep, grad, 0.0)
 
 
 # ------------------------------------------------------------------ kernel
@@ -116,29 +132,19 @@ def segmented_cumsum(
 segmented_cumsum.launches = 0
 
 
-def compute_weights_packed(
-    sigmas: torch.Tensor,
-    deltas: torch.Tensor,
-    valid: torch.Tensor,
-    seg: torch.Tensor,
-    threshold: float = 1e-4,
-    n_segments: Optional[int] = None,
-) -> torch.Tensor:
-    """Rendering weights directly on the packed [cap] layout (forward).
+def _check_packed(name: str, seg, *floats) -> int:
+    (n,) = floats[0].shape
+    cuda_lib.check_cuda_inputs(name, torch.float32, (n,), *floats)
+    cuda_lib.check_cuda_inputs(name, torch.int32, (n,), seg)
+    return n
 
-    sigmas/deltas/valid: [cap] float32; seg: [cap] int32 ascending ids.
-    Same values as `ops.weights.compute_weights` on the dense layout.
-    """
-    if cuda_lib.runs_plain("compute_weights_packed", sigmas, deltas, valid, seg):
-        return compute_weights_packed_plain(
-            sigmas, deltas, valid, seg, threshold, n_segments
-        )
-    (n,) = sigmas.shape
-    cuda_lib.check_cuda_inputs(
-        "compute_weights_packed", torch.float32, (n,), sigmas, deltas, valid
-    )
-    cuda_lib.check_cuda_inputs("compute_weights_packed", torch.int32, (n,), seg)
-    starts = segment_starts(seg, n_segments)
+
+def weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments, starts):
+    """The forward value: kernel on CUDA tensors (segments `starts`), plain
+    on CPU tensors."""
+    if starts is None:
+        return compute_weights_packed_plain(sigmas, deltas, valid, seg, threshold, n_segments)
+    _check_packed("compute_weights_packed", seg, sigmas, deltas, valid)
     out = torch.zeros_like(sigmas)  # samples outside every listed segment: 0
     n_seg = starts.shape[0] - 1
     if n_seg > 0:
@@ -149,6 +155,65 @@ def compute_weights_packed(
         )
         compute_weights_packed.launches += 1
     return out
+
+
+def weights_packed_bwd(sigmas, deltas, valid, seg, w, g, n_segments=None, starts=None):
+    """d loss / d sigmas of the packed weights: kernel on CUDA tensors
+    (segments `starts`, found from `seg` when None), plain on CPU tensors.
+    Samples outside the listed segments (the pad tail) get 0."""
+    if cuda_lib.runs_plain("weights_packed_bwd", sigmas, deltas, valid, seg, w, g):
+        return weights_packed_bwd_plain(sigmas, deltas, valid, seg, w, g, n_segments)
+    g = g.contiguous()
+    _check_packed("weights_packed_bwd", seg, sigmas, deltas, valid, w, g)
+    if starts is None:
+        starts = segment_starts(seg, n_segments)
+    out = torch.zeros_like(sigmas)
+    n_seg = starts.shape[0] - 1
+    if n_seg > 0:
+        cuda_lib.library().call(
+            "tn_weights_packed_bwd", sigmas.data_ptr(), deltas.data_ptr(),
+            valid.data_ptr(), w.data_ptr(), g.data_ptr(), starts.data_ptr(), n_seg,
+            out.data_ptr(), cuda_lib.stream_of(sigmas),
+        )
+        weights_packed_bwd.launches += 1
+    return out
+
+
+weights_packed_bwd.launches = 0
+
+
+class _WeightsPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigmas, deltas, valid, seg, threshold, n_segments):
+        plain = cuda_lib.runs_plain("compute_weights_packed", sigmas, deltas, valid, seg)
+        starts = None if plain else segment_starts(seg, n_segments)
+        w = weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments, starts)
+        ctx.save_for_backward(sigmas, deltas, valid, seg, w, starts)
+        ctx.n_segments = n_segments
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        sigmas, deltas, valid, seg, w, starts = ctx.saved_tensors
+        grad = weights_packed_bwd(sigmas, deltas, valid, seg, w, g, ctx.n_segments, starts)
+        return grad, None, None, None, None, None
+
+
+def compute_weights_packed(
+    sigmas: torch.Tensor,
+    deltas: torch.Tensor,
+    valid: torch.Tensor,
+    seg: torch.Tensor,
+    threshold: float = 1e-4,
+    n_segments: Optional[int] = None,
+) -> torch.Tensor:
+    """Rendering weights directly on the packed [cap] layout.
+
+    sigmas/deltas/valid: [cap] float32; seg: [cap] int32 ascending ids.
+    Same values as `ops.weights.compute_weights` on the dense layout;
+    gradients flow to sigmas only (the closed form, `weights_packed_bwd`).
+    """
+    return _WeightsPacked.apply(sigmas, deltas, valid, seg, threshold, n_segments)
 
 
 compute_weights_packed.launches = 0

@@ -2,9 +2,9 @@
 
 Counterpart of `tinynerf_tpu/train/config.py`, field for field, so one set
 of flags drives both packages; the JAX file documents each field.  The
-serving slice reads the model, marching, occupancy and eval fields; the
-training fields wait for the training slice.  Mesh and sharding fields
-(`shard_tables`, `shard_bwd`) have no effect: the port runs on one device.
+port runs on one device: `train` refuses the sharding fields
+(`shard_tables`, `shard_bwd`) and `march="skip"` (skip marching is not
+ported; "auto" marches densely); `remat_field` has no effect.
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ import torch.nn.functional as F
 
 
 @dataclass
+class TrainMetrics:
+    loss: float = 0.0
+    occupancy: float = 1.0
+
+
+@dataclass
 class EvalMetrics:
     mse_loss: float = 0.0
     psnr: float = 0.0

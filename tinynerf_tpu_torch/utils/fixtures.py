@@ -2,8 +2,9 @@
 
 Counterpart of `tinynerf_tpu/utils/fixtures.py`: the three-lambertian-
 spheres scene (ray-traced analytically, camera poses drawn from a seeded
-numpy generator on a ring around the origin) returned as a `PoseSet`
-directly, with no files, and `make_shell_occupancy`, the converged-like
+numpy generator on a ring around the origin) returned as `NerfData` or a
+`PoseSet` directly, with no files (a `RayPool` for training takes the
+`NerfData`), and `make_shell_occupancy`, the converged-like
 occupancy state (a thin spherical shell) that the JAX package's bench
 renders against.
 """
@@ -74,7 +75,7 @@ def render_spheres(cam: np.ndarray, res: int) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
-def make_spheres_pose_set(n_views: int = 2, res: int = 800, seed: int = 0) -> PoseSet:
+def make_spheres_data(n_views: int = 2, res: int = 800, seed: int = 0) -> NerfData:
     """`n_views` labeled res x res views of the spheres scene, composited
     over a white background, as the Blender-synthetic loader composites."""
     rng = np.random.default_rng(seed)
@@ -89,13 +90,17 @@ def make_spheres_pose_set(n_views: int = 2, res: int = 800, seed: int = 0) -> Po
         imgs.append(rgba[..., :3] * a + bg * (np.float32(1.0) - a))
         cameras.append(cam.astype(np.float32))
     focal = res / (2.0 * np.tan(0.5 * CAMERA_ANGLE_X))
-    data = NerfData(
+    return NerfData(
         cameras=np.stack(cameras),
         intrinsics=Intrinsics(focal, focal, res / 2.0, res / 2.0, res, res),
         imgs=imgs,
         bg_color=bg,
     )
-    return PoseSet(data)
+
+
+def make_spheres_pose_set(n_views: int = 2, res: int = 800, seed: int = 0) -> PoseSet:
+    """`make_spheres_data` as a PoseSet (rendering and eval)."""
+    return PoseSet(make_spheres_data(n_views, res, seed))
 
 
 def shell_grid(res: int) -> np.ndarray:
