@@ -10,12 +10,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    all started together, for sm_90a);
 2. each kernel against its plain PyTorch version on the card, with the
    tolerances below, and both timed (median of 20 calls with CUDA events,
-   and device time per call under the profiler): the packed and dense
-   weights at the serving path's shapes, their backwards, the bitonic sort
-   and the windowed table-gradient accumulation (both payloads) at the
-   training path's shapes, the accumulation on cells laid out as training
-   lays them out (a hot window, and the packed buffer's pad tail in one
-   cell with a zero cotangent), so its split-window branch runs;
+   and device time per call under the profiler), beside the least time the
+   card could take (`bound_ms`: the bytes the function must move at 3.35
+   TB/s, or its f32 operations at 67 TFLOP/s, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time
+   (`library_ms`): the packed and dense weights at the serving path's
+   shapes, their backwards, the bitonic sort and the windowed
+   table-gradient accumulation (both payloads) at the training path's
+   shapes, the accumulation on cells laid out as training lays them out (a
+   hot window, and the packed buffer's pad tail in one cell with a zero
+   cotangent), so its split-window branch runs; and the oct cell-pack build
+   over the full-width Cobafa field's seven grids, in bf16 and f32,
+   bit-equal to its plain version and to the yardstick `copy_`;
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
    of 2048 rays, 64 packed samples per ray): a checkpoint of seeded random
@@ -33,9 +39,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    accumulation must have launched inside `train()`.  Then the gradients of
    one full-width dense chunk (2048 rays drawn over the views x 400
    samples, f32 compute) through the dense weights' backward kernel must
-   match the plain version's: d loss / d sigma and every parameter's.
+   match the plain version's: d loss / d sigma and every parameter's;
+5. the Cobafa serving slice at full width (TrainConfig(method="cobafa"):
+   basis grids 32/51/70/89/108/128^3 x 8/8/8/4/4/4, coefficients 64^3 x 6,
+   the 36 -> 128 field MLP with 5 hidden layers), as phase 3 on one view:
+   packed and dense must agree, the 32x32 f32 view on the card must match
+   the CPU's, and the oct build and both weights kernels must have
+   launched;
+6. the Cobafa training slice at full width, as phase 4 (dropout on): a
+   finite, falling loss, the oct build and the packed weights and their
+   backward launched inside `train()`; then one full-width dense chunk's
+   gradients through the oct-build kernel must match those through the
+   plain build, every leaf to 1e-5 of its max.
 
-The last two lines are a JSON record of the kernels and
+Each of phases 3-6 sets every kernel's launch count to 0 just before it
+drives its path and reads the counts just after; the comparisons with the
+plain versions are not counted.  The last two lines are a JSON record of
+the kernels (launches summed over phases 3-6, and by phase) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
 """
@@ -79,7 +99,18 @@ GRAD_RTOL_OF_MAX = 1e-5
 # contribution: 2^-8 of each table leaf's largest
 CHUNK_GRAD_RTOL_OF_MAX = 1e-4
 CHUNK_TABLE_GRAD_RTOL_OF_MAX = 2.0 ** -8
+# Cobafa's dense chunk, oct-build kernel vs plain build: the build is
+# bit-equal, so the forward is; the grids' gradients are f32 index_add_ sums
+# whose atomic order changes from run to run
+COBAFA_CHUNK_GRAD_RTOL_OF_MAX = 1e-5
 TRAIN_STEPS = 64
+# the card's published peaks (H100 SXM data sheet, at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+# f32 operations per sample of the weights (an exp counted as one): s =
+# sigma * delta * mask, the scan's add, exp(-(c - s)), 1 - exp(-s), the
+# product and the threshold; the backward's two scans and closed form
+WEIGHTS_FWD_FLOPS, WEIGHTS_BWD_FLOPS = 10, 14
 
 
 def card_line() -> str:
@@ -119,13 +150,32 @@ def device_ms(fn, runs: int = 20) -> float:
     return sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == dev) / 1e3 / runs
 
 
-def time_pair(label: str, kernel_fn, plain_fn) -> dict:
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float = 0.0) -> dict:
+    """The least time the card could take for work that reads its inputs
+    once and writes its outputs once (`n_bytes`) and does `flops` f32
+    operations outside the tensor cores: the larger of the two times."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=n_bytes, bound_flops=flops)
+
+
+def time_pair(label: str, kernel_fn, plain_fn, bound_: dict, library_fn=None) -> dict:
     """Median single-call time (CUDA events: what a caller waits, host
-    enqueue included) and device time per call, of kernel and plain."""
+    enqueue included) and device time per call, of kernel and plain, beside
+    the bound and the time of `library_fn` (one PyTorch call computing the
+    same function, timed only here; None where there is none)."""
     t = dict(ms=median_ms(kernel_fn), plain_ms=median_ms(plain_fn),
-             device_ms=device_ms(kernel_fn), plain_device_ms=device_ms(plain_fn))
-    print(f"{label}: call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (median of 20, CUDA events); "
-          f"device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms (profiler, per call)")
+             device_ms=device_ms(kernel_fn), plain_device_ms=device_ms(plain_fn), **bound_,
+             library_ms=median_ms(library_fn) if library_fn is not None else None)
+    lib = f"{t['library_ms']:.4f} ms" if library_fn is not None else "none"
+    print(f"{label}: call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib} (median of 20, "
+          f"CUDA events); device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms (profiler, "
+          f"per call); bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_bytes'] / 1e6:.1f} MB, "
+          f"{t['bound_flops'] / 1e9:.3f} GFLOP)")
     return t
 
 
@@ -186,6 +236,7 @@ def check_kernels(dev):
         f"kernel segscan weights [{sig.size}]",
         lambda: segscan.compute_weights_packed(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=n_rays),
         lambda: segscan.compute_weights_packed_plain(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=n_rays),
+        bound(nbytes(sig_t, dlt_t, val_t, seg_t) + 4 * sig.size, WEIGHTS_FWD_FLOPS * sig.size),
     ))
 
     # kernel 2: dense weights at [2048, 400]
@@ -207,6 +258,7 @@ def check_kernels(dev):
         f"kernel weights_dense [{r}, {s}]",
         lambda: weights_dense.compute_weights_dense(sig2, dlt2, msk2, 1e-4),
         lambda: weights_dense.compute_weights_dense_plain(sig2, dlt2, msk2, 1e-4),
+        bound(nbytes(sig2, dlt2, msk2) + 4 * r * s, WEIGHTS_FWD_FLOPS * r * s),
     ))
     return results
 
@@ -275,6 +327,7 @@ def check_training_kernels(dev):
         f"kernel segscan backward [{sig.size}]",
         lambda: segscan.weights_packed_bwd(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
         lambda: segscan.weights_packed_bwd_plain(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
+        bound(nbytes(sig_t, dlt_t, val_t, seg_t, w, g) + 4 * sig.size, WEIGHTS_BWD_FLOPS * sig.size),
     ))
 
     # kernel 3: dense weights backward at [2048, 400]
@@ -294,6 +347,7 @@ def check_training_kernels(dev):
         f"kernel weights_dense backward [{r}, {s}]",
         lambda: weights_dense.weights_dense_bwd(sig2, dlt2, msk2, w2, g2),
         lambda: weights.compute_weights_bwd(sig2, dlt2, msk2, w2, g2),
+        bound(nbytes(sig2, dlt2, msk2, w2, g2) + 4 * r * s, WEIGHTS_BWD_FLOPS * r * s),
     ))
 
     # kernel 4: the sort of the three projections' packed keys [3, 819,200]
@@ -308,7 +362,8 @@ def check_training_kernels(dev):
     print(f"kernel bitonic sort [3, {n}]: bit-equal to torch.sort")
     results["sort"] = dict(max_abs_err=0.0, **time_pair(
         f"kernel bitonic sort [3, {n}]", lambda: bitonic.sort_i32(keys),
-        lambda: bitonic.sort_i32_plain(keys)))
+        lambda: bitonic.sort_i32_plain(keys), bound(2 * nbytes(keys)),
+        lambda: torch.sort(keys, dim=-1)))
 
     # kernel 5: windowed accumulation, 3 x 819,200 samples into 262,144 x 384
     f, nc = 96, 4
@@ -326,6 +381,17 @@ def check_training_kernels(dev):
     if not (n_split >= 2).all():
         raise AssertionError("the accumulation input splits too few windows")
     empty = t(np.stack([np.bincount(c, minlength=n_cells) == 0 for c in cell_np]))
+    # the library yardstick: one index_add_ of the decoded f32 contributions
+    # (w_c * g for each corner c) into the output's cells; the decode, which
+    # the kernel does on the fly from the packed payload, is not timed
+    contrib = (wq[..., :, None] * gq[..., None, :]).reshape(3 * n, nc * f)
+    flat_cell = (cell.long() + (torch.arange(3, device=dev) * n_cells)[:, None]).reshape(-1)
+    lib_out = torch.zeros(3 * n_cells, nc * f, device=dev)
+    library = lambda: lib_out.index_add_(0, flat_cell, contrib)
+    # the work this run's data needs: each sample with a nonzero cotangent
+    # adds nc x f products into its cell (the pads' zero rows add nothing)
+    flops = 2.0 * nc * f * int((~t(zero_np)).sum())
+    out_bytes = 4 * 3 * n_cells * nc * f
     entry = {}
     for payload, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         rows = table_grad.pack_payload(gq, wq, cell, w_window, payload)
@@ -344,8 +410,10 @@ def check_training_kernels(dev):
             f"kernel windowed_accumulate {label} payload [3, {n}] -> [3, {n_cells}, {nc * f}]",
             lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window),
             lambda: table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window),
+            bound(nbytes(rows, offsets) + out_bytes, flops), library,
         )
         entry[label] = dict(max_abs_err=abs_err, **timed)
+    del contrib, lib_out
     # the training default is the bf16 payload (ops/interp.py); f32 rides along
     results["accumulate"] = {
         **entry["bf16"],
@@ -355,55 +423,143 @@ def check_training_kernels(dev):
     return results
 
 
-def run_training(tmp: str, card: str):
-    """Phase 4: `train()` at full width, the launch counts inside it, and a
-    full-width dense chunk's gradient through the backward kernel."""
+def oct_yardstick(table: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The oct table by one PyTorch call: a `copy_` of the table's 2x2x2
+    windows (unfold; corners dx, dy, dz with dz fastest) into the output
+    viewed as [r0-1, r1-1, r2-1, 2, 2, 2, F].  The port never calls it."""
+    r0, r1, r2, f = table.shape
+    out = torch.empty((r0 - 1) * (r1 - 1) * (r2 - 1), 8 * f, dtype=out_dtype, device=table.device)
+    windows = table.unfold(0, 2, 1).unfold(1, 2, 1).unfold(2, 2, 1).permute(0, 1, 2, 4, 5, 6, 3)
+    out.view(r0 - 1, r1 - 1, r2 - 1, 2, 2, 2, f).copy_(windows)
+    return out
+
+
+def check_oct_build(dev):
+    """Kernel 6 over the full-width Cobafa field's seven grids (the shapes
+    every field call builds): bit-equal to the plain build and to the
+    yardstick in bf16 (the field's) and f32, and timed as one roster."""
+    from tinynerf_tpu_torch.models import make_model
+    from tinynerf_tpu_torch.ops import octbuild
+
+    field = make_model("cobafa", device="meta")[0]
+    gen = torch.Generator(dev).manual_seed(2)
+    tables = [torch.randn(p.shape, device=dev, generator=gen) for p in (*field.basis, field.coef)]
+    roster = " ".join(f"{t.shape[0]}^3x{t.shape[3]}" for t in tables)
+    entry = {}
+    for out_dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for t in tables:
+            out = octbuild.build_oct(t, out_dtype)
+            if not (torch.equal(out, octbuild.build_oct_plain(t, out_dtype))
+                    and torch.equal(out, oct_yardstick(t, out_dtype))):
+                raise AssertionError(f"oct build ({label}) of {tuple(t.shape)} is not bit-equal to plain")
+            del out
+        print(f"kernel oct build {label} [{roster}]: bit-equal to the plain build and the copy_ yardstick")
+        out_bytes = sum((t.shape[0] - 1) * (t.shape[1] - 1) * (t.shape[2] - 1) * 8 * t.shape[3]
+                        for t in tables) * torch.empty((), dtype=out_dtype).element_size()
+        entry[label] = dict(max_abs_err=0.0, **time_pair(
+            f"kernel oct build {label}, the 7-grid roster",
+            lambda: [octbuild.build_oct(t, out_dtype) for t in tables],
+            lambda: [octbuild.build_oct_plain(t, out_dtype) for t in tables],
+            bound(nbytes(*tables) + out_bytes),
+            lambda: [oct_yardstick(t, out_dtype) for t in tables],
+        ))
+    for t in tables:  # the largest grid alone, bf16
+        if t.shape[0] == max(field.basis_res):
+            k = median_ms(lambda: octbuild.build_oct(t))
+            print(f"kernel oct build bf16 {tuple(t.shape)}: call {k:.4f} ms, yardstick "
+                  f"{median_ms(lambda: oct_yardstick(t, torch.bfloat16)):.4f} ms")
+    # the field builds bf16 tables (models/cobafa.py); f32 rides along
+    return {"oct_build": {**entry["bf16"],
+                          **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
+
+
+def counters() -> dict:
+    """Every kernel wrapper, by the key of the kernels record."""
+    from tinynerf_tpu_torch.ops import bitonic, octbuild, segscan, table_grad, weights_dense
+
+    return {
+        "segscan": segscan.compute_weights_packed,
+        "weights_dense": weights_dense.compute_weights_dense,
+        "segscan_bwd": segscan.weights_packed_bwd,
+        "weights_dense_bwd": weights_dense.weights_dense_bwd,
+        "sort": bitonic.sort_i32,
+        "accumulate": table_grad.windowed_accumulate,
+        "oct_build": octbuild.build_oct,
+    }
+
+
+def zero_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts(label: str, required) -> dict:
+    """The launches since `zero_counts`; raise if a kernel of `required`
+    was not launched."""
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters().items()}
+    print(f"{label} launches: {counts}")
+    for name in required:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by {label}")
+    return counts
+
+
+def _field_label(field) -> str:
+    if hasattr(field, "resolutions"):
+        return f"K-Planes resolutions {field.resolutions}"
+    return (f"Cobafa basis grids {field.basis_res} x channels {field.channels}, coefficients "
+            f"{field.coef_res}^3 x {len(field.basis_res)}, field MLP 36 -> {field.mlp_hidden_dim} x 6")
+
+
+# the kernels each driven path must launch
+SERVING_KERNELS = {"kplanes": ("segscan", "weights_dense"), "cobafa": ("segscan", "weights_dense", "oct_build")}
+TRAINING_KERNELS = {"kplanes": ("segscan", "segscan_bwd", "sort", "accumulate"),
+                    "cobafa": ("segscan", "segscan_bwd", "oct_build")}
+CHUNK_KERNELS = {"kplanes": ("weights_dense", "weights_dense_bwd"),
+                 "cobafa": ("weights_dense", "weights_dense_bwd", "oct_build")}
+
+
+def run_training(tmp: str, card: str, method: str) -> dict:
+    """Phases 4 (K-Planes) and 6 (Cobafa): `train()` at full width, the
+    launch counts inside it, and a full-width dense chunk's gradients
+    through the kernels against a reference pass through a plain version:
+    K-Planes swaps in the plain dense weights (kernel 3's check), Cobafa the
+    plain oct build (kernel 6's), each inside this script."""
     from tinynerf_tpu_torch.core import renderer as renderer_module
     from tinynerf_tpu_torch.data import RayPool
-    from tinynerf_tpu_torch.ops import bitonic, segscan, table_grad, weights, weights_dense
+    from tinynerf_tpu_torch.ops import interp, octbuild, weights, weights_dense
     from tinynerf_tpu_torch.train import TrainConfig, train
     from tinynerf_tpu_torch.utils import make_spheres_data
 
-    cfg = TrainConfig(output=tmp, steps=TRAIN_STEPS, seed=0)
+    name = f"{method} training"
+    cfg = TrainConfig(method=method, output=tmp, steps=TRAIN_STEPS, seed=0)
     pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
-    counters = {
-        "segscan": segscan.compute_weights_packed,
-        "segscan_bwd": segscan.weights_packed_bwd,
-        "sort": bitonic.sort_i32,
-        "accumulate": table_grad.windowed_accumulate,
-    }
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     out = train(cfg, pool, device="cuda")
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method])}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train launches during train(): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the training path")
 
     losses = np.array([m.loss for m in out["train_metrics"]])
     if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
-        raise AssertionError(f"training losses: shape {losses.shape} or non-finite values")
+        raise AssertionError(f"{name} losses: shape {losses.shape} or non-finite values")
     first, last = losses[:8].mean(), losses[-8:].mean()
-    print(f"train loss: first 8 steps {first:.5f}, last 8 steps {last:.5f} "
+    print(f"{name} loss: first 8 steps {first:.5f}, last 8 steps {last:.5f} "
           f"(every 8th: {np.round(losses[::8], 5).tolist()})")
     if not last < first:
-        raise AssertionError("the training loss did not fall")
+        raise AssertionError(f"the {name} loss did not fall")
     occ = [m.occupancy for m in out["train_metrics"]]
-    print(f"train occupancy after the updates at steps 0 and 32: {occ[0]:.4f}, {occ[-1]:.4f}")
+    print(f"{name} occupancy after the updates at steps 0 and 32: {occ[0]:.4f}, {occ[-1]:.4f}")
     ms = out["elapsed_s"] / TRAIN_STEPS * 1e3
-    print(f"train: {ms:.2f} ms/step over {TRAIN_STEPS} steps (occupancy updates and host syncs "
+    print(f"{name}: {ms:.2f} ms/step over {TRAIN_STEPS} steps (occupancy updates and host syncs "
           f"included), {out['rays_per_sec_per_chip']:,.0f} rays/s used by the loss, "
           f"peak device memory {peak_gb:.2f} GB [{card}]")
 
-    # kernel 3 on a driven path: one full-width dense chunk, f32 compute,
-    # its gradients through the kernels vs through the plain dense weights
-    # (put in the renderer module's place for the reference pass): d loss /
-    # d sigma, kept by a hook on the sigma decoder, and every parameter's
+    # one full-width dense chunk, f32 compute: d loss / d sigma, kept by a
+    # hook on the sigma decoder, and every parameter's gradient
     renderer = out["renderer"]
     renderer.compute_dtype = torch.float32
     gen = torch.Generator("cuda").manual_seed(0)
@@ -419,54 +575,60 @@ def run_training(tmp: str, card: str):
 
     hook = renderer.sigma_decoder.register_forward_hook(keep_sigma)
     grads, dsigma = {}, {}
-    weights_dense.weights_dense_bwd.launches = 0
-    weights_dense.compute_weights_dense.launches = 0
     for impl in ("kernel", "plain"):
         renderer.zero_grad(set_to_none=True)
-        if impl == "plain":
+        if impl == "plain" and method == "kplanes":
             renderer_module.compute_weights_dense = weights.compute_weights
+        elif impl == "plain":
+            interp.build_oct = octbuild.build_oct_plain
+        zero_counts()
         try:
             res = renderer.render_dense(out["occ_state"], o, d)
             (res.rgb * cot).sum().backward()
         finally:
             renderer_module.compute_weights_dense = weights_dense.compute_weights_dense
+            interp.build_oct = octbuild.build_oct
+        if impl == "kernel":
+            launches["chunk"] = read_counts(f"{name} dense chunk", CHUNK_KERNELS[method])
         grads[impl] = {k: p.grad.detach().clone() for k, p in renderer.named_parameters()}
         dsigma[impl] = sigma_out["y"].grad.detach().clone()
-        if impl == "kernel":
-            chunk_launches = {"weights_dense": weights_dense.compute_weights_dense.launches,
-                              "weights_dense_bwd": weights_dense.weights_dense_bwd.launches}
     hook.remove()
     torch.cuda.synchronize()
     n_valid = int(res.n_samples)
     n_zero = sum(int(float(g.abs().max()) == 0.0) for g in grads["plain"].values())
     err_sigma = _rel_err(dsigma["kernel"], dsigma["plain"])
     errs = {k: _rel_err(grads["kernel"][k], grads["plain"][k]) for k in grads["plain"]}
-    err_tables = max(e for k, e in errs.items() if k.startswith("field."))
+    err_field = max(e for k, e in errs.items() if k.startswith("field."))
     err_dec = max(e for k, e in errs.items() if not k.startswith("field."))
-    print(f"train dense chunk [{cfg.batch_size} x {cfg.n_samples}] f32, {n_valid} valid samples, "
-          f"kernels vs plain, max|diff| / max|plain|: d loss/d sigma {err_sigma:.3e} "
-          f"(tol {GRAD_RTOL_OF_MAX:g}); decoder leaves {err_dec:.3e} (tol {CHUNK_GRAD_RTOL_OF_MAX:g}); "
-          f"plane tables {err_tables:.3e} (tol {CHUNK_TABLE_GRAD_RTOL_OF_MAX:g}, bf16 payload); "
-          f"{n_zero} of {len(errs)} leaves with a zero gradient; launches {chunk_launches}")
+    if method == "kplanes":
+        # the plane tables' gradient passes the bf16 payload (see the limits)
+        limits = (GRAD_RTOL_OF_MAX, CHUNK_GRAD_RTOL_OF_MAX, CHUNK_TABLE_GRAD_RTOL_OF_MAX)
+    else:
+        limits = (COBAFA_CHUNK_GRAD_RTOL_OF_MAX,) * 3
+    print(f"{name} dense chunk [{cfg.batch_size} x {cfg.n_samples}] f32, {n_valid} valid samples, "
+          f"kernels vs plain, max|diff| / max|plain|: d loss/d sigma {err_sigma:.3e} (tol {limits[0]:g}); "
+          f"decoder leaves {err_dec:.3e} (tol {limits[1]:g}); field leaves {err_field:.3e} "
+          f"(tol {limits[2]:g}); {n_zero} of {len(errs)} leaves with a zero gradient")
     if n_valid == 0 or n_zero or not float(dsigma["plain"].abs().max()) > 0.0:
-        raise AssertionError("the dense chunk's check is empty: no valid samples or zero gradients")
-    if not (err_sigma <= GRAD_RTOL_OF_MAX and err_dec <= CHUNK_GRAD_RTOL_OF_MAX
-            and err_tables <= CHUNK_TABLE_GRAD_RTOL_OF_MAX):
-        raise AssertionError("dense chunk gradients disagree")
-    for name, n in chunk_launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the dense chunk's gradient")
-    return dict(launches, weights_dense_bwd=chunk_launches["weights_dense_bwd"])
+        raise AssertionError(f"the {name} dense chunk's check is empty: no valid samples or zero gradients")
+    if not (err_sigma <= limits[0] and err_dec <= limits[1] and err_field <= limits[2]):
+        raise AssertionError(f"{name} dense chunk gradients disagree")
+    del out, renderer, grads, dsigma, res
+    torch.cuda.empty_cache()
+    return launches
 
 
-def run_slice(tmp: str, card: str):
+def run_slice(tmp: str, card: str, method: str) -> dict:
+    """Phases 3 (K-Planes, two views) and 5 (Cobafa, one view): serving at
+    full width from a checkpoint of seeded random parameters."""
     from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
-    from tinynerf_tpu_torch.ops import segscan, weights_dense
     from tinynerf_tpu_torch.train import InferStats, TrainConfig, build_renderer, render_only, save_checkpoint
     from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_pose_set
 
-    cfg = TrainConfig(output=tmp)
-    pose_set = make_spheres_pose_set(n_views=2, res=800, seed=0)
+    name = f"{method} serving"
+    n_views = 2 if method == "kplanes" else 1
+    cfg = TrainConfig(method=method, output=tmp)
+    pose_set = make_spheres_pose_set(n_views=n_views, res=800, seed=0)
     renderer = build_renderer(
         cfg, pose_set.scene_scale, pose_set.bg_color, device="cuda",
         generator=torch.Generator().manual_seed(0),
@@ -477,15 +639,13 @@ def run_slice(tmp: str, card: str):
         "params": params_to_numpy(renderer), "occ_state": occ_state_to_numpy(occ),
         "meta": {"seed": 0},
     })
-    print(f"slice: K-Planes resolutions {renderer.field.resolutions}, {n_params} params "
+    print(f"{name}: {_field_label(renderer.field)}, {n_params} params "
           f"({n_params * 4 / 1e6:.1f} MB f32), compute {cfg.compute_dtype}, "
           f"{cfg.n_samples} samples/ray, chunk {cfg.batch_size}, "
           f"packed cap {cfg.batch_size * cfg.eval_samples_per_ray}")
     del renderer
 
-    segscan.compute_weights_packed.launches = 0
-    weights_dense.compute_weights_dense.launches = 0
-    torch.cuda.synchronize()
+    zero_counts()
     packed = InferStats()
     m_packed = render_only(cfg, pose_set, stats=packed)
     dense = InferStats()
@@ -494,31 +654,23 @@ def run_slice(tmp: str, card: str):
         make_spheres_pose_set(n_views=1, res=800, seed=0),  # view 0 again
         name="render_dense", stats=dense,
     )
-    torch.cuda.synchronize()
-    launches = {
-        "segscan": segscan.compute_weights_packed.launches,
-        "weights_dense": weights_dense.compute_weights_dense.launches,
-    }
-    print(f"slice launches during render_only: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the serving path")
+    launches = {"serve": read_counts(f"{name} render_only", SERVING_KERNELS[method])}
 
     for label, st, metrics in (("packed", packed, m_packed), ("dense", dense, m_dense)):
         for i, (img, sec, rays, m) in enumerate(zip(st.images, st.seconds, st.rays, metrics)):
             if img.shape != (800, 800, 3) or not np.isfinite(img).all():
-                raise AssertionError(f"{label} view {i}: shape {img.shape} or non-finite values")
+                raise AssertionError(f"{name} {label} view {i}: shape {img.shape} or non-finite values")
             if not (np.isfinite(m.psnr) and -1.0 <= m.ssim <= 1.0):
-                raise AssertionError(f"{label} view {i}: bad metrics {m}")
-            print(f"slice {label} view {i}: {sec:.3f} s, {rays / sec:,.0f} rays/s, "
+                raise AssertionError(f"{name} {label} view {i}: bad metrics {m}")
+            print(f"{name} {label} view {i}: {sec:.3f} s, {rays / sec:,.0f} rays/s, "
                   f"psnr {m.psnr:.3f}, ssim {m.ssim:.4f} (random weights) [{card}]")
-    print(f"slice packed: {packed.packed_samples} packed samples, "
+    print(f"{name} packed: {packed.packed_samples} packed samples, "
           f"{packed.fallback_rays} rays re-rendered densely")
     diff = np.abs(packed.images[0] - dense.images[0])
-    print(f"slice packed vs dense view 0: max abs {diff.max():.3e} (tol {PACKED_DENSE_MAX_ABS:g}), "
+    print(f"{name} packed vs dense view 0: max abs {diff.max():.3e} (tol {PACKED_DENSE_MAX_ABS:g}), "
           f"mean abs {diff.mean():.3e} (tol {PACKED_DENSE_MEAN_ABS:g})")
     if not (diff.max() <= PACKED_DENSE_MAX_ABS and diff.mean() <= PACKED_DENSE_MEAN_ABS):
-        raise AssertionError("packed and dense renders of view 0 disagree")
+        raise AssertionError(f"{name}: packed and dense renders of view 0 disagree")
 
     # small view at f32: kernels on the card vs plain versions on the CPU
     small = make_spheres_pose_set(n_views=1, res=32, seed=0)
@@ -529,10 +681,23 @@ def run_slice(tmp: str, card: str):
         render_only(cfg32, small, name=f"small_{device}", device=device, stats=st)
         imgs[device] = st.images[0]
     e = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
-    print(f"slice 32x32 f32 view, card kernels vs CPU plain: max abs {e:.3e} (tol {SMALL_VIEW_ATOL:g})")
+    print(f"{name} 32x32 f32 view, card kernels vs CPU plain: max abs {e:.3e} (tol {SMALL_VIEW_ATOL:g})")
     if not e <= SMALL_VIEW_ATOL:
-        raise AssertionError("card and CPU renders of the small view disagree")
+        raise AssertionError(f"{name}: card and CPU renders of the small view disagree")
     return launches
+
+
+KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
+    ("segscan", "segscan.compute_weights_packed", "segscan.cu", "tinynerf_tpu/ops/segscan.py:48"),
+    ("weights_dense", "weights_dense.compute_weights_dense", "weights_dense.cu",
+     "tinynerf_tpu/ops/weights_pallas.py:60"),
+    ("segscan_bwd", "segscan.weights_packed_bwd", "segscan.cu", "tinynerf_tpu/ops/segscan.py:48"),
+    ("weights_dense_bwd", "weights_dense.weights_dense_bwd", "weights_dense.cu",
+     "tinynerf_tpu/ops/weights_pallas.py:70"),
+    ("sort", "bitonic.sort_i32", "bitonic.cu", "tinynerf_tpu/ops/bitonic.py:73"),
+    ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
+    ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
+)
 
 
 def main() -> None:
@@ -557,29 +722,25 @@ def main() -> None:
     dev = torch.device("cuda")
     kern = check_kernels(dev)
     kern.update(check_training_kernels(dev))
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = run_slice(tmp, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        train_launches = run_training(tmp, card)
-
-    def entry(name, key, source, replaces, n):
-        return {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": n, **kern[key]}
+    kern.update(check_oct_build(dev))
+    launches = {}  # phase -> kernel -> launches
+    for phase, method, run in ((3, "kplanes", run_slice), (4, "kplanes", run_training),
+                               (5, "cobafa", run_slice), (6, "cobafa", run_training)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            for part, counts in run(tmp, card, method).items():
+                launches[f"{phase}_{method}_{part}"] = counts
+        print(f"phase {phase} ({method} {run.__name__}): {time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
-        entry("segscan.compute_weights_packed", "segscan", "segscan.cu",
-              "tinynerf_tpu/ops/segscan.py:48", launches["segscan"]),
-        entry("weights_dense.compute_weights_dense", "weights_dense", "weights_dense.cu",
-              "tinynerf_tpu/ops/weights_pallas.py:60", launches["weights_dense"]),
-        entry("segscan.weights_packed_bwd", "segscan_bwd", "segscan.cu",
-              "tinynerf_tpu/ops/segscan.py:48", train_launches["segscan_bwd"]),
-        entry("weights_dense.weights_dense_bwd", "weights_dense_bwd", "weights_dense.cu",
-              "tinynerf_tpu/ops/weights_pallas.py:70", train_launches["weights_dense_bwd"]),
-        entry("bitonic.sort_i32", "sort", "bitonic.cu",
-              "tinynerf_tpu/ops/bitonic.py:73", train_launches["sort"]),
-        entry("table_grad.windowed_accumulate", "accumulate", "table_grad.cu",
-              "tinynerf_tpu/ops/table_grad.py:66", train_launches["accumulate"]),
+        {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}", "replaces": replaces,
+         "launches": sum(c[key] for c in launches.values()),
+         "launches_by_phase": {ph: c[key] for ph, c in launches.items()}, **kern[key]}
+        for key, name, source, replaces in KERNELS
     ]}
+    for k in record["kernels"]:
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} was launched by no driven path")
     print(f"card: {card}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

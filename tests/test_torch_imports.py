@@ -1,0 +1,71 @@
+"""The port stands alone: every module of `tinynerf_tpu_torch`, and
+`chip_smoke.py`, imports with jax, optax and the JAX package unimportable;
+and the port's own native PNG loader (`tinynerf_tpu_torch/native`, built
+into `build/`, never beside its source) decodes a generated scene exactly
+as the JAX package's parser and the Pillow fallback do.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from tinynerf_tpu.data import parse_nerf_synthetic as jparse
+from tinynerf_tpu.utils.fixtures import make_synthetic_scene
+from tinynerf_tpu_torch import native
+from tinynerf_tpu_torch.data import parse_nerf_synthetic
+from tinynerf_tpu_torch.data.parsers import _load_image_rgb
+
+REPO = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORTS = """
+import importlib, pkgutil, sys
+for name in ("jax", "optax", "tinynerf_tpu"):
+    sys.modules[name] = None  # importing them now raises ImportError
+import tinynerf_tpu_torch
+names = ["chip_smoke", "tinynerf_tpu_torch.__main__"] + [
+    m.name for m in pkgutil.walk_packages(tinynerf_tpu_torch.__path__, "tinynerf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "tinynerf_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 30  # every module was walked
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_png_scene") / "spheres"
+    make_synthetic_scene(root, n_train=3, n_test=1, res=24, kind="spheres")
+    return root
+
+
+@pytest.mark.parametrize("bg", [(255, 255, 255), (0, 0, 0), (30, 200, 90)])
+def test_native_loader_matches_jax_parser(scene, bg):
+    """The port's parser (its native loader) gives the JAX parser's images,
+    bit for bit, and so does the Pillow fallback; RGBA over each bg."""
+    lib = native.get_lib()
+    assert lib is not None, "the native loader did not build (g++ and libpng)"
+    assert Path(lib._name).parent == native.BUILD_DIR
+    got = parse_nerf_synthetic(scene, "train", bg_color=bg)
+    ref = jparse(scene, "train", bg_color=bg)
+    assert len(got.imgs) == len(ref.imgs) == 3
+    for a, b in zip(got.imgs, ref.imgs):
+        assert a.dtype == np.float32 and a.shape == (24, 24, 3)
+        np.testing.assert_array_equal(a, b)
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    paths = [(scene / f["file_path"]).with_suffix(".png") for f in meta["frames"]]
+    for a, p in zip(got.imgs, paths):
+        np.testing.assert_array_equal(a, _load_image_rgb(p, bg))
+    assert native.load_images([scene / "missing.png"], (1.0, 1.0, 1.0)) is None

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
-backwards, the bitonic sort and the windowed table-gradient accumulation.
+backwards, the bitonic sort, the windowed table-gradient accumulation and
+the oct cell-pack build.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -15,14 +16,16 @@ test_torch_ops.py and test_torch_train_ops.py.  Tolerances: weights atol
 order); weight gradients 1e-5 of their largest magnitude (f32 sums of up
 to 400 terms in another order); sorts bit-equal (the keys are the same
 multiset); accumulated table gradients 1e-5 of their largest magnitude
-(f32 sums in another order, the atomics' order changing run to run).
+(f32 sums in another order, the atomics' order changing run to run); the
+oct build bit-equal (a relayout that rounds each value once, to nearest
+even in both).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tinynerf_tpu_torch.ops import bitonic, cuda_lib, segscan, table_grad, weights, weights_dense
+from tinynerf_tpu_torch.ops import bitonic, cuda_lib, interp, octbuild, segscan, table_grad, weights, weights_dense
 
 torch.set_num_threads(2)
 
@@ -71,6 +74,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         table_grad.windowed_accumulate(
             torch.empty(1, 8, 128, device="meta"), torch.empty(1, 2, dtype=torch.int32), 4, 4, 256, 256)
+    with pytest.raises(ValueError):
+        octbuild.build_oct(torch.empty(4, 4, 4, 2, device="meta"))
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_inputs("x", torch.float32, (4,), torch.zeros(4))
 
@@ -301,3 +306,42 @@ def test_windowed_accumulate_kernel_matches_plain(cuda_device, payload):
         assert table_grad.windowed_accumulate.launches == before + 1
         plain = table_grad.windowed_accumulate_plain(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
         torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)
+
+
+# the Cobafa field's seven grids at full width (make_model("cobafa")), then
+# ragged shapes: odd channel counts (12- and 24-byte corners), r = 2
+OCT_SHAPES = [(32, 32, 32, 8), (51, 51, 51, 8), (70, 70, 70, 8), (89, 89, 89, 4), (108, 108, 108, 4),
+              (128, 128, 128, 4), (64, 64, 64, 6), (5, 6, 7, 3), (7, 5, 6, 6), (2, 2, 2, 1), (9, 17, 9, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_oct_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
+    rng = np.random.default_rng(16)
+    for shape in OCT_SHAPES:
+        table = T(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+        before = octbuild.build_oct.launches
+        out = octbuild.build_oct(table, out_dtype)
+        assert octbuild.build_oct.launches == before + 1
+        assert torch.equal(out, octbuild.build_oct_plain(table, out_dtype)), shape
+
+
+@pytest.mark.cuda
+def test_trilinear_lookup_oct_on_card_matches_cpu(cuda_device):
+    """The lookup through the kernel's table on the card against the plain
+    build on the CPU: values 1e-6 (the lerp's f32 sum), table gradients 1e-5
+    of their largest magnitude (index_add_'s atomic order)."""
+    rng = np.random.default_rng(17)
+    table = rng.normal(size=(12, 10, 9, 6)).astype(np.float32)
+    x = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    x[:2] = [[-1, -1, -1], [1, 1, 1]]
+    cot = rng.normal(size=(4000, 6)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        t = T(table).to(dev).requires_grad_()
+        out = interp.trilinear_lookup_oct(t, T(x).to(dev))
+        out.backward(T(cot).to(dev))
+        res[str(dev)] = (out.detach().cpu(), t.grad.cpu())
+    (v_cpu, g_cpu), (v_card, g_card) = res["cpu"], res[str(cuda_device)]
+    torch.testing.assert_close(v_card, v_cpu, atol=1e-6, rtol=0)
+    torch.testing.assert_close(g_card, g_cpu, atol=_grad_tol(g_cpu), rtol=0)

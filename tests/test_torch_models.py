@@ -86,9 +86,8 @@ def test_make_model_matches_jax_resolutions(field_scale):
 
 
 def test_make_model_other_methods_not_ported():
-    for method in ("vanilla", "cobafa"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(method)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_model("vanilla")
 
 
 def test_init_from_generator():

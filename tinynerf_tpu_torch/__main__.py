@@ -1,13 +1,13 @@
 """Command line: `python -m tinynerf_tpu_torch`, with `train.py`'s flags.
 
-Without `--render_only` it trains on `--device` (K-Planes on Blender-
-synthetic AABB data) in a new experiment directory under `--output`, or,
-with `--resume`, continues the experiment `--output` names.  With
-`--render_only` it renders the test split from the latest checkpoint in
-`--output` (an experiment directory, written by either package) and
-reports metrics.  Nerfstudio data, unbounded scenes, the other methods and
-the sharding flags (`--shard_tables`, `--shard_bwd`) raise
-NotImplementedError naming the ROADMAP.md item.
+Without `--render_only` it trains on `--device` (`--method kplanes` or
+`--method cobafa`, on Blender-synthetic AABB data) in a new experiment
+directory under `--output`, or, with `--resume`, continues the experiment
+`--output` names.  With `--render_only` it renders the test split from the
+latest checkpoint in `--output` (an experiment directory, written by either
+package) and reports metrics.  Nerfstudio data, unbounded scenes, the
+vanilla method and the sharding flags (`--shard_tables`, `--shard_bwd`)
+raise NotImplementedError naming the ROADMAP.md item.
 """
 
 from __future__ import annotations

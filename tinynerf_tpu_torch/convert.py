@@ -6,9 +6,11 @@ The JAX renderer's parameters are a pytree
      "sigma": {"mlp": [{"w": [in, out], "b": [out]}, ...]},
      "rgb":   {"mlp": [...]}}
 
-of arrays; the port keeps the same tensors, in the same layouts, in the
-renderer's field and decoder modules (`param_tree` lists them in that
-layout, which the optimizer state of a checkpoint shares).  Both directions
+for K-Planes, with the field {"basis": [grid [r, r, r, C] per level],
+"coef": [R, R, R, L], "mlp": [...]} for Cobafa, of arrays; the port keeps
+the same tensors, in the same layouts, in the renderer's field and decoder
+modules (`param_tree` lists them in that layout, which the optimizer state
+of a checkpoint shares).  Both directions
 go through numpy (the form checkpoints hold), so this module imports
 neither jax nor optax.
 """
@@ -20,6 +22,7 @@ import torch
 
 from .core.occupancy import OccupancyState
 from .core.renderer import NerfRenderer
+from .models.cobafa import CobafaFeatureField
 
 
 def _copy_into(dst: torch.nn.Parameter, src, name: str) -> None:
@@ -38,27 +41,47 @@ def _mlp_into(mlp, layers, name: str) -> None:
         _copy_into(b, layer["b"], f"{name}[{i}].b")
 
 
+def _field_into(field, src: dict) -> None:
+    if isinstance(field, CobafaFeatureField):
+        if len(src["basis"]) != len(field.basis):
+            raise ValueError(f"{len(src['basis'])} basis levels do not fit {len(field.basis)}")
+        for i, (a, dst) in enumerate(zip(src["basis"], field.basis)):
+            _copy_into(dst, a, f"basis[{i}]")
+        _copy_into(field.coef, src["coef"], "coef")
+        _mlp_into(field.mlp, src["mlp"], "field mlp")
+        return
+    planes = src["planes"]
+    if len(planes) != len(field.planes):
+        raise ValueError(f"{len(planes)} scales do not fit {len(field.planes)}")
+    for s, (src_scale, dst_scale) in enumerate(zip(planes, field.planes)):
+        for p, (a, dst) in enumerate(zip(src_scale, dst_scale)):
+            _copy_into(dst, a, f"planes[{s}][{p}]")
+
+
 def load_params(renderer: NerfRenderer, params: dict) -> None:
     """Copy a JAX-layout parameter pytree (numpy or array leaves) into the
     renderer's modules, in place."""
-    planes = params["field"]["planes"]
-    if len(planes) != len(renderer.field.planes):
-        raise ValueError(f"{len(planes)} scales do not fit {len(renderer.field.planes)}")
-    for s, (src_scale, dst_scale) in enumerate(zip(planes, renderer.field.planes)):
-        for p, (src, dst) in enumerate(zip(src_scale, dst_scale)):
-            _copy_into(dst, src, f"planes[{s}][{p}]")
+    _field_into(renderer.field, params["field"])
     _mlp_into(renderer.sigma_decoder.mlp, params["sigma"]["mlp"], "sigma")
     _mlp_into(renderer.rgb_decoder.mlp, params["rgb"]["mlp"], "rgb")
+
+
+def _mlp_tree(m) -> list:
+    return [{"w": w, "b": b} for w, b in zip(m.w, m.b)]
 
 
 def param_tree(renderer: NerfRenderer) -> dict:
     """The renderer's parameters (the module tensors themselves) in the JAX
     package's pytree layout."""
-    mlp = lambda m: [{"w": w, "b": b} for w, b in zip(m.w, m.b)]
+    field = renderer.field
+    if isinstance(field, CobafaFeatureField):
+        field_tree = {"basis": list(field.basis), "coef": field.coef, "mlp": _mlp_tree(field.mlp)}
+    else:
+        field_tree = {"planes": [list(scale) for scale in field.planes]}
     return {
-        "field": {"planes": [list(scale) for scale in renderer.field.planes]},
-        "sigma": {"mlp": mlp(renderer.sigma_decoder.mlp)},
-        "rgb": {"mlp": mlp(renderer.rgb_decoder.mlp)},
+        "field": field_tree,
+        "sigma": {"mlp": _mlp_tree(renderer.sigma_decoder.mlp)},
+        "rgb": {"mlp": _mlp_tree(renderer.rgb_decoder.mlp)},
     }
 
 

@@ -19,9 +19,12 @@ tensor their plain versions.  Parameters live in the field and decoder
 modules, and gradients flow to them through both paths (serving calls
 them under `torch.inference_mode()`).  At train time every
 sample is jittered by the stateless hash of `ops/hashrng.py`, seeded with
-two uint32 words.  Marching is the dense march (every sample point queried
-against the occupancy grid); skip marching (`core/skipmarch.py`) is not
-ported yet, and selects exactly the same sample set.
+two uint32 words, and a field with dropout (Cobafa) gets two more words
+for its mask, where the JAX package's renderer passes `fold_in(key, 1)`;
+`sigma_fn` and serving pass none.  Marching is the dense march (every
+sample point queried against the occupancy grid); skip marching
+(`core/skipmarch.py`) is not ported yet, and selects exactly the same
+sample set.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..models.cobafa import CobafaFeatureField
 from ..ops.hashrng import hash_u01
 from ..ops.segscan import compute_weights_packed
 from ..ops.weights_dense import compute_weights_dense
@@ -72,9 +76,16 @@ class NerfRenderer(nn.Module):
 
     # ------------------------------------------------------------- sub-fns
 
+    def _field_apply(self, x: torch.Tensor, dropout_seed=None) -> tuple:
+        """The field's feature pieces; `dropout_seed` (two uint32 words)
+        reaches only a field with dropout."""
+        if dropout_seed is not None and isinstance(self.field, CobafaFeatureField):
+            return self.field.apply_pieces(x, self.compute_dtype, dropout_seed=dropout_seed)
+        return self.field.apply_pieces(x, self.compute_dtype)
+
     def sigma_fn(self, x: torch.Tensor) -> torch.Tensor:
         """Density at contracted coords [n, 3] -> [n]; feeds occupancy updates."""
-        feats = self.field.apply_pieces(x, self.compute_dtype)
+        feats = self._field_apply(x)
         return self.sigma_decoder(feats, self.compute_dtype)
 
     def _weights_dense(self, sigmas, deltas, maskf):
@@ -111,10 +122,10 @@ class NerfRenderer(nn.Module):
 
     def render_dense(
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
-        rays_d: torch.Tensor, jitter_seed=None,
+        rays_d: torch.Tensor, jitter_seed=None, dropout_seed=None,
     ) -> RenderOutput:
         cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
-        feats = self.field.apply_pieces(cpos, self.compute_dtype)
+        feats = self._field_apply(cpos, dropout_seed)
         sigmas = self.sigma_decoder(feats, self.compute_dtype)
         w = self._weights_dense(sigmas, deltas, maskf)
         dirs = rays_d[:, None, :].expand(cpos.shape)
@@ -132,7 +143,7 @@ class NerfRenderer(nn.Module):
 
     def render_packed(
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
-        rays_d: torch.Tensor, cap: int, jitter_seed=None,
+        rays_d: torch.Tensor, cap: int, jitter_seed=None, dropout_seed=None,
         rgb_dir_branch: str = "sample",
     ) -> RenderOutput:
         """Fixed-capacity packed rendering.  `rgb_dir_branch="ray"` runs the
@@ -165,7 +176,7 @@ class NerfRenderer(nn.Module):
         ray_of = torch.where(is_pad, 0, seg_ids)
 
         # --- the field and decoders run on exactly `cap` samples
-        feats_cap = self.field.apply_pieces(cpos_cap, self.compute_dtype)
+        feats_cap = self._field_apply(cpos_cap, dropout_seed)
         sigma_cap = self.sigma_decoder(feats_cap, self.compute_dtype)
 
         # --- transmittance directly on the packed layout: segment k is ray

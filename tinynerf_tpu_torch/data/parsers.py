@@ -2,11 +2,11 @@
 
 Counterpart of `parse_nerf_synthetic` in `tinynerf_tpu/data/parsers.py`:
 `transforms_{split}.json`, focal from `camera_angle_x`, RGBA composited
-over a bg color, [0, 1] float32 images.  PNGs are decoded by the JAX
-package's framework-free native loader (`tinynerf_tpu.native`, ctypes and
-libpng); Pillow is imported only for its fallback, so a machine without
-Pillow reads scenes whenever the native loader builds.  The nerfstudio
-parser comes later (ROADMAP.md).
+over a bg color, [0, 1] float32 images.  PNGs are decoded by the port's
+native loader (`tinynerf_tpu_torch.native`, ctypes and libpng); Pillow is
+imported only for its fallback, so a machine without Pillow reads scenes
+whenever the native loader builds.  The nerfstudio parser comes later
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from tinynerf_tpu import native
-
+from .. import native
 from .formats import Intrinsics, NerfData
 
 

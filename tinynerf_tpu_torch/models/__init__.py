@@ -1,3 +1,4 @@
+from .cobafa import CobafaFeatureField
 from .encodings import posenc_dim, positional_encoding
 from .kplanes import KPlanesFeatureField
 from .mlp import MLP, linear_apply, mlp_apply, mlp_apply_split, mlp_apply_split_per_ray
@@ -7,6 +8,7 @@ from .vanilla import ColorDecoder, OpacityDecoder
 __all__ = [
     "positional_encoding",
     "posenc_dim",
+    "CobafaFeatureField",
     "KPlanesFeatureField",
     "MLP",
     "linear_apply",

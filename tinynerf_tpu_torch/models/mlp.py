@@ -3,9 +3,11 @@
 Counterpart of `tinynerf_tpu/models/mlp.py`: in -> hidden x (1 +
 hidden_layers) -> out, ReLU between layers, none on the output.  Weights
 are stored `[in, out]` (activations @ W), the JAX package's layout, so
-parameters carry across unchanged (`convert.py`).  Init is torch.nn.Linear's
-default, U(+-1/sqrt(fan_in)) for weights and biases, drawn from an explicit
-`torch.Generator`.
+parameters carry across unchanged (`convert.py`).  Init, drawn from an
+explicit `torch.Generator`: "torch" is torch.nn.Linear's default,
+U(+-1/sqrt(fan_in)) for weights and biases; "he" is He-uniform weights,
+U(+-sqrt(6/fan_in)), and zero biases (the JAX package's `linear_init` modes;
+Cobafa's deep field MLP takes "he").
 
 `compute_dtype`: parameters stay f32 masters and are cast per matmul.  The
 split first layers accumulate their per-piece products in f32 (bf16 inputs,
@@ -31,17 +33,21 @@ class MLP(nn.Module):
         out_features: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        init: str = "torch",
     ):
         super().__init__()
+        if init not in ("torch", "he"):
+            raise ValueError(f"unknown init {init!r}")
         out_features = out_features if out_features is not None else hidden_features
         dims = [in_features] + [hidden_features] * (1 + hidden_layers) + [out_features]
         self.w = nn.ParameterList()
         self.b = nn.ParameterList()
         for d_in, d_out in zip(dims[:-1], dims[1:]):
-            bound = 1.0 / math.sqrt(d_in)
+            bound = math.sqrt(6.0 / d_in) if init == "he" else 1.0 / math.sqrt(d_in)
             u = lambda *shape: torch.empty(shape).uniform_(-bound, bound, generator=generator)
             self.w.append(nn.Parameter(u(d_in, d_out).to(device)))
-            self.b.append(nn.Parameter(u(d_out).to(device)))
+            b = torch.zeros(d_out) if init == "he" else u(d_out)
+            self.b.append(nn.Parameter(b.to(device)))
 
     def layers(self) -> List[dict]:
         """The JAX package's layer list: [{"w": [in, out], "b": [out]}, ...]."""

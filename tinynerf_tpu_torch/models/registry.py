@@ -1,12 +1,15 @@
 """Method registry: field + the shared decoders, wired as the JAX package's
-`tinynerf_tpu/models/registry.py:make_model` does.  Only K-Planes is ported."""
+`tinynerf_tpu/models/registry.py:make_model` does.  K-Planes and Cobafa are
+ported; the vanilla field is not yet."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from .cobafa import CobafaFeatureField
 from .kplanes import KPlanesFeatureField
 from .vanilla import ColorDecoder, OpacityDecoder
 
@@ -19,23 +22,35 @@ def make_model(
     field_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
     device=None,
-) -> Tuple[KPlanesFeatureField, OpacityDecoder, ColorDecoder]:
+) -> Tuple[Union[KPlanesFeatureField, CobafaFeatureField], OpacityDecoder, ColorDecoder]:
     """Returns (feature_field, sigma_decoder, rgb_decoder), initialized from
     `generator` on `device`.
 
-    `field_scale` scales the table resolutions while keeping the structure:
-    the base resolution b = max(9, round(129 * s) | 1) and the nesting
-    (b, 2b-1, 4b-3) the fused multiscale lookup requires; 1.0 gives the
-    reference's (129, 257, 513)."""
+    `field_scale` scales the table resolutions while keeping the structure.
+    K-Planes: the base resolution b = max(9, round(129 * s) | 1) and the
+    nesting (b, 2b-1, 4b-3) the fused multiscale lookup requires; 1.0 gives
+    the reference's (129, 257, 513).  Cobafa: basis grids max(8, int(r * s))
+    for r in linspace(32, 128, 6) and a coefficient grid max(8, int(64 * s)),
+    with the channels, frequencies and MLP width unchanged."""
+    s = float(field_scale)
     if method == "kplanes":
-        b = max(9, int(round(129 * float(field_scale))) | 1)
+        b = max(9, int(round(129 * s)) | 1)
         field = KPlanesFeatureField(
             feature_dim_per_plane=32, resolutions=(b, 2 * b - 1, 4 * b - 3),
             generator=generator, device=device,
         )
-    elif method in ("vanilla", "cobafa"):
+    elif method == "cobafa":
+        field = CobafaFeatureField(
+            basis_res=tuple(max(8, int(r * s)) for r in np.linspace(32.0, 128.0, 6)),
+            coef_res=max(8, int(64 * s)),
+            freqs=tuple(float(f) for f in np.linspace(2.0, 8.0, 6)),
+            channels=(8, 8, 8, 4, 4, 4),
+            mlp_hidden_dim=128,
+            generator=generator, device=device,
+        )
+    elif method == "vanilla":
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md Queue 1, items 11-12)"
+            "method 'vanilla' is not ported yet (ROADMAP.md Queue 1, item 11)"
         )
     else:
         raise NotImplementedError(f"Unknown method {method!r}.")

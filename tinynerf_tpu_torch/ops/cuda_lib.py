@@ -40,6 +40,7 @@ _SIGNATURES = {
     "tn_weights_dense_bwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "tn_sort_i32": (_P, _I, _I, _P),
     "tn_windowed_accumulate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "tn_build_oct": (_P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

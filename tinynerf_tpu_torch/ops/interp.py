@@ -1,18 +1,23 @@
-"""Bilinear plane lookups for K-Planes, and their table gradient.
+"""Bilinear plane lookups for K-Planes and trilinear grid lookups for
+Cobafa, and their table gradients.
 
-Counterpart of the pieces of `tinynerf_tpu/ops/interp.py` that the K-Planes
-field uses: `_to_index_space`, `_cell_2d`, the per-scale value
+Counterpart of the pieces of `tinynerf_tpu/ops/interp.py` that the two
+fields use: `_to_index_space`, `_cell_2d`, the per-scale value
 `_quad_lookup_fwd_value`, the exact 2x upsampling of nested grids and its
-transpose, and `multiscale_lookup_multiproj`, the lookup of every scale of
-every projection under one autograd Function.  Tables are feature-last
-`[r0, r1, F]`; coordinates are in [-1, 1] with align_corners=True semantics
-(-1 -> index 0, +1 -> index r-1).
+transpose, `multiscale_lookup_multiproj` (the lookup of every scale of every
+projection under one autograd Function), and for Cobafa `_cell_3d`,
+`trilinear_lookup_oct` and `sawtooth`.  Tables are feature-last
+(`[r0, r1, F]`, `[r0, r1, r2, F]`); coordinates are in [-1, 1] with
+align_corners=True semantics (-1 -> index 0, +1 -> index r-1).
 
-The JAX package builds a cell-packed `[(r0-1)(r1-1), 4F]` table so that a
-TPU gathers one row per sample; that is a TPU layout of the same values.
-Here the four corner rows are gathered from the flat `[r0*r1, F]` table
-directly.  Rounding to `gather_dtype` is elementwise, so rounding the
-gathered rows equals gathering from a rounded table; the lerp is f32.
+For K-Planes the JAX package builds a cell-packed `[(r0-1)(r1-1), 4F]`
+table so that a TPU gathers one row per sample; that is a TPU layout of the
+same values.  Here the four corner rows are gathered from the flat
+`[r0*r1, F]` table directly.  Rounding to `gather_dtype` is elementwise, so
+rounding the gathered rows equals gathering from a rounded table; the lerp
+is f32.  The trilinear lookup keeps the JAX package's cell-packed oct table
+(`ops/octbuild.py`, a CUDA kernel on the card): one gather of an 8F row per
+sample.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .bitonic import packed_bits_ok
+from .octbuild import CORNERS_3D, build_oct
 from .table_grad import table_grad_sorted
 
 
@@ -248,3 +254,77 @@ def multiscale_lookup_multiproj(
     flat = [t for ts in tables_by_proj for t in ts]
     out = _MultiProj.apply(gather_dtype, bwd_impl, n_proj, n_scales, *coords_by_proj, *flat)
     return tuple(tuple(out[p * n_scales : (p + 1) * n_scales]) for p in range(n_proj))
+
+
+# --------------------------------------------------------------------------
+# Trilinear lookups on 3-D grids (Cobafa).
+# --------------------------------------------------------------------------
+
+
+def _cell_3d(coords: torch.Tensor, r0: int, r1: int, r2: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cell [...] row of the (r0-1)(r1-1)(r2-1) cell grid, weights [..., 8]
+    in `CORNERS_3D` order).  Origins are clipped to [0, r-2], so at coord +1
+    the last cell interpolates with t == 1."""
+    x = _to_index_space(coords[..., 0], r0)
+    y = _to_index_space(coords[..., 1], r1)
+    z = _to_index_space(coords[..., 2], r2)
+    x0 = torch.clamp(torch.floor(x), 0, r0 - 2).to(torch.int32)
+    y0 = torch.clamp(torch.floor(y), 0, r1 - 2).to(torch.int32)
+    z0 = torch.clamp(torch.floor(z), 0, r2 - 2).to(torch.int32)
+    tx, ty, tz = x - x0, y - y0, z - z0
+    cell = (x0.long() * (r1 - 1) + y0) * (r2 - 1) + z0
+    wx, wy, wz = (1 - tx, tx), (1 - ty, ty), (1 - tz, tz)
+    w = torch.stack([wx[dx] * wy[dy] * wz[dz] for dx, dy, dz in CORNERS_3D], dim=-1)
+    return cell, w
+
+
+class _TrilinearOct(torch.autograd.Function):
+    """Forward: the oct table (`build_oct`), one row gather per sample, the
+    f32 lerp.  Backward: `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd`,
+    the corner-packed cell gradient by one scatter of [n, 8F] f32 rows, then
+    its eight corner slices added back onto the grid.  Only the coordinates
+    are saved: the cell and weights are recomputed, and no oct table is kept
+    alive across the backward."""
+
+    @staticmethod
+    def forward(ctx, table, coords, gather_dtype):
+        r0, r1, r2, f = table.shape
+        oct_t = build_oct(table, gather_dtype)
+        cell, w = _cell_3d(coords, r0, r1, r2)
+        rows = oct_t[cell.reshape(-1)].float().reshape(*cell.shape, 8, f)
+        del oct_t
+        ctx.save_for_backward(coords)
+        ctx.table_shape = (r0, r1, r2, f)
+        return torch.sum(rows * w[..., None], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        r0, r1, r2, f = ctx.table_shape
+        cell, w = _cell_3d(coords, r0, r1, r2)
+        n = cell.numel()
+        contrib = (g.float().reshape(n, 1, f) * w.reshape(n, 8, 1)).reshape(n, 8 * f)
+        m = (r0 - 1, r1 - 1, r2 - 1)
+        gq = torch.zeros(m[0] * m[1] * m[2], 8 * f, dtype=torch.float32, device=g.device)
+        gq.index_add_(0, cell.reshape(-1), contrib)
+        gq = gq.reshape(*m, 8 * f)
+        grad = torch.zeros(r0, r1, r2, f, dtype=torch.float32, device=g.device)
+        for c, (dx, dy, dz) in enumerate(CORNERS_3D):
+            grad[dx : dx + m[0], dy : dy + m[1], dz : dz + m[2]] += gq[..., c * f : (c + 1) * f]
+        return grad, None, None
+
+
+def trilinear_lookup_oct(
+    table: torch.Tensor, coords: torch.Tensor, gather_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Trilinear lookup of `table` [r0, r1, r2, F] at coords [..., 3] in
+    [-1, 1] -> f32 [..., F], corners rounded to `gather_dtype` (the oct
+    table's type).  Gradients flow to the table only (sample positions come
+    from the no-grad march)."""
+    return _TrilinearOct.apply(table, coords, gather_dtype)
+
+
+def sawtooth(x: torch.Tensor, f: float) -> torch.Tensor:
+    """Periodic tiling encoding 2 * ((f x) mod 1) - 1 in [-1, 1): floor mod
+    (`torch.remainder`, as `jnp.mod`), so negative inputs wrap upward."""
+    return 2.0 * torch.remainder(f * x, 1.0) - 1.0

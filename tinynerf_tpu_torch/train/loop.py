@@ -256,13 +256,15 @@ def make_train_step(
     """One train step for `n_cand` candidate rays:
     fn(occ_state, pool_o, pool_d, pool_rgb, generator) -> metrics, a dict of
     device scalars (loss, rays_used, fill).  The step samples the batch and
-    the jitter seed from `generator`, renders the packed path, takes the
-    per-ray MSE over rays that fit the sample cap plus the K-Planes TV/L1
-    regularizers, and updates the parameters in place.
+    four seed words from `generator` (two for the sample jitter, two for a
+    field's dropout mask), renders the packed path, takes the per-ray MSE
+    over rays that fit the sample cap plus the K-Planes TV/L1 regularizers,
+    and updates the parameters in place.
 
     `deterministic=True` (tests) takes the pool's first `n_cand` rays with no
-    jitter, and adds the gradients (JAX layout, the update's input) to the
-    metrics: the JAX package's seam for comparing steps.
+    jitter and no dropout (the JAX step's `krender=None`), and adds the
+    gradients (JAX layout, the update's input) to the metrics: the JAX
+    package's seam for comparing steps.
     """
     cap = cfg.sample_cap
     field_ = renderer.field
@@ -272,11 +274,13 @@ def make_train_step(
     def step(occ_state, pool_o, pool_d, pool_rgb, generator=None):
         if deterministic:
             rays_o, rays_d, rgbs = pool_o[:n_cand], pool_d[:n_cand], pool_rgb[:n_cand]
-            seed = None
+            jitter_seed = dropout_seed = None
         else:
             rays_o, rays_d, rgbs = sample_ray_batch(generator, pool_o, pool_d, pool_rgb, n_cand)
-            seed = torch.randint(0, 2**32, (2,), generator=generator, device=pool_o.device)
-        out = renderer.render_packed(occ_state, rays_o, rays_d, cap, jitter_seed=seed)
+            words = torch.randint(0, 2**32, (4,), generator=generator, device=pool_o.device)
+            jitter_seed, dropout_seed = words[:2], words[2:]
+        out = renderer.render_packed(occ_state, rays_o, rays_d, cap,
+                                     jitter_seed=jitter_seed, dropout_seed=dropout_seed)
         per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
         num = torch.sum(per_ray_mse * out.ray_valid)
         den = torch.sum(out.ray_valid)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one GPU (tinynerf_tpu_torch).
 
-    python3 tools/profile_train_torch.py [--steps 10] [--out profile.txt]
+    python3 tools/profile_train_torch.py [--method kplanes|cobafa] [--steps 10] [--out profile.txt]
 
-Builds the full-width K-Planes trainer (TrainConfig defaults: planes
-129/257/513 x 3 x 32, batch 2048 rays, 400 samples, cap 819,200, bf16
-compute; seeded random parameters) on four generated 800x800 views of the
-spheres scene, and profiles train steps in two occupancy states:
+Builds the full-width trainer of `--method` (TrainConfig defaults: batch
+2048 rays, 400 samples, cap 819,200, bf16 compute; K-Planes planes
+129/257/513 x 3 x 32, or Cobafa basis grids 32..128^3 and coefficients
+64^3 x 6 with its 7-layer field MLP; seeded random parameters) on four
+generated 800x800 views of the spheres scene, and profiles train steps in
+two occupancy states:
 
   * "early": the all-occupied grid a run starts from (every marched sample
     in the box is kept, so the cap holds ~1-2 buckets of rays);
@@ -15,8 +17,10 @@ spheres scene, and profiles train steps in two occupancy states:
 
 For each it reports the host-clock time per step (synchronized), the device
 time the profiler saw (sum of kernel times), the device's busy share of the
-window, and the kernels that took the most device time, to stdout and, with
---out, to a file.  Needs a CUDA device.
+window, the kernels that took the most device time, and the share of the
+port's own CUDA kernels (`csrc/*.cu`: the weights, sort, accumulation and
+oct build kernels, by name), to stdout and, with --out, to a file.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -37,7 +41,12 @@ from tinynerf_tpu_torch.train import TrainConfig, build_renderer, make_optimizer
 from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
 
 
-def _kernel_table(prof, top: int):
+# the port's hand-written kernels, by the names nvcc gives them in a trace
+PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "bitonic",
+                "windowed_accumulate", "oct_build")
+
+
+def _kernel_table(prof):
     """(total device us, rows of (us, calls, name)) over the events that ran
     on the device; the CPU-side aten ops, which report their kernels' time
     as their own, are left out so nothing is counted twice."""
@@ -46,7 +55,7 @@ def _kernel_table(prof, top: int):
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             rows.append((ev.self_device_time_total, ev.count, ev.key))
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows[:top]
+    return sum(r[0] for r in rows), rows
 
 
 def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> str:
@@ -65,7 +74,7 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> 
             step()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    dev_us, rows = _kernel_table(prof, top)
+    dev_us, rows = _kernel_table(prof)
     lines = [
         f"{name}: bucket {bucket} ({bucket * 2048} candidate rays), fill {fill:.3f} of cap {cap}; "
         f"{wall * 1e3:.3f} ms/step host clock ({n_steps} steps); under the profiler "
@@ -73,9 +82,15 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> 
         f"device busy {dev_us / 1e6 / prof_wall:.1%}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
     ]
-    for us, calls, key in rows:
+    for us, calls, key in rows[:top]:
         lines.append(f"  {us / 1e3 / n_steps:8.3f} ms/step {us / dev_us:6.1%} "
                      f"{calls // n_steps:4d}x  {key[:110]}")
+    for name in PORT_KERNELS:
+        mine = [(us, calls) for us, calls, key in rows if name in key]
+        if mine:
+            us = sum(u for u, _ in mine)
+            lines.append(f"  port kernel {name}: {us / 1e3 / n_steps:.3f} ms/step, {us / dev_us:.1%} of "
+                         f"device time, {sum(c for _, c in mine) / n_steps:g} launches/step")
     text = "\n".join(lines)
     print(text, flush=True)
     return text
@@ -83,6 +98,7 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--method", choices=("kplanes", "cobafa"), default="kplanes")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", type=Path, default=None, help="also write the report here")
@@ -95,13 +111,15 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    cfg = TrainConfig()
+    cfg = TrainConfig(method=args.method)
     pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
     renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda",
                               generator=torch.Generator().manual_seed(0))
     optimizer = make_optimizer(cfg, renderer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = [f"card: {card}"]
+    report = [f"card: {card}; method {args.method}, "
+              f"{sum(p.numel() for p in renderer.parameters())} parameters"]
+    print(report[0])
     for name, occ in (("early", renderer.occupancy.init_state("cuda")),
                       ("converged", make_shell_occupancy(renderer.occupancy, device="cuda"))):
         # the bucket train() would settle on: demand measured on one bucket-1 step
