@@ -19,38 +19,53 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    table-gradient accumulation (both payloads) at the training path's
    shapes, the accumulation on cells laid out as training lays them out (a
    hot window, and the packed buffer's pad tail in one cell with a zero
-   cotangent), so its split-window branch runs; and the oct cell-pack build
-   over the full-width Cobafa field's seven grids, in bf16 and f32,
-   bit-equal to its plain version and to the yardstick `copy_`;
+   cotangent), so its split-window branch runs; the oct cell-pack build
+   over the full-width Cobafa field's seven grids and the quad cell-pack
+   build over the K-Planes field's nine planes, each in bf16 and f32,
+   bit-equal to its plain version and to the yardstick `copy_`; and the
+   skip march on the shell occupancy's skip grid, at a 2048-ray serving
+   chunk and a 131,072-ray training bucket (64 rounds), with and without
+   jitter, k_idx and complete equal to its plain version's (and the skip
+   grid's build timed);
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
-   of 2048 rays, 64 packed samples per ray): a checkpoint of seeded random
-   parameters and the shell occupancy, `render_only` on two 800x800 views
-   of the generated spheres scene (packed path, dense fallback), then
-   `render_only` with eval_render="dense" on view 0.  Both kernels must
-   have launched during those runs; the packed and dense renders of view 0
-   must agree; and a 32x32 view rendered at f32 through the kernels must
-   match the same view rendered on the CPU through the plain versions;
+   of 2048 rays, 64 packed samples per ray, 64 skip-march rounds): a
+   checkpoint of seeded random parameters and the shell occupancy,
+   `render_only` on two 800x800 views of the generated spheres scene
+   (packed path with the skip march, dense fallback), then `render_only`
+   with eval_render="dense" on view 0, then view 0 through `infer` with
+   the packed path on the dense march and on the skip march again (both
+   warm, so their times compare).  The weights kernels, the quad
+   build and the skip march must have launched; the skip-packed,
+   dense-march-packed and dense renders of view 0 must agree; and a 32x32
+   view rendered at f32 through the kernels must match the same view
+   rendered on the CPU through the plain versions;
 4. the K-Planes training slice at full width: `train()` with TrainConfig
    defaults (batch 2048 rays, 400 samples, cap 819,200, bf16 compute) for
    64 steps from seeded random parameters on four generated 800x800 views,
    crossing the occupancy updates at steps 0 and 32.  The loss must be
-   finite and fall; the packed weights, their backward, the sort and the
-   accumulation must have launched inside `train()`.  Then the gradients of
-   one full-width dense chunk (2048 rays drawn over the views x 400
-   samples, f32 compute) through the dense weights' backward kernel must
-   match the plain version's: d loss / d sigma and every parameter's;
+   finite and fall; the packed weights, their backward, the sort, the
+   accumulation and the quad build must have launched inside `train()`.
+   Then, behind the shell occupancy at bucket 64 (131,072 rays drawn over
+   the views), one deterministic step through the dense march and one
+   through the skip march with a 400-round budget (no ray cut) must agree
+   on the loss to 1e-5 relative, and a step at the default 64-round budget
+   is timed beside them.  Then the gradients of one full-width dense chunk
+   (2048 rays drawn over the views x 400 samples, f32 compute) through the
+   dense weights' backward kernel must match the plain version's: d loss /
+   d sigma and every parameter's;
 5. the Cobafa serving slice at full width (TrainConfig(method="cobafa"):
    basis grids 32/51/70/89/108/128^3 x 8/8/8/4/4/4, coefficients 64^3 x 6,
    the 36 -> 128 field MLP with 5 hidden layers), as phase 3 on one view:
-   packed and dense must agree, the 32x32 f32 view on the card must match
-   the CPU's, and the oct build and both weights kernels must have
-   launched;
+   the three renders must agree, the 32x32 f32 view on the card must match
+   the CPU's, and the oct build, the skip march and both weights kernels
+   must have launched;
 6. the Cobafa training slice at full width, as phase 4 (dropout on): a
    finite, falling loss, the oct build and the packed weights and their
-   backward launched inside `train()`; then one full-width dense chunk's
-   gradients through the oct-build kernel must match those through the
-   plain build, every leaf to 1e-5 of its max.
+   backward launched inside `train()`; the dense and skip steps at bucket
+   64; then one full-width dense chunk's gradients through the oct-build
+   kernel must match those through the plain build, every leaf to 1e-5 of
+   its max.
 
 Each of phases 3-6 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after; the comparisons with the
@@ -104,6 +119,13 @@ CHUNK_TABLE_GRAD_RTOL_OF_MAX = 2.0 ** -8
 # whose atomic order changes from run to run
 COBAFA_CHUNK_GRAD_RTOL_OF_MAX = 1e-5
 TRAIN_STEPS = 64
+# the skip and dense steps behind the shell occupancy: the same sample set
+# and positions bit for bit, so only the f32 sums' order (atomics) differs
+SKIP_DENSE_LOSS_RTOL = 1e-5
+SKIP_BUCKET = 64  # the converged state's bucket: 131,072 candidate rays
+# f32 operations per active round of the skip march (csrc/skipmarch.cu):
+# position and jitter 9, box test 6, three voxel indices 30, the advance 3
+SKIP_ROUND_FLOPS = 48
 # the card's published peaks (H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -135,19 +157,30 @@ def median_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, runs: int = 20) -> float:
+def device_ms(fn, runs: int = 20):
     """Device time per call (sum of the kernels' times under the profiler),
-    without the host's enqueue gaps that a single-call event pair includes."""
+    without the host's enqueue gaps that a single-call event pair includes.
+    The profiler has returned a window with no kernel at all (0.0 ms for
+    work that ran): such a window is taken again, up to three times, and
+    None (not measured) is returned if none recorded a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     dev = torch.autograd.DeviceType.CUDA  # kernels only: aten ops repeat their kernels' time
-    return sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == dev) / 1e3 / runs
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == dev)
+        if total_us > 0:
+            return total_us / 1e3 / runs
+    return None
+
+
+def _ms(v) -> str:
+    return f"{v:.4f} ms" if v is not None else "not measured"
 
 
 def nbytes(*tensors) -> int:
@@ -173,7 +206,7 @@ def time_pair(label: str, kernel_fn, plain_fn, bound_: dict, library_fn=None) ->
              library_ms=median_ms(library_fn) if library_fn is not None else None)
     lib = f"{t['library_ms']:.4f} ms" if library_fn is not None else "none"
     print(f"{label}: call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib} (median of 20, "
-          f"CUDA events); device {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms (profiler, "
+          f"CUDA events); device {_ms(t['device_ms'])}, plain {_ms(t['plain_device_ms'])} (profiler, "
           f"per call); bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_bytes'] / 1e6:.1f} MB, "
           f"{t['bound_flops'] / 1e9:.3f} GFLOP)")
     return t
@@ -473,8 +506,110 @@ def check_oct_build(dev):
                           **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
 
 
+def quad_yardstick(table: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The quad table by one PyTorch call: a `copy_` of the table's 2x2
+    windows (unfold; corners dx, dy with dy fastest) into the output viewed
+    as [r0-1, r1-1, 2, 2, F].  The port never calls it."""
+    r0, r1, f = table.shape
+    out = torch.empty((r0 - 1) * (r1 - 1), 4 * f, dtype=out_dtype, device=table.device)
+    out.view(r0 - 1, r1 - 1, 2, 2, f).copy_(table.unfold(0, 2, 1).unfold(1, 2, 1).permute(0, 1, 3, 4, 2))
+    return out
+
+
+def check_quad_build(dev):
+    """Kernel 7 over the full-width K-Planes field's nine planes (the
+    shapes every field call builds): bit-equal to the plain build and to
+    the yardstick in bf16 (the field's) and f32, timed as one roster."""
+    from tinynerf_tpu_torch.models import make_model
+    from tinynerf_tpu_torch.ops import octbuild
+
+    field = make_model("kplanes", device="meta")[0]
+    gen = torch.Generator(dev).manual_seed(3)
+    tables = [torch.rand(p.shape, device=dev, generator=gen) for scale in field.planes for p in scale]
+    roster = " ".join(f"{t.shape[0]}^2x{t.shape[2]}" for t in tables)
+    entry = {}
+    for out_dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for t in tables:
+            out = octbuild.build_quad(t, out_dtype)
+            if not (torch.equal(out, octbuild.build_quad_plain(t, out_dtype))
+                    and torch.equal(out, quad_yardstick(t, out_dtype))):
+                raise AssertionError(f"quad build ({label}) of {tuple(t.shape)} is not bit-equal to plain")
+            del out
+        print(f"kernel quad build {label} [{roster}]: bit-equal to the plain build and the copy_ yardstick")
+        out_bytes = sum((t.shape[0] - 1) * (t.shape[1] - 1) * 4 * t.shape[2]
+                        for t in tables) * torch.empty((), dtype=out_dtype).element_size()
+        entry[label] = dict(max_abs_err=0.0, **time_pair(
+            f"kernel quad build {label}, the 9-plane roster",
+            lambda: [octbuild.build_quad(t, out_dtype) for t in tables],
+            lambda: [octbuild.build_quad_plain(t, out_dtype) for t in tables],
+            bound(nbytes(*tables) + out_bytes),
+            lambda: [quad_yardstick(t, out_dtype) for t in tables],
+        ))
+    big = tables[-1]  # a 513^2 plane alone, bf16
+    print(f"kernel quad build bf16 {tuple(big.shape)}: call {median_ms(lambda: octbuild.build_quad(big)):.4f} ms, "
+          f"yardstick {median_ms(lambda: quad_yardstick(big, torch.bfloat16)):.4f} ms")
+    # the field builds bf16 tables (models/kplanes.py); f32 rides along
+    return {"quad_build": {**entry["bf16"],
+                           **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
+
+
+def check_skip_march(dev):
+    """The skip march on the shell occupancy's skip grid (the smoke's
+    serving state), with rays drawn over a generated 800x800 view: a
+    serving chunk (2048 rays, no jitter) and a training bucket (131,072
+    rays, jitter), 64 rounds, k_idx and complete equal to the plain
+    version's, with and without jitter; and the skip grid's build."""
+    from tinynerf_tpu_torch.core import skipmarch
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+    from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
+
+    cfg = TrainConfig()
+    renderer = build_renderer(cfg, 1.0, None, device="meta")
+    marcher, occupancy, aabb = renderer.marcher, renderer.occupancy, renderer.contraction.aabb
+    n_steps = renderer.skip_steps
+    occ = make_shell_occupancy(occupancy, device=dev)
+    grid_ms = median_ms(lambda: renderer.skip_grid(occ), runs=5)
+    grid = renderer.skip_grid(occ)
+    print(f"skip grid {tuple(grid.shape)} from the {occupancy.size[0]}^3 shell occupancy: "
+          f"{grid_ms:.3f} ms (median of 5, CUDA events; plain PyTorch)")
+    pool = RayPool(make_spheres_data(n_views=1, res=800, seed=0), device=dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    perm = torch.randperm(pool.n_rays, device=dev, generator=gen)
+    seed = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev)
+    out = {}
+    for label, n_rays, jitter in (("serving", cfg.batch_size, None),
+                                  ("training", SKIP_BUCKET * cfg.batch_size, seed)):
+        o, d = pool.rays_o[perm[:n_rays]].contiguous(), pool.rays_d[perm[:n_rays]].contiguous()
+        t_min, t_exit = marcher.entry_exit(o, d)
+        args = lambda j: (o, d, t_min, t_exit, marcher.step_size, marcher.n_samples, aabb, grid, j, n_steps)
+        rounds = {}
+        for j in (None, seed):
+            k, c = skipmarch.skip_march(*args(j))
+            k_ref, c_ref, rounds[j is not None] = skipmarch.skip_march_plain(*args(j), count_rounds=True)
+            if not (torch.equal(k, k_ref) and torch.equal(c, c_ref)):
+                raise AssertionError(f"skip march ({label}, jitter {j is not None}) differs from plain")
+            print(f"kernel skip march {label} [{n_rays} rays x {n_steps} rounds], jitter {j is not None}: "
+                  f"k_idx and complete equal to plain; {int((k >= 0).sum())} samples emitted, "
+                  f"{int(c.sum())} rays complete, {rounds[j is not None]} active rounds")
+        # the work the timed input needs: each active round reads one grid
+        # value and does SKIP_ROUND_FLOPS f32 operations
+        timed_rounds = rounds[jitter is not None]
+        n_bytes = nbytes(o, d, t_min, t_exit) + 4 * n_rays * n_steps + n_rays + 4 * timed_rounds
+        out[label] = time_pair(
+            f"kernel skip march {label} [{n_rays} x {n_steps}]",
+            lambda: skipmarch.skip_march(*args(jitter)), lambda: skipmarch.skip_march_plain(*args(jitter)),
+            bound(n_bytes, SKIP_ROUND_FLOPS * timed_rounds),
+        )
+    # the serving chunk is the main record (313 launches per 800x800 view);
+    # the training bucket rides along
+    return {"skip_march": {"max_abs_err": 0.0, **out["serving"], "skip_grid_ms": grid_ms,
+                           **{f"train_bucket_{k}": v for k, v in out["training"].items()}}}
+
+
 def counters() -> dict:
     """Every kernel wrapper, by the key of the kernels record."""
+    from tinynerf_tpu_torch.core import skipmarch
     from tinynerf_tpu_torch.ops import bitonic, octbuild, segscan, table_grad, weights_dense
 
     return {
@@ -485,6 +620,8 @@ def counters() -> dict:
         "sort": bitonic.sort_i32,
         "accumulate": table_grad.windowed_accumulate,
         "oct_build": octbuild.build_oct,
+        "quad_build": octbuild.build_quad,
+        "skip_march": skipmarch.skip_march,
     }
 
 
@@ -513,12 +650,73 @@ def _field_label(field) -> str:
             f"{field.coef_res}^3 x {len(field.basis_res)}, field MLP 36 -> {field.mlp_hidden_dim} x 6")
 
 
-# the kernels each driven path must launch
-SERVING_KERNELS = {"kplanes": ("segscan", "weights_dense"), "cobafa": ("segscan", "weights_dense", "oct_build")}
-TRAINING_KERNELS = {"kplanes": ("segscan", "segscan_bwd", "sort", "accumulate"),
+# the kernels each driven path must launch (the field's table build: the
+# quad build for K-Planes, the oct build for Cobafa)
+FIELD_KERNELS = {"kplanes": ("quad_build",), "cobafa": ("oct_build",)}
+SERVING_KERNELS = {m: ("segscan", "weights_dense", "skip_march") + k for m, k in FIELD_KERNELS.items()}
+DENSE_MARCH_SERVING_KERNELS = {m: ("segscan",) + k for m, k in FIELD_KERNELS.items()}
+TRAINING_KERNELS = {"kplanes": ("segscan", "segscan_bwd", "sort", "accumulate", "quad_build"),
                     "cobafa": ("segscan", "segscan_bwd", "oct_build")}
-CHUNK_KERNELS = {"kplanes": ("weights_dense", "weights_dense_bwd"),
-                 "cobafa": ("weights_dense", "weights_dense_bwd", "oct_build")}
+SKIP_STEP_KERNELS = {m: k + ("skip_march",) for m, k in TRAINING_KERNELS.items()}
+CHUNK_KERNELS = {m: ("weights_dense", "weights_dense_bwd") + k for m, k in FIELD_KERNELS.items()}
+
+
+def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str, method: str) -> dict:
+    """Behind the shell occupancy at bucket SKIP_BUCKET (131,072 rays drawn
+    over the views), deterministic steps (no jitter, no dropout) through the
+    dense march, the skip march with an n_samples-round budget (no ray cut:
+    the same sample set, so the loss must agree) and the skip march at the
+    default budget (rays that run out leave the loss).  Each is timed as
+    the median of 3 synchronized calls from the same parameters and a fresh
+    optimizer; the trained parameters are restored after."""
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    n_cand = SKIP_BUCKET * cfg.batch_size
+    occ = make_shell_occupancy(renderer.occupancy, device="cuda")
+    grid = renderer.skip_grid(occ)
+    gen = torch.Generator("cuda").manual_seed(5)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:n_cand]
+    batch = tuple(a[rays].contiguous() for a in pool.arrays())
+    start = [p.detach().clone() for p in renderer.parameters()]
+    budget = renderer.skip_steps
+    res = {}
+    zero_counts()
+    for label, march, rounds in (("dense", "dense", budget), (f"skip {cfg.n_samples} rounds", "skip", cfg.n_samples),
+                                 (f"skip {budget} rounds", "skip", budget)):
+        renderer.skip_steps = rounds
+        step = make_train_step(renderer, make_optimizer(cfg, renderer), cfg, n_cand, deterministic=True,
+                               march=march)
+        times = []
+        for _ in range(3):
+            with torch.no_grad():
+                for p, p0 in zip(renderer.parameters(), start):
+                    p.copy_(p0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(occ, *((grid,) if march == "skip" else ()), *batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[label] = dict(loss=float(m["loss"]), ms=float(np.median(times)) * 1e3,
+                          complete=round(float(m["complete_frac"]) * n_cand), fill=float(m["fill"]))
+        print(f"{name} step, shell occupancy, bucket {SKIP_BUCKET} ({n_cand} rays), {label}: "
+              f"{res[label]['ms']:.2f} ms (median of 3, host clock, synchronized), loss "
+              f"{res[label]['loss']:.7f}, fill {res[label]['fill']:.4f}, {res[label]['complete']} rays "
+              f"complete [{card}]")
+    renderer.skip_steps = budget
+    with torch.no_grad():
+        for p, p0 in zip(renderer.parameters(), start):
+            p.copy_(p0)
+    counts = read_counts(f"{name} dense and skip steps", SKIP_STEP_KERNELS[method])
+    dense, full = res["dense"], res[f"skip {cfg.n_samples} rounds"]
+    err = abs(full["loss"] - dense["loss"]) / abs(dense["loss"])
+    print(f"{name} skip ({cfg.n_samples} rounds) vs dense step loss: relative difference {err:.3e} "
+          f"(tol {SKIP_DENSE_LOSS_RTOL:g})")
+    if not (err <= SKIP_DENSE_LOSS_RTOL and full["complete"] == n_cand and dense["fill"] > 0):
+        raise AssertionError(f"{name}: the skip and dense steps disagree")
+    if not np.isfinite(res[f"skip {budget} rounds"]["loss"]):
+        raise AssertionError(f"{name}: the skip step at the default budget is not finite")
+    return counts
 
 
 def run_training(tmp: str, card: str, method: str) -> dict:
@@ -558,9 +756,11 @@ def run_training(tmp: str, card: str, method: str) -> dict:
           f"included), {out['rays_per_sec_per_chip']:,.0f} rays/s used by the loss, "
           f"peak device memory {peak_gb:.2f} GB [{card}]")
 
+    renderer = out["renderer"]
+    launches["skip_steps"] = skip_and_dense_steps(renderer, pool, cfg, card, name, method)
+
     # one full-width dense chunk, f32 compute: d loss / d sigma, kept by a
     # hook on the sigma decoder, and every parameter's gradient
-    renderer = out["renderer"]
     renderer.compute_dtype = torch.float32
     gen = torch.Generator("cuda").manual_seed(0)
     # rays drawn over all views (an image's first rows may miss the scene)
@@ -622,7 +822,10 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
     """Phases 3 (K-Planes, two views) and 5 (Cobafa, one view): serving at
     full width from a checkpoint of seeded random parameters."""
     from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
-    from tinynerf_tpu_torch.train import InferStats, TrainConfig, build_renderer, render_only, save_checkpoint
+    from tinynerf_tpu_torch.train import (
+        InferStats, TrainConfig, build_renderer, infer, make_render_chunk, make_render_chunk_packed,
+        render_only, save_checkpoint,
+    )
     from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_pose_set
 
     name = f"{method} serving"
@@ -642,8 +845,7 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
     print(f"{name}: {_field_label(renderer.field)}, {n_params} params "
           f"({n_params * 4 / 1e6:.1f} MB f32), compute {cfg.compute_dtype}, "
           f"{cfg.n_samples} samples/ray, chunk {cfg.batch_size}, "
-          f"packed cap {cfg.batch_size * cfg.eval_samples_per_ray}")
-    del renderer
+          f"packed cap {cfg.batch_size * cfg.eval_samples_per_ray}, skip march {renderer.skip_steps} rounds")
 
     zero_counts()
     packed = InferStats()
@@ -655,6 +857,24 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
         name="render_dense", stats=dense,
     )
     launches = {"serve": read_counts(f"{name} render_only", SERVING_KERNELS[method])}
+    # view 0 once more, packed on the dense march, then on the skip march
+    # again: both warm, so their times compare (render_only's first view
+    # pays the warm-up)
+    view0 = make_spheres_pose_set(n_views=1, res=800, seed=0)
+    cap = cfg.batch_size * cfg.eval_samples_per_ray
+    rerun = {}
+    for march, grid_args in (("dense", ()), ("skip", (renderer.skip_grid(occ),))):
+        zero_counts()
+        rerun[march] = InferStats()
+        infer(renderer, occ, view0, [0], tmp, f"render_{march}_march", chunk=cfg.batch_size,
+              render_chunk_fn=make_render_chunk(renderer),
+              packed_fn=make_render_chunk_packed(renderer, cap, march=march), stats=rerun[march],
+              grid_args=grid_args)
+        launches[f"serve_{march}_march"] = read_counts(
+            f"{name} {march}-march packed infer",
+            DENSE_MARCH_SERVING_KERNELS[method] + (("skip_march",) if march == "skip" else ()))
+    dense_march, skip_warm = rerun["dense"], rerun["skip"]
+    del renderer
 
     for label, st, metrics in (("packed", packed, m_packed), ("dense", dense, m_dense)):
         for i, (img, sec, rays, m) in enumerate(zip(st.images, st.seconds, st.rays, metrics)):
@@ -664,13 +884,22 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
                 raise AssertionError(f"{name} {label} view {i}: bad metrics {m}")
             print(f"{name} {label} view {i}: {sec:.3f} s, {rays / sec:,.0f} rays/s, "
                   f"psnr {m.psnr:.3f}, ssim {m.ssim:.4f} (random weights) [{card}]")
-    print(f"{name} packed: {packed.packed_samples} packed samples, "
-          f"{packed.fallback_rays} rays re-rendered densely")
-    diff = np.abs(packed.images[0] - dense.images[0])
-    print(f"{name} packed vs dense view 0: max abs {diff.max():.3e} (tol {PACKED_DENSE_MAX_ABS:g}), "
-          f"mean abs {diff.mean():.3e} (tol {PACKED_DENSE_MEAN_ABS:g})")
-    if not (diff.max() <= PACKED_DENSE_MAX_ABS and diff.mean() <= PACKED_DENSE_MEAN_ABS):
-        raise AssertionError(f"{name}: packed and dense renders of view 0 disagree")
+    print(f"{name} packed (skip march): {packed.packed_samples} packed samples, "
+          f"{packed.fallback_rays} rays re-rendered densely, {packed.incomplete_rays} of them out of "
+          f"skip-march rounds; skip grid built in {packed.skip_grid_seconds * 1e3:.3f} ms [{card}]")
+    print(f"{name} view 0, s/image: packed with the skip march {packed.seconds[0]:.3f} (render_only, "
+          f"first view), then warm: packed with the dense march {dense_march.seconds[0]:.3f} "
+          f"({dense_march.fallback_rays} rays re-rendered densely), packed with the skip march "
+          f"{skip_warm.seconds[0]:.3f} ({skip_warm.fallback_rays} rays re-rendered densely); dense "
+          f"{dense.seconds[0]:.3f} [{card}]")
+    for label, a, b in (("skip-packed vs dense", packed, dense), ("dense-march-packed vs dense", dense_march, dense),
+                        ("skip-packed vs dense-march-packed", packed, dense_march),
+                        ("warm skip-packed vs dense-march-packed", skip_warm, dense_march)):
+        diff = np.abs(a.images[0] - b.images[0])
+        print(f"{name} {label} view 0: max abs {diff.max():.3e} (tol {PACKED_DENSE_MAX_ABS:g}), "
+              f"mean abs {diff.mean():.3e} (tol {PACKED_DENSE_MEAN_ABS:g})")
+        if not (diff.max() <= PACKED_DENSE_MAX_ABS and diff.mean() <= PACKED_DENSE_MEAN_ABS):
+            raise AssertionError(f"{name}: {label} renders of view 0 disagree")
 
     # small view at f32: kernels on the card vs plain versions on the CPU
     small = make_spheres_pose_set(n_views=1, res=32, seed=0)
@@ -697,6 +926,8 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("sort", "bitonic.sort_i32", "bitonic.cu", "tinynerf_tpu/ops/bitonic.py:73"),
     ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
+    ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
+    ("skip_march", "skipmarch.skip_march", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:357"),
 )
 
 
@@ -723,6 +954,8 @@ def main() -> None:
     kern = check_kernels(dev)
     kern.update(check_training_kernels(dev))
     kern.update(check_oct_build(dev))
+    kern.update(check_quad_build(dev))
+    kern.update(check_skip_march(dev))
     launches = {}  # phase -> kernel -> launches
     for phase, method, run in ((3, "kplanes", run_slice), (4, "kplanes", run_training),
                                (5, "cobafa", run_slice), (6, "cobafa", run_training)):

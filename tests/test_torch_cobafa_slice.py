@@ -200,10 +200,12 @@ assert all(np.isfinite(m.psnr) for m in metrics)
 """
 
 
-def test_render_only_reads_jax_cobafa_checkpoint(world, scene, tmp_path):
+@pytest.mark.parametrize("march", ["dense", "skip"])
+def test_render_only_reads_jax_cobafa_checkpoint(world, scene, tmp_path, march):
     """A Cobafa checkpoint written by the JAX package is rendered by the
-    port's `render_only` (jax, optax and the JAX package unimportable) and
-    gives the JAX infer's images at f32."""
+    port's `render_only` (jax, optax and the JAX package unimportable; it
+    serves with the skip march, as the JAX `render_only` does) and gives
+    the JAX infer's images at f32, with either march packed."""
     jr = world["jr"]
     exp = tmp_path / "exp"
     jcfg = JConfig(compute_dtype="float32", output=exp, **COBAFA_CFG)
@@ -214,7 +216,8 @@ def test_render_only_reads_jax_cobafa_checkpoint(world, scene, tmp_path):
     ref = jloop.infer(
         jr, world["params"], world["occ"], world["jset"], [0, 1], tmp_path / "jax", "r",
         chunk=COBAFA_CFG["batch_size"], render_chunk_fn=jloop.make_render_chunk(jr),
-        packed_fn=jloop.make_render_chunk_packed(jr, cap, march="dense"),
+        packed_fn=jloop.make_render_chunk_packed(jr, cap, march=march),
+        grid_args=(jr.skip_grid(world["occ"]),) if march == "skip" else (),
     )
     out_npy = tmp_path / "port.npy"
     script = _BLOCKED_RENDER.replace("{cfg}", repr(COBAFA_CFG))

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
-backwards, the bitonic sort, the windowed table-gradient accumulation and
-the oct cell-pack build.
+backwards, the bitonic sort, the windowed table-gradient accumulation, the
+oct and quad cell-pack builds and the skip march.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -17,14 +17,16 @@ order); weight gradients 1e-5 of their largest magnitude (f32 sums of up
 to 400 terms in another order); sorts bit-equal (the keys are the same
 multiset); accumulated table gradients 1e-5 of their largest magnitude
 (f32 sums in another order, the atomics' order changing run to run); the
-oct build bit-equal (a relayout that rounds each value once, to nearest
-even in both).
+oct and quad builds bit-equal (a relayout that rounds each value once, to
+nearest even in both); the skip march's k_idx and complete equal (the
+kernel repeats the plain version's f32 operations, each rounded once).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tinynerf_tpu_torch.core import RayMarcherAABB, skipmarch
 from tinynerf_tpu_torch.ops import bitonic, cuda_lib, interp, octbuild, segscan, table_grad, weights, weights_dense
 
 torch.set_num_threads(2)
@@ -76,6 +78,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
             torch.empty(1, 8, 128, device="meta"), torch.empty(1, 2, dtype=torch.int32), 4, 4, 256, 256)
     with pytest.raises(ValueError):
         octbuild.build_oct(torch.empty(4, 4, 4, 2, device="meta"))
+    with pytest.raises(ValueError):
+        octbuild.build_quad(torch.empty(4, 4, 2, device="meta"))
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_inputs("x", torch.float32, (4,), torch.zeros(4))
 
@@ -345,3 +349,49 @@ def test_trilinear_lookup_oct_on_card_matches_cpu(cuda_device):
     (v_cpu, g_cpu), (v_card, g_card) = res["cpu"], res[str(cuda_device)]
     torch.testing.assert_close(v_card, v_cpu, atol=1e-6, rtol=0)
     torch.testing.assert_close(g_card, g_cpu, atol=_grad_tol(g_cpu), rtol=0)
+
+
+# the K-Planes planes at full width (make_model("kplanes")), then odd and
+# small channel counts (a bf16 row of 4F values is 8F bytes) and r = 2
+QUAD_SHAPES = [(129, 129, 32), (257, 257, 32), (513, 513, 32), (9, 17, 3), (17, 9, 6), (5, 6, 1), (2, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_quad_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
+    rng = np.random.default_rng(18)
+    for shape in QUAD_SHAPES:
+        table = T(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+        before = octbuild.build_quad.launches
+        out = octbuild.build_quad(table, out_dtype)
+        assert octbuild.build_quad.launches == before + 1
+        assert torch.equal(out, octbuild.build_quad_plain(table, out_dtype)), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aabb", [((-1.5,) * 3, (1.5,) * 3), ((-1.5, -0.6, -1.5), (1.5, 0.6, 1.5))])
+def test_skip_march_kernel_equals_plain(cuda_device, aabb):
+    """Random grids (cubic and not), rays from outside the box, with and
+    without jitter, at a full and a starved budget: k_idx and complete
+    equal, on 20,000 rays."""
+    rng = np.random.default_rng(19)
+    for shape, density, n_samples in (((32, 32, 32), 0.02, 200), ((16, 24, 12), 0.2, 64), ((128,) * 3, 0.005, 400)):
+        occ = T(rng.random(shape) < density).to(cuda_device)
+        grid = skipmarch.make_skip_grid(occ)
+        n = 20_000
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = -4.0 * d + rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+        o, d = T(o).to(cuda_device), T(d).to(cuda_device)
+        marcher = RayMarcherAABB(aabb, n_samples=n_samples, near=0.1)
+        t_min, t_exit = marcher.entry_exit(o, d)
+        for seed in (None, [0x12345678, 0x9ABCDEF0]):
+            for n_steps in (64, 7):
+                args = (o, d, t_min, t_exit, marcher.step_size, n_samples, aabb, grid, seed, n_steps)
+                before = skipmarch.skip_march.launches
+                k, c = skipmarch.skip_march(*args)
+                assert skipmarch.skip_march.launches == before + 1
+                k_ref, c_ref = skipmarch.skip_march_plain(*args)
+                assert torch.equal(k, k_ref), (shape, seed, n_steps)
+                assert torch.equal(c, c_ref), (shape, seed, n_steps)
+                assert int((k >= 0).sum()) > 0

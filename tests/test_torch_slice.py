@@ -52,27 +52,33 @@ def world(scene):
     return make_world(scene)
 
 
+@pytest.mark.parametrize("march", ["dense", "skip"])
 @pytest.mark.parametrize("cap", [64 * 64, 16])
-def test_infer_matches_jax_infer(world, tmp_path, cap):
-    """The whole serving slice at f32: the port's packed infer (dense march;
-    a starved cap sends rays through the dense fallback) against the JAX
-    infer with make_render_chunk_packed(march="dense")."""
+def test_infer_matches_jax_infer(world, tmp_path, cap, march):
+    """The whole serving slice at f32: the port's packed infer (dense or
+    skip march; a starved cap sends rays through the dense fallback) against
+    the JAX infer with make_render_chunk_packed of the same march, each
+    with the skip grid of its own occupancy state."""
     jr, r = world["jr"], world["renderers"]["float32"]
+    skip = march == "skip"
     ref = jinfer(
         jr, world["params"], world["occ"], world["jset"], [0, 1], tmp_path / "jax", "r",
         chunk=CFG["batch_size"], render_chunk_fn=jmake_render_chunk(jr),
-        packed_fn=jmake_render_chunk_packed(jr, cap, march="dense"),
+        packed_fn=jmake_render_chunk_packed(jr, cap, march=march),
+        grid_args=(jr.skip_grid(world["occ"]),) if skip else (),
     )
     stats = InferStats()
     out = infer(
         r, world["tocc"], world["pset"], [0, 1], tmp_path / "port", "r",
         chunk=CFG["batch_size"], render_chunk_fn=make_render_chunk(r),
-        packed_fn=make_render_chunk_packed(r, cap), stats=stats,
+        packed_fn=make_render_chunk_packed(r, cap, march=march), stats=stats,
+        grid_args=(r.skip_grid(world["tocc"]),) if skip else (),
     )
     for a, b in zip(out, ref):
         assert a.shape == (16, 16, 3)
         np.testing.assert_allclose(a, b, atol=F32_ATOL)
     assert (stats.fallback_rays > 0) == (cap == 16)
+    assert stats.incomplete_rays == 0  # the round budget is the march's 32 samples
     assert (tmp_path / "port" / "r_0001.png").exists()
 
 

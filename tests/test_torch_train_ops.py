@@ -14,8 +14,6 @@ table gradients 1e-4 of the largest (f32 sums in another order through the
 upsampling transpose); regularizers 1e-6 relative.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,12 +39,12 @@ from tinynerf_tpu_torch.ops.hashrng import hash_u01
 from tinynerf_tpu_torch.ops.trunc_exp import truncated_exp
 from tinynerf_tpu_torch.train import (
     BucketEstimator,
+    MarchPolicy,
     TrainConfig,
     build_renderer,
     lr_schedule,
     make_optimizer,
     pick_bucket,
-    train,
 )
 from tinynerf_tpu_torch.train.loop import _decay_mask
 
@@ -358,13 +356,11 @@ def test_bucket_and_march_policies_match_jax():
         assert est.just_refreshed == jest.just_refreshed
         assert est.avg_samples_per_ray == pytest.approx(jest.avg_samples_per_ray, rel=1e-6)
         assert est.bucket() == jest.bucket()
-    # the port marches densely, as JAX's policy does for a renderer without
-    # skip marching in every mode; asking the port to skip is refused
+    # the march policy of a renderer that supports skip marching, in every
+    # mode, pick for pick against JAX's
     for mode in ("auto", "dense", "skip"):
-        jpol = jloop.MarchPolicy(False, mode, 64)
-        assert [jpol.pick(a) for a in (10.0, 40.0)] == ["dense", "dense"]
-    with pytest.raises(NotImplementedError, match="skip marching"):
-        train(dataclasses.replace(cfg, march="skip"), None, device="cpu")
+        pol, jpol = MarchPolicy(True, mode, 64), jloop.MarchPolicy(True, mode, 64)
+        assert [pol.pick(a) for a in (10.0, 40.0)] == [jpol.pick(a) for a in (10.0, 40.0)]
 
 
 def test_table_grad_impl_rules():

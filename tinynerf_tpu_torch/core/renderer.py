@@ -21,16 +21,20 @@ them under `torch.inference_mode()`).  At train time every
 sample is jittered by the stateless hash of `ops/hashrng.py`, seeded with
 two uint32 words, and a field with dropout (Cobafa) gets two more words
 for its mask, where the JAX package's renderer passes `fold_in(key, 1)`;
-`sigma_fn` and serving pass none.  Marching is the dense march (every
-sample point queried against the occupancy grid); skip marching
-(`core/skipmarch.py`) is not ported yet, and selects exactly the same
-sample set.
+`sigma_fn` and serving pass none.  `render_packed` marches densely (every
+sample point queried against the occupancy grid) or, with `march="skip"`
+and the skip grid of the current occupancy state (`skip_grid`), with the
+empty-space-skipping march (`core/skipmarch.py`, a CUDA kernel on the
+card): the same sample set, found in at most `skip_steps` rounds per ray
+instead of `n_samples` queries; rays that exhaust that budget come back
+flagged (`ray_valid = 0`, `n_complete`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,6 +45,7 @@ from ..ops.weights_dense import compute_weights_dense
 from .contraction import ContractionAABB
 from .marching import RayMarcherAABB
 from .occupancy import OccupancyGrid, OccupancyState
+from .skipmarch import make_skip_grid, skip_march
 
 
 class RenderOutput(NamedTuple):
@@ -48,6 +53,9 @@ class RenderOutput(NamedTuple):
     opacity: torch.Tensor    # [n_rays] sum of weights
     ray_valid: torch.Tensor  # [n_rays] float32; 0 where the packed buffer overflowed
     n_samples: torch.Tensor  # scalar int: valid samples this batch (fill metric)
+    # scalar int: rays that finished marching (n_rays except on the skip
+    # path, where the round budget may run out)
+    n_complete: torch.Tensor
 
 
 class NerfRenderer(nn.Module):
@@ -62,6 +70,7 @@ class NerfRenderer(nn.Module):
         bg_color: Optional[Tuple[float, float, float]] = None,
         early_termination: float = 1e-4,
         compute_dtype: torch.dtype = torch.float32,
+        skip_steps: int = 96,
     ):
         super().__init__()
         self.field = field
@@ -73,6 +82,9 @@ class NerfRenderer(nn.Module):
         self.bg_color = bg_color
         self.early_termination = early_termination
         self.compute_dtype = compute_dtype
+        # round budget per ray of the skip march; rays needing more are
+        # flagged incomplete
+        self.skip_steps = skip_steps
 
     # ------------------------------------------------------------- sub-fns
 
@@ -112,6 +124,46 @@ class NerfRenderer(nn.Module):
             maskf = maskf * self.occupancy.query(occ_state, cpos)
         return cpos, deltas, maskf
 
+    # ------------------------------------------------------- skip marching
+
+    @property
+    def supports_skip_march(self) -> bool:
+        """Skip grids are built from, and probed at, nearest-voxel occupancy,
+        and certify straight contracted-space rays: the AABB marcher."""
+        return (self.occupancy is not None and self.occupancy.interp == "nearest"
+                and isinstance(self.marcher, RayMarcherAABB)
+                and isinstance(self.contraction, ContractionAABB))
+
+    def skip_grid(self, occ_state: OccupancyState) -> torch.Tensor:
+        """The cone skip grids [6, r0, r1, r2] of the thresholded occupancy
+        state; rebuilt at each occupancy update, never checkpointed."""
+        if not self.supports_skip_march:
+            raise ValueError("this renderer does not support skip marching")
+        return make_skip_grid(occ_state.grid > self.occupancy._threshold(occ_state))
+
+    def _march_skip(self, rays_o, rays_d, skip_grid, jitter_seed=None):
+        """Skip-marching front half: the candidate grid [R, skip_steps] whose
+        valid entries are exactly the dense march's surviving samples, with
+        positions recomputed by the dense march's operations, and the
+        per-ray completeness flag."""
+        t_min, t_exit = self.marcher.entry_exit(rays_o, rays_d)
+        step = self.marcher.step_size
+        k_idx, complete = skip_march(
+            rays_o, rays_d, t_min, t_exit, step, self.marcher.n_samples,
+            self.contraction.aabb, skip_grid, jitter_seed, self.skip_steps,
+        )
+        maskb = k_idx >= 0
+        kk = torch.clamp(k_idx, min=0)
+        delta = np.float32(step).item()
+        t = t_min[:, None] + kk.float() * delta
+        deltas = torch.full_like(t, delta)
+        if jitter_seed is not None:
+            u = hash_u01(jitter_seed, torch.arange(rays_o.shape[0], device=rays_o.device)[:, None], kk)
+            t = t + u * deltas
+        pos = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+        cpos, _ = self.contraction(pos)
+        return cpos, deltas, maskb.float(), complete
+
     def _composite(self, weighted_rgb_sum, opacity):
         if self.bg_color is not None:
             bg = torch.tensor(self.bg_color, dtype=torch.float32, device=opacity.device)
@@ -137,6 +189,7 @@ class NerfRenderer(nn.Module):
             opacity=opacity,
             ray_valid=torch.ones(rays_o.shape[0], dtype=torch.float32, device=rays_o.device),
             n_samples=maskf.sum().long(),
+            n_complete=torch.full((), rays_o.shape[0], device=rays_o.device),
         )
 
     # --------------------------------------------------------- packed path
@@ -144,15 +197,28 @@ class NerfRenderer(nn.Module):
     def render_packed(
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
         rays_d: torch.Tensor, cap: int, jitter_seed=None, dropout_seed=None,
-        rgb_dir_branch: str = "sample",
+        rgb_dir_branch: str = "sample", march: str = "dense",
+        skip_grid: Optional[torch.Tensor] = None,
     ) -> RenderOutput:
         """Fixed-capacity packed rendering.  `rgb_dir_branch="ray"` runs the
         rgb decoder's direction branch once per ray and gathers it to the
         samples (serving; the same values as "sample", the per-sample branch
-        training uses, as in the JAX package)."""
+        training uses, as in the JAX package).  `march="skip"` takes the
+        candidates from the skip march over `skip_grid` (`skip_grid()` of
+        the occupancy state); rays that exhaust its round budget are flagged
+        invalid."""
         n_rays = rays_o.shape[0]
-        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
-        n_samples = self.marcher.n_samples
+        if march == "skip":
+            if skip_grid is None:
+                raise ValueError("march='skip' needs a skip_grid")
+            cpos, deltas, maskf, complete = self._march_skip(rays_o, rays_d, skip_grid, jitter_seed)
+            n_samples = self.skip_steps  # the candidate grid's width
+        elif march == "dense":
+            cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
+            complete = None
+            n_samples = self.marcher.n_samples
+        else:
+            raise ValueError(f"unknown march {march!r}")
         total = n_rays * n_samples
         dev = rays_o.device
         maskb = maskf > 0.0
@@ -201,14 +267,18 @@ class NerfRenderer(nn.Module):
             0, seg_ids, w_cap)
         acc_rgb, opacity = acc_rgb[:n_rays], opacity[:n_rays]
 
-        # --- rays whose samples spilled past `cap` are flagged; zero-sample
-        # rays render exact bg and always stay valid
+        # --- rays whose samples spilled past `cap`, or whose skip march ran
+        # out of rounds, are flagged; zero-sample rays render exact bg and
+        # always stay valid
         counts = maskb.sum(dim=-1)
         ends = torch.cumsum(counts, dim=0)
         ray_valid = ((ends <= cap) | (counts == 0)).float()
+        if complete is not None:
+            ray_valid = ray_valid * complete.float()
         return RenderOutput(
             rgb=self._composite(acc_rgb, opacity),
             opacity=opacity,
             ray_valid=ray_valid,
             n_samples=torch.clamp(counts.sum(), max=cap),
+            n_complete=complete.sum() if complete is not None else torch.full((), n_rays, device=dev),
         )

@@ -1,0 +1,231 @@
+"""Empty-space-skipping ray marching for the AABB marcher.
+
+Counterpart of `make_skip_grid` and `skip_march` in
+`tinynerf_tpu/core/skipmarch.py`.  A cone distance transform of the
+occupancy grid stores, per voxel and per (dominant axis, sign), how many
+axis slices a ray may advance before it can reach an occupied voxel; the
+march then visits, per ray, one voxel per round and either emits the sample
+(occupied voxel, inside the box) or jumps over the certified-empty span.
+The emitted set equals the dense march's surviving set bit for bit, jitter
+included: the transform runs on a laterally dilated occupancy (absorbing the
+nearest-voxel rounding and the jitter), the advance bound is conservative,
+and both marches compute a sample's position by the same f32 operations in
+the same order, with the same stateless hash (`ops/hashrng.py`).
+
+`skip_march` is one CUDA kernel on a CUDA tensor (`csrc/skipmarch.cu`: one
+thread per ray walks all its rounds; eager PyTorch would launch ~25 small
+ops per round) and the plain round loop, `skip_march_plain`, on a CPU
+tensor.  The JAX `_probe` is a TPU lane trick for the same lookup; here it
+is a plain gather.  `make_skip_grid` is plain PyTorch: it runs once per
+`render_only` and once per occupancy update.  The isotropic grid and the
+unbounded march (`make_skip_grid_iso`, `skip_march_unbounded`) come with the
+unbounded marcher (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import cuda_lib
+from ..ops.hashrng import hash_u01
+
+_INF = 1 << 20
+_MAX_D = 127  # cone distances clip here; advances saturate long before
+
+
+def _min3x3(x: torch.Tensor) -> torch.Tensor:
+    """Min over the 3x3 lateral neighbourhood of the last two axes, cells
+    outside the slice counting as _INF (the JAX package's min over the nine
+    shifted carries, taken separably)."""
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1), value=_INF)
+    m = torch.minimum(torch.minimum(p[..., :-2, :], p[..., 1:-1, :]), p[..., 2:, :])
+    return torch.minimum(torch.minimum(m[..., :-2], m[..., 1:-1]), m[..., 2:])
+
+
+def _cone_sweep(occ_dil: torch.Tensor) -> torch.Tensor:
+    """[..., r0, r1, r2] bool -> int32: D[v] = slices along +axis -3 to a
+    dilated-occupied voxel within the lateral cone (|lateral| <= advance), 0
+    on dilated-occupied voxels.  One reverse sweep over the axis -3 slices."""
+    r0 = occ_dil.shape[-3]
+    carry = torch.full((*occ_dil.shape[:-3], *occ_dil.shape[-2:]), _INF,
+                       dtype=torch.int32, device=occ_dil.device)
+    out = torch.empty(occ_dil.shape, dtype=torch.int32, device=occ_dil.device)
+    zero = torch.zeros((), dtype=torch.int32, device=occ_dil.device)
+    for i in range(r0 - 1, -1, -1):
+        ahead = torch.clamp(_min3x3(carry) + 1, max=_INF)
+        carry = torch.where(occ_dil[..., i, :, :], zero, ahead)
+        out[..., i, :, :] = carry
+    return out
+
+
+def _dilate1(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x | x shifted by +-1 along `axis` (zero fill)."""
+    n = x.shape[axis]
+    lo = torch.zeros_like(x)
+    hi = torch.zeros_like(x)
+    lo.narrow(axis, 0, n - 1).copy_(x.narrow(axis, 1, n - 1))
+    hi.narrow(axis, 1, n - 1).copy_(x.narrow(axis, 0, n - 1))
+    return x | lo | hi
+
+
+def make_skip_grid(occ_bool: torch.Tensor) -> torch.Tensor:
+    """Cone skip grids for the six (dominant axis, sign) directions, in the
+    order (+x, -x, +y, -y, +z, -z): int32 [6, r0, r1, r2].  Per voxel v and
+    direction, 0 = v is occupied (the march emits it), k = every voxel a ray
+    can visit within the next k - 1 axis slices (|lateral| <= advance + 1)
+    is unoccupied.  Bit-equal to the JAX package's."""
+    grids = []
+    for axis in (0, 1, 2):
+        # 2-voxel lateral dilation: nearest-voxel rounding at both ends of a
+        # skip can put a visited voxel 2 further out than the axis advance
+        dil = occ_bool
+        for lat in (0, 1, 2):
+            if lat != axis:
+                dil = _dilate1(_dilate1(dil, lat), lat)
+        occ_a = torch.movedim(occ_bool, axis, 0)
+        dil_a = torch.movedim(dil, axis, 0)
+        # both signs in one sweep: the -axis grid is the +axis sweep of the
+        # flipped grid, flipped back
+        cone = _cone_sweep(torch.stack([dil_a, dil_a.flip(0)]))
+        for c in (cone[0], cone[1].flip(0)):
+            g = torch.where(occ_a, 0, torch.clamp(torch.clamp(c, min=1), 0, _MAX_D)).to(torch.int32)
+            grids.append(torch.movedim(g, 0, axis))
+    return torch.stack(grids).contiguous()
+
+
+def _aabb_arrays(aabb, shape: Sequence[int]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lo, hi, voxel widths) as float32: the widths as the JAX package
+    computes them (the f32 extent over the integer voxel counts, in f64,
+    then rounded to f32)."""
+    lo, hi = (np.asarray(v, np.float32) for v in aabb)
+    w = np.asarray((hi - lo) / np.array([s - 1 for s in shape]), np.float32)
+    return lo, hi, w
+
+
+def _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps):
+    r = rays_o.shape[0]
+    if rays_o.shape != (r, 3) or rays_d.shape != (r, 3) or t_min.shape != (r,) or t_exit.shape != (r,):
+        raise ValueError("skip_march: expected rays [R, 3] and entry / exit distances [R]")
+    if skip_grid.dim() != 4 or skip_grid.shape[0] != 6 or min(skip_grid.shape[1:]) < 2:
+        raise ValueError(f"skip_march: expected a skip grid [6, r0, r1, r2], got {tuple(skip_grid.shape)}")
+    if n_steps < 1:
+        raise ValueError(f"skip_march: n_steps must be >= 1, got {n_steps}")
+
+
+def skip_march_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, t_min: torch.Tensor, t_exit: torch.Tensor,
+    step_size: float, n_samples: int, aabb, skip_grid: torch.Tensor, jitter_seed, n_steps: int,
+    count_rounds: bool = False,
+):
+    """The plain version: the JAX package's round loop in its op order.
+    With `count_rounds` it also returns the rounds in which a ray was still
+    active (the work this input needs)."""
+    _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps)
+    dev = rays_o.device
+    n_rays = rays_o.shape[0]
+    _, r0, r1, r2 = skip_grid.shape
+    lo_np, hi_np, w_np = _aabb_arrays(aabb, (r0, r1, r2))
+    lo, hi, w_axis = (torch.from_numpy(a).to(dev) for a in (lo_np, hi_np, w_np))
+    res = torch.tensor([r0 - 1, r1 - 1, r2 - 1], dtype=torch.float32, device=dev)
+    flat = skip_grid.reshape(-1)
+    ray_ids = torch.arange(n_rays, device=dev)
+    # a 0-dim tensor on the rays' device: a CPU scalar divisor would be
+    # turned into a reciprocal product by CUDA's division
+    delta = torch.tensor(np.float32(step_size), device=dev)
+
+    # dominant axis by INDEX rate (first maximum on ties): the cone bounds
+    # the lateral index advance by the axis index advance
+    idx_rate = rays_d.abs() / w_axis
+    dom = torch.argmax(idx_rate, dim=-1)
+    sign_neg = rays_d.gather(-1, dom[:, None])[:, 0] < 0.0
+    grid_base = (dom * 2 + sign_neg.long()) * (r0 * r1 * r2)
+    rate = delta * idx_rate.gather(-1, dom[:, None])[:, 0]
+    # samples past the box exit are culled by the contraction's mask; +2
+    # covers the 1-ulp disagreement of t_exit with that mask
+    k_end = torch.clamp(torch.floor((t_exit - t_min) / delta) + 2.0, 0.0, float(n_samples)).to(torch.int32)
+
+    ext = hi - lo
+    zero = torch.zeros((), device=dev)
+    k = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    done = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    ys, rounds = [], 0
+    for _ in range(n_steps):
+        kk = torch.clamp(k, max=n_samples - 1)
+        # the dense march's f32 order: (t_min + k * delta) + u * delta
+        t = t_min + kk.float() * delta
+        if jitter_seed is not None:
+            t = t + hash_u01(jitter_seed, ray_ids, kk) * delta
+        pos = rays_o + rays_d * t[:, None]
+        inbox = torch.all((pos >= lo) & (pos <= hi), dim=-1)
+        cpos = (pos - lo) / ext * 2.0 - 1.0
+        idx = torch.minimum(torch.maximum(torch.round((cpos + 1.0) * 0.5 * res), zero), res).long()
+        g = flat[grid_base + (idx[:, 0] * r1 + idx[:, 1]) * r2 + idx[:, 2]]
+        active = ~done & (k < k_end)
+        emit = active & (g == 0) & inbox
+        # skipped sample k + i advances <= (i + 1) * rate + 1 axis slices,
+        # all within the certified g - 1: m * rate <= g - 2
+        adv = torch.clamp(torch.floor((g.float() - 2.0) / rate).to(torch.int32), min=1)
+        k_next = torch.where(active, k + adv, k)
+        done = done | (k_next >= k_end)
+        ys.append(torch.where(emit, kk, -1))
+        if count_rounds:
+            rounds += int(active.sum())
+        k = k_next
+    k_idx = torch.stack(ys, dim=1)
+    return (k_idx, done, rounds) if count_rounds else (k_idx, done)
+
+
+def skip_march(
+    rays_o: torch.Tensor,  # [R, 3]
+    rays_d: torch.Tensor,  # [R, 3] unit-norm
+    t_min: torch.Tensor,  # [R] box entry, as the marcher's entry_exit gives it
+    t_exit: torch.Tensor,  # [R] box exit
+    step_size: float,
+    n_samples: int,
+    aabb,
+    skip_grid: torch.Tensor,  # [6, r0, r1, r2] int32 from make_skip_grid
+    jitter_seed: Optional[object],
+    n_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """March with cone empty-space skipping: (k_idx [R, n_steps] int32, the
+    emitted sample indices in ascending order, -1 = none; complete [R] bool,
+    False where the `n_steps` budget ran out before the ray finished).
+    `jitter_seed` (two uint32 words, or None) jitters every sample as the
+    dense march does.  The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if cuda_lib.runs_plain("skip_march", rays_o, rays_d, t_min, t_exit, skip_grid):
+        return skip_march_plain(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb,
+                                skip_grid, jitter_seed, n_steps)
+    _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps)
+    n_rays = rays_o.shape[0]
+    cuda_lib.check_cuda_inputs("skip_march", torch.float32, (n_rays, 3), rays_o, rays_d)
+    cuda_lib.check_cuda_inputs("skip_march", torch.float32, (n_rays,), t_min, t_exit)
+    cuda_lib.check_cuda_inputs("skip_march", torch.int32, skip_grid.shape, skip_grid)
+    dev = rays_o.device
+    seed_ptr = None
+    if jitter_seed is not None:
+        if isinstance(jitter_seed, torch.Tensor):
+            seed = jitter_seed.to(device=dev, dtype=torch.int64).reshape(-1)
+        else:
+            seed = torch.tensor([int(s) for s in jitter_seed], dtype=torch.int64, device=dev)
+        seed = torch.stack([seed[0], seed[-1]]).contiguous()
+        seed_ptr = seed.data_ptr()
+    _, r0, r1, r2 = skip_grid.shape
+    lo, hi, w = _aabb_arrays(aabb, (r0, r1, r2))
+    k_idx = torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev)
+    complete = torch.empty(n_rays, dtype=torch.bool, device=dev)
+    if n_rays:
+        cuda_lib.library().call(
+            "tn_skip_march", rays_o.data_ptr(), rays_d.data_ptr(), t_min.data_ptr(), t_exit.data_ptr(),
+            skip_grid.data_ptr(), seed_ptr, n_rays, r0, r1, r2, n_samples, float(np.float32(step_size)),
+            n_steps, *(float(v) for v in (*lo, *hi, *w)),
+            k_idx.data_ptr(), complete.data_ptr(), cuda_lib.stream_of(rays_o),
+        )
+        skip_march.launches += 1
+    return k_idx, complete
+
+
+skip_march.launches = 0

@@ -1,5 +1,6 @@
-// Cell-packed (oct) table build: [r0, r1, r2, F] f32 -> [(r0-1)(r1-1)(r2-1), 8F]
-// in bf16 or f32.
+// Cell-packed table builds, in bf16 or f32:
+//   oct:  [r0, r1, r2, F] f32 -> [(r0-1)(r1-1)(r2-1), 8F]  (Cobafa's grids)
+//   quad: [r0, r1, F] f32     -> [(r0-1)(r1-1), 4F]         (K-Planes' planes)
 //
 // Replaces tinynerf_tpu/ops/octbuild.py:_oct_kernel_mxu, the Pallas TPU
 // kernel behind build_oct_pallas: row (i, j, k) of the cell grid holds the
@@ -28,6 +29,21 @@
 // share corners, so a warp's reads fall on a few cache lines, and each table
 // (at most 34 MB, the 128^3 x 4 grid) stays resident in the 50 MB L2 while
 // it is rebuilt.
+
+// The quad build replaces tinynerf_tpu/ops/octbuild.py:_quad_kernel, the
+// Pallas TPU kernel behind build_quad_pallas: row (i, j) holds the four
+// corner rows table[i+dx, j+dy, :] in corner order (dx, dy) with dy fastest,
+// each value rounded once as above, bit-equal to ops/octbuild.py:
+// build_quad_plain.  Memory bounds it as well: each value is read once and
+// written four times.  The K-Planes field builds nine planes per call (129,
+// 257 and 513^2 x 32, three projections): 132.8 MB read and 264.2 MB of bf16
+// written, ~0.119 ms at 3.35 TB/s.  Design: the TPU kernel stores four
+// lane-offset slices of two table rows per grid step; here one thread
+// writes one chunk of 4 output values (8 bytes in bf16, 16 in f32).  A row
+// of 4F values is always F whole chunks, so a chunk never straddles two
+// cells and any F works (the oct kernel's 16-byte bf16 chunk would need an
+// even F here: a bf16 quad row is 8F bytes).  Stores are coalesced; the
+// four corner reads of neighbouring cells overlap and come from L1/L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +98,40 @@ __global__ void oct_build_kernel(const float* __restrict__ table, int r1, int r2
   }
 }
 
+// One chunk = 4 output values; Store is uint2 (4 x bf16) or uint4 (4 x f32).
+template <typename Bits, typename Store>
+__global__ void quad_build_kernel(const float* __restrict__ table, int r1, int f, unsigned m1,
+                                  unsigned chunks_per_row, unsigned n_chunks,
+                                  Store* __restrict__ out) {
+  constexpr int kPerChunk = 4;
+  static_assert(sizeof(Store) == kPerChunk * sizeof(Bits), "a chunk is 4 values");
+  const long long sx = static_cast<long long>(r1) * f;
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < n_chunks;
+       q += gridDim.x * blockDim.x) {
+    const unsigned row = q / chunks_per_row;
+    const int start = static_cast<int>(q - row * chunks_per_row) * kPerChunk;  // within the 4F row
+    const unsigned j = row % m1;
+    const unsigned i = row / m1;
+    const float* base = table + i * sx + static_cast<long long>(j) * f;
+    int c = start / f;  // corner of the chunk's first value
+    int ch = start - c * f;  // its channel
+    union {
+      Store v;
+      Bits e[kPerChunk];
+    } pack;
+#pragma unroll
+    for (int e = 0; e < kPerChunk; ++e) {
+      const int dx = c >> 1, dy = c & 1;
+      pack.e[e] = to_bits(__ldg(base + dx * sx + dy * f + ch), Bits{});
+      if (++ch == f) {
+        ch = 0;
+        ++c;
+      }
+    }
+    out[q] = pack.v;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -108,6 +158,29 @@ int tn_build_oct(const void* table, int r0, int r1, int r2, int f, int out_bf16,
   } else {
     oct_build_kernel<uint32_t><<<static_cast<int>(blocks), kThreads, 0, s>>>(
         t, r1, r2, f, m1, m2, chunks_per_row, static_cast<int>(n_chunks), o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: [r0, r1, f] f32, contiguous; out: [(r0-1)(r1-1), 4f] of bf16
+// (out_bf16 != 0) or f32, contiguous and 8-byte (bf16) or 16-byte (f32)
+// aligned.
+int tn_build_quad(const void* table, int r0, int r1, int f, int out_bf16, void* out, void* stream) {
+  if (r0 < 2 || r1 < 2 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int m1 = r1 - 1;
+  const long long n_chunks = static_cast<long long>(r0 - 1) * m1 * f;  // f chunks of 4 per row
+  if (n_chunks > INT_MAX || static_cast<long long>(r0) * r1 * f > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = (n_chunks + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  if (out_bf16) {
+    quad_build_kernel<uint16_t, uint2><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint2*>(out));
+  } else {
+    quad_build_kernel<uint32_t, uint4><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

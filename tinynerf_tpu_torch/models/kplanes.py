@@ -4,8 +4,10 @@ Counterpart of `KPlanesFeatureField` in `tinynerf_tpu/models/kplanes.py`
 with its default lookup (fused, per-scale forward): n_scales x 3
 axis-aligned planes (xy, xz, yz), feature-last `[r, r, F]`, init U(0, 1);
 per scale the feature is the PRODUCT of the three bilinear lookups, in
-projection order.  Tables are rounded to `gather_dtype` before the f32
-lerp.  All lookups run under one autograd Function
+projection order.  Each lookup builds its plane's cell-packed quad table
+in `gather_dtype` (`ops/octbuild.py:build_quad`, a CUDA kernel on the card:
+nine builds per field call) and gathers one 4F row per sample, lerped in
+f32.  All lookups run under one autograd Function
 (`ops/interp.py:multiscale_lookup_multiproj`), whose backward takes every
 table gradient on the finest grid through the sorted-window pipeline (on a
 CUDA device) or a scatter (on the CPU).  The TV and L1 regularizers are

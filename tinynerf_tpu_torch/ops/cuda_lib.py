@@ -41,6 +41,9 @@ _SIGNATURES = {
     "tn_sort_i32": (_P, _I, _I, _P),
     "tn_windowed_accumulate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "tn_build_oct": (_P, _I, _I, _I, _I, _I, _P, _P),
+    "tn_build_quad": (_P, _I, _I, _I, _I, _P, _P),
+    "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                      _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
 }
 
 

@@ -10,14 +10,12 @@ projection under one autograd Function), and for Cobafa `_cell_3d`,
 (`[r0, r1, F]`, `[r0, r1, r2, F]`); coordinates are in [-1, 1] with
 align_corners=True semantics (-1 -> index 0, +1 -> index r-1).
 
-For K-Planes the JAX package builds a cell-packed `[(r0-1)(r1-1), 4F]`
-table so that a TPU gathers one row per sample; that is a TPU layout of the
-same values.  Here the four corner rows are gathered from the flat
-`[r0*r1, F]` table directly.  Rounding to `gather_dtype` is elementwise, so
-rounding the gathered rows equals gathering from a rounded table; the lerp
-is f32.  The trilinear lookup keeps the JAX package's cell-packed oct table
-(`ops/octbuild.py`, a CUDA kernel on the card): one gather of an 8F row per
-sample.
+Both lookups go through the JAX package's cell-packed tables
+(`ops/octbuild.py`, CUDA kernels on the card): each K-Planes plane is built
+into a `[(r0-1)(r1-1), 4F]` quad table of `gather_dtype` (`build_quad`) and
+each sample gathers one 4F row; each Cobafa grid into an oct table, one 8F
+row per sample.  The lerp is f32.  Only coordinates and tables are saved for
+the backward, so no packed table stays alive into it.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .bitonic import packed_bits_ok
-from .octbuild import CORNERS_3D, build_oct
+from .octbuild import CORNERS_3D, build_oct, build_quad
 from .table_grad import table_grad_sorted
 
 
@@ -67,14 +65,13 @@ def _quad_lookup_fwd_value(
 ) -> torch.Tensor:
     """Bilinear lookup of `table` [r0, r1, F] at coords [..., 2] -> f32 [..., F].
 
-    Corner rows are rounded to `gather_dtype`, then weighted and summed in
-    f32."""
+    The quad table of `gather_dtype` (corners rounded once), one 4F row
+    gathered per sample, the four corners weighted and summed in f32."""
     r0, r1, f = table.shape
-    x0, y0, w = _cell_origin(coords, r0, r1)
-    base = x0 * r1 + y0  # flat row of corner 00 in the [r0*r1, F] table
-    offsets = torch.tensor((0, 1, r1, r1 + 1), device=table.device)
-    rows = table.reshape(r0 * r1, f)[base[..., None] + offsets]  # [..., 4, F]
-    vals = rows.to(gather_dtype).float()
+    quad = build_quad(table, gather_dtype)
+    cell, w = _cell_2d(coords, r0, r1)
+    rows = quad.index_select(0, cell.reshape(-1)).float()
+    vals = rows.reshape(*cell.shape, 4, f)
     return torch.sum(vals * w[..., None], dim=-2)
 
 
@@ -171,8 +168,9 @@ def _resolve_bwd_impl(bwd_impl: str, device: torch.device, n_cells: int, n: int)
 
 
 class _MultiProj(torch.autograd.Function):
-    """Forward: the per-scale lookups.  Backward: the gradient of every
-    projection's tables, taken on its finest grid (`_multiproj_bwd`)."""
+    """Forward: the per-scale lookups through quad tables.  Backward: the
+    gradient of every projection's tables, taken on its finest grid
+    (`_multiproj_bwd`).  Only coordinates and tables are saved."""
 
     @staticmethod
     def forward(ctx, gather_dtype, bwd_impl, n_proj, n_scales, *inputs):

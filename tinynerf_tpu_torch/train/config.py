@@ -3,8 +3,8 @@
 Counterpart of `tinynerf_tpu/train/config.py`, field for field, so one set
 of flags drives both packages; the JAX file documents each field.  The
 port runs on one device: `train` refuses the sharding fields
-(`shard_tables`, `shard_bwd`) and `march="skip"` (skip marching is not
-ported; "auto" marches densely); `remat_field` has no effect.
+(`shard_tables`, `shard_bwd`); `march` and `skip_steps` pick the march as
+in the JAX package; `remat_field` has no effect.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Counterpart of `tinynerf_tpu/train/loop.py`: `build_renderer`, the
 optimizer (`lr_schedule`, `_decay_mask`, the fused Adam), `make_train_step`,
-`make_occupancy_update`, the bucket policy, `train`, and the
+`make_occupancy_update`, the bucket and march policies, `train`, and the
 serving entry points (`make_render_chunk`, `make_render_chunk_packed`,
 `infer`, `evaluate`, `render_only`).  Differences from the JAX module:
 
@@ -14,10 +14,10 @@ serving entry points (`make_render_chunk`, `make_render_chunk_packed`,
   * PyTorch runs eagerly, so a "compiled step" is a closure, and the random
     streams are `torch.Generator`s seeded from (seed, step), so a resumed
     run continues its stream as the JAX one does with `fold_in`;
-  * marching is dense: skip marching (`core/skipmarch.py`) and the policy
-    that picks it (`MarchPolicy`) are not ported yet, so `train` refuses
-    `march="skip"` and runs "auto" densely.  Both marches select the same
-    sample set (the JAX package tests them equal to 1e-5).
+  * as in the JAX package, `render_only` serves with the skip march
+    whenever the renderer supports it, and `train` switches to it through
+    `MarchPolicy` once the demand estimate leaves ample round budget; the
+    skip grid is rebuilt at every occupancy update and never checkpointed.
 """
 
 from __future__ import annotations
@@ -57,7 +57,6 @@ MULTI_DEVICE_NOT_PORTED = (
     "shard_tables / shard_bwd need several devices, which the port does not "
     "drive yet (ROADMAP.md Queue 1, 'Multi-device')"
 )
-SKIP_MARCH_NOT_PORTED = "skip marching is not ported yet (ROADMAP.md Queue 1, 'Skip marching')"
 
 
 def build_renderer(
@@ -92,6 +91,7 @@ def build_renderer(
         bg_color=tuple(float(c) for c in bg_color) if bg_color is not None else None,
         early_termination=cfg.early_termination,
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
+        skip_steps=min(cfg.effective_skip_steps, cfg.n_samples),
     )
 
 
@@ -252,12 +252,16 @@ def make_train_step(
     cfg: TrainConfig,
     n_cand: int,
     deterministic: bool = False,
+    march: str = "dense",
 ) -> Callable:
     """One train step for `n_cand` candidate rays:
     fn(occ_state, pool_o, pool_d, pool_rgb, generator) -> metrics, a dict of
-    device scalars (loss, rays_used, fill).  The step samples the batch and
-    four seed words from `generator` (two for the sample jitter, two for a
-    field's dropout mask), renders the packed path, takes the per-ray MSE
+    device scalars (loss, rays_used, fill, complete_frac); with
+    `march="skip"` the step takes the skip grid (`renderer.skip_grid`,
+    rebuilt at each occupancy update) right after occ_state.  The step
+    samples the batch and four seed words from `generator` (two for the
+    sample jitter, two for a field's dropout mask), renders the packed path
+    on the chosen march, takes the per-ray MSE
     over rays that fit the sample cap plus the K-Planes TV/L1 regularizers,
     and updates the parameters in place.
 
@@ -270,8 +274,14 @@ def make_train_step(
     field_ = renderer.field
     has_reg = cfg.method == "kplanes" and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
     params = optimizer.params
+    if march not in ("dense", "skip"):
+        raise ValueError(f"unknown march {march!r}")
+    use_skip = march == "skip"
 
-    def step(occ_state, pool_o, pool_d, pool_rgb, generator=None):
+    def step(occ_state, *rest):
+        skip_grid = rest[0] if use_skip else None
+        pool_o, pool_d, pool_rgb, *gen = rest[1:] if use_skip else rest
+        generator = gen[0] if gen else None
         if deterministic:
             rays_o, rays_d, rgbs = pool_o[:n_cand], pool_d[:n_cand], pool_rgb[:n_cand]
             jitter_seed = dropout_seed = None
@@ -280,7 +290,8 @@ def make_train_step(
             words = torch.randint(0, 2**32, (4,), generator=generator, device=pool_o.device)
             jitter_seed, dropout_seed = words[:2], words[2:]
         out = renderer.render_packed(occ_state, rays_o, rays_d, cap,
-                                     jitter_seed=jitter_seed, dropout_seed=dropout_seed)
+                                     jitter_seed=jitter_seed, dropout_seed=dropout_seed,
+                                     march=march, skip_grid=skip_grid)
         per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
         num = torch.sum(per_ray_mse * out.ray_valid)
         den = torch.sum(out.ray_valid)
@@ -293,7 +304,8 @@ def make_train_step(
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         optimizer.step(grads)
-        metrics = {"loss": loss.detach(), "rays_used": den, "fill": out.n_samples.float() / cap}
+        metrics = {"loss": loss.detach(), "rays_used": den, "fill": out.n_samples.float() / cap,
+                   "complete_frac": out.n_complete.float() / n_cand}
         if deterministic:
             metrics["grads"] = optimizer.as_tree(grads)
         return metrics
@@ -319,15 +331,20 @@ def make_render_chunk(renderer: NerfRenderer) -> Callable:
     return render_chunk
 
 
-def make_render_chunk_packed(renderer: NerfRenderer, cap: int) -> Callable:
-    """Fixed-capacity packed render of one ray chunk (dense march), the
-    serving path: fn(occ_state, rays_o, rays_d) -> (rgb [R, 3], ok [R] bool,
-    n_samples).  ok=False rays overflowed the cap; `infer` re-renders
-    exactly those through the dense path, so packed serving is exact."""
+def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "dense") -> Callable:
+    """Fixed-capacity packed render of one ray chunk, the serving path, with
+    the skip march when `march="skip"` (the skip grid is then the trailing
+    argument): fn(occ_state, rays_o, rays_d, *grid) -> (rgb [R, 3], ok [R]
+    bool, n_samples, n_complete).  ok=False rays overflowed the cap or
+    exhausted the skip march's rounds; `infer` re-renders exactly those
+    through the dense path, so packed serving is exact."""
+    if march not in ("dense", "skip"):
+        raise ValueError(f"unknown march {march!r}")
 
-    def render(occ_state, rays_o, rays_d):
-        out = renderer.render_packed(occ_state, rays_o, rays_d, cap, rgb_dir_branch="ray")
-        return out.rgb, out.ray_valid > 0.0, out.n_samples
+    def render(occ_state, rays_o, rays_d, *grid):
+        out = renderer.render_packed(occ_state, rays_o, rays_d, cap, rgb_dir_branch="ray",
+                                     march=march, skip_grid=grid[0] if grid else None)
+        return out.rgb, out.ray_valid > 0.0, out.n_samples, out.n_complete
 
     return render
 
@@ -335,14 +352,18 @@ def make_render_chunk_packed(renderer: NerfRenderer, cap: int) -> Callable:
 @dataclass
 class InferStats:
     """What `infer` did: per image its rendering (float, before the PNG's
-    8-bit rounding), seconds on the host clock (synchronized) and ray count,
-    and in total the packed samples and the rays re-rendered densely."""
+    8-bit rounding), seconds on the host clock (synchronized) and ray count;
+    in total the packed samples, the rays re-rendered densely, and the rays
+    whose skip march ran out of rounds (padding rays included); and
+    `render_only`'s skip-grid build, seconds (synchronized)."""
 
     images: List[np.ndarray] = field(default_factory=list)
     seconds: List[float] = field(default_factory=list)
     rays: List[int] = field(default_factory=list)
     packed_samples: int = 0
     fallback_rays: int = 0
+    incomplete_rays: int = 0
+    skip_grid_seconds: float = 0.0
 
 
 def _renderer_device(renderer: NerfRenderer) -> torch.device:
@@ -360,11 +381,14 @@ def infer(
     render_chunk_fn: Optional[Callable] = None,
     packed_fn: Optional[Callable] = None,
     stats: Optional[InferStats] = None,
+    grid_args: Tuple = (),
 ) -> List[np.ndarray]:
     """Render full images pose by pose in fixed-size ray chunks on the
-    renderer's device and save `{name}_{i:04d}.png`.  With `packed_fn`, rays
-    the packed buffer could not hold are re-rendered by `render_chunk_fn`
-    (dense), padded to the same chunk shape."""
+    renderer's device and save `{name}_{i:04d}.png`.  With `packed_fn` (and
+    its trailing `grid_args`), the rays it flags (cap overflow, skip-march
+    rounds exhausted) are re-rendered by `render_chunk_fn` (dense), gathered
+    over the image into chunks of the same shape (the JAX `infer` re-renders
+    per packed chunk; every ray's value is the same either way)."""
     if render_chunk_fn is None:
         render_chunk_fn = make_render_chunk(renderer)
     device = _renderer_device(renderer)
@@ -390,26 +414,35 @@ def infer(
             for k in range(0, rays_o.shape[0], chunk):
                 o_c, d_c = rays_o[k : k + chunk], rays_d[k : k + chunk]
                 if packed_fn is not None:
-                    chunks.append((*packed_fn(occ_state, o_c, d_c), o_c, d_c))
+                    chunks.append((*packed_fn(occ_state, o_c, d_c, *grid_args), o_c, d_c))
                 else:
-                    chunks.append((render_chunk_fn(occ_state, o_c, d_c), None, None, o_c, d_c))
-            outs = []
-            for rgb, ok, n_samples, o_c, d_c in chunks:
+                    chunks.append((render_chunk_fn(occ_state, o_c, d_c), None, None, None, o_c, d_c))
+            outs, bad_o, bad_d, bad_at = [], [], [], []
+            for k, (rgb, ok, n_samples, n_complete, o_c, d_c) in enumerate(chunks):
                 if ok is not None:
                     bad = torch.nonzero(~ok).flatten()
-                    nb = bad.numel()
                     if stats is not None:
                         stats.packed_samples += int(n_samples)
-                        stats.fallback_rays += nb
-                    if nb:
-                        o_b = torch.zeros(chunk, 3, device=device)
-                        d_b = pad_d.expand(chunk, 3).clone()
-                        o_b[:nb], d_b[:nb] = o_c[bad], d_c[bad]
-                        dense = render_chunk_fn(occ_state, o_b, d_b)
-                        rgb = rgb.clone()
-                        rgb[bad] = dense[:nb]
+                        stats.fallback_rays += bad.numel()
+                        stats.incomplete_rays += o_c.shape[0] - int(n_complete)
+                    if bad.numel():
+                        bad_o.append(o_c[bad])
+                        bad_d.append(d_c[bad])
+                        bad_at.append(k * chunk + bad)
                 outs.append(rgb)
-            img = torch.cat(outs)[:n].reshape(K.h, K.w, 3).cpu().numpy()
+            flat = torch.cat(outs)
+            if bad_at:
+                # the image's rays that the packed path flagged, re-rendered
+                # densely in full chunks: one dense chunk per `chunk` such
+                # rays, not one per packed chunk that flagged any
+                o_b, d_b, at = torch.cat(bad_o), torch.cat(bad_d), torch.cat(bad_at)
+                for a in range(0, at.numel(), chunk):
+                    nb = min(chunk, at.numel() - a)
+                    o_p = torch.zeros(chunk, 3, device=device)
+                    d_p = pad_d.expand(chunk, 3).clone()
+                    o_p[:nb], d_p[:nb] = o_b[a : a + nb], d_b[a : a + nb]
+                    flat[at[a : a + nb]] = render_chunk_fn(occ_state, o_p, d_p)[:nb]
+            img = flat[:n].reshape(K.h, K.w, 3).cpu().numpy()
         if stats is not None:
             stats.seconds.append(time.perf_counter() - t0)
             stats.rays.append(n)
@@ -456,13 +489,23 @@ def render_only(
             f"occupancy_res={cfg.occupancy_res}"
         )
     packed_fn = None
+    grid_args: Tuple = ()
     if cfg.eval_render == "packed":
-        packed_fn = make_render_chunk_packed(renderer, cfg.batch_size * cfg.eval_samples_per_ray)
+        can_skip = renderer.supports_skip_march
+        packed_fn = make_render_chunk_packed(
+            renderer, cfg.batch_size * cfg.eval_samples_per_ray, march="skip" if can_skip else "dense")
+        if can_skip:
+            t0 = time.perf_counter()
+            grid_args = (renderer.skip_grid(occ_state),)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            if stats is not None:
+                stats.skip_grid_seconds = time.perf_counter() - t0
     indices = list(range(len(pose_set)))
     rendered = infer(
         renderer, occ_state, pose_set, indices, output, name,
         chunk=cfg.batch_size, render_chunk_fn=make_render_chunk(renderer),
-        packed_fn=packed_fn, stats=stats,
+        packed_fn=packed_fn, stats=stats, grid_args=grid_args,
     )
     if pose_set.rgbs is None:
         return None
@@ -527,6 +570,54 @@ class BucketEstimator:
         return pick_bucket(self.cfg, self.avg_samples_per_ray)
 
 
+class MarchPolicy:
+    """Dense-vs-skip marching choice of `train` (`tinynerf_tpu/train/loop.py:
+    MarchPolicy`).  The skip march engages once the demand estimate leaves
+    ample round budget (avg samples/ray <= SKIP_DEMAND_FRACTION *
+    skip_steps).  Rays that exhaust the budget leave the loss, and always
+    excluding the densest rays would bias training, so `observe` watches
+    complete_frac on every skip step, one step late (it reads the previous
+    step's scalar, which has long been computed), and on a trip falls back
+    to dense marching until the next occupancy update."""
+
+    SKIP_DEMAND_FRACTION = 0.35
+    COMPLETE_MIN = 0.995
+
+    def __init__(self, supported: bool, mode: str, skip_steps: int):
+        if mode not in ("auto", "dense", "skip"):
+            raise ValueError(f"unknown march mode {mode!r}")
+        self.can_skip = supported and mode != "dense"
+        self.forced = mode == "skip"
+        self.skip_steps = skip_steps
+        self.suspended = False  # until the next occupancy update
+        self._pending = None  # complete_frac device scalar of the last skip step
+
+    def on_occupancy_update(self) -> None:
+        self.suspended = False
+        self._pending = None
+
+    def pick(self, avg_samples_per_ray: float) -> str:
+        if not self.can_skip or self.suspended:
+            return "dense"
+        if self.forced:
+            return "skip"
+        return "skip" if avg_samples_per_ray <= self.SKIP_DEMAND_FRACTION * self.skip_steps else "dense"
+
+    def observe(self, complete_frac) -> Optional[float]:
+        """Feed a skip step's complete_frac scalar; checks the previous one.
+        Returns the offending fraction when this trips the dense fallback,
+        else None."""
+        prev, self._pending = self._pending, complete_frac
+        if prev is None:
+            return None
+        val = float(prev)
+        if val < self.COMPLETE_MIN:
+            self.suspended = True
+            self._pending = None
+            return val
+        return None
+
+
 # ---------------------------------------------------------------------- train
 
 
@@ -555,8 +646,6 @@ def train(
     it continues from the latest checkpoint in cfg.output."""
     if cfg.shard_tables or cfg.shard_bwd:
         raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
-    if cfg.march == "skip":
-        raise NotImplementedError(SKIP_MARCH_NOT_PORTED)
     output = Path(cfg.output)
     output.mkdir(parents=True, exist_ok=True)
     steps = cfg.total_steps
@@ -588,20 +677,27 @@ def train(
     n_params = sum(p.numel() for p in optimizer.params)
     print(f"Using {cfg.method} with {n_params} parameters on {device}.")
 
-    steps_by_bucket: Dict[int, Callable] = {}
+    steps_by_key: Dict[Tuple[int, str], Callable] = {}
 
-    def get_step(bucket: int) -> Callable:
-        if bucket not in steps_by_bucket:
-            steps_by_bucket[bucket] = make_train_step(
-                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size)
-        return steps_by_bucket[bucket]
+    def get_step(bucket: int, march: str) -> Callable:
+        if (bucket, march) not in steps_by_key:
+            steps_by_key[bucket, march] = make_train_step(
+                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march)
+        return steps_by_key[bucket, march]
 
+    policy = MarchPolicy(renderer.supports_skip_march, cfg.march, renderer.skip_steps)
+    skip_grid = renderer.skip_grid(occ_state) if policy.can_skip else None
     occ_update = make_occupancy_update(renderer)
     render_chunk_fn = make_render_chunk(renderer)
     packed_chunk_fn = None
     if cfg.eval_render == "packed":
         packed_chunk_fn = make_render_chunk_packed(
-            renderer, cfg.batch_size * cfg.eval_samples_per_ray)
+            renderer, cfg.batch_size * cfg.eval_samples_per_ray,
+            march="skip" if policy.can_skip else "dense")
+
+    def eval_grid_args() -> Tuple:
+        # the skip grid current at eval time (rebuilt at occupancy updates)
+        return (skip_grid,) if packed_chunk_fn is not None and policy.can_skip else ()
 
     train_metrics: List[TrainMetrics] = []
     eval_acc: List[EvalMetrics] = []
@@ -642,19 +738,29 @@ def train(
         if step_i % cfg.occ_update_every == 0:
             occ_state = occ_update(occ_state, _generator(device, cfg.seed, step_i, 1))
             occ_frac = renderer.occupancy.occupancy(occ_state)
+            if policy.can_skip:
+                skip_grid = renderer.skip_grid(occ_state)
             estimator.mark_occupancy_changed()
+            policy.on_occupancy_update()
 
         bucket = estimator.bucket()
-        m = get_step(bucket)(occ_state, pool_o, pool_d, pool_rgb,
-                             _generator(device, cfg.seed, step_i, 0))
+        march = policy.pick(estimator.avg_samples_per_ray)
+        grid_args = (skip_grid,) if march == "skip" else ()
+        m = get_step(bucket, march)(occ_state, *grid_args, pool_o, pool_d, pool_rgb,
+                                    _generator(device, cfg.seed, step_i, 0))
         pending.append((m["loss"], occ_frac, m["fill"], m["rays_used"]))
         rays_candidate += bucket * cfg.batch_size
         estimator.observe(m["fill"], m["rays_used"])
+        if march == "skip":
+            tripped = policy.observe(m["complete_frac"])
+            if tripped is not None:
+                print(f"step {step_i}: {1 - tripped:.1%} of rays exhausted the skip-march round "
+                      f"budget ({renderer.skip_steps}); dense marching until the next occupancy update")
 
         if len(pending) >= 64 or step_i == steps - 1:
             flush_pending()
             print(f"step {step_i + 1}/{steps}: loss {train_metrics[-1].loss:.5f}, "
-                  f"occupancy {train_metrics[-1].occupancy:.4f}, bucket {bucket}")
+                  f"occupancy {train_metrics[-1].occupancy:.4f}, bucket {bucket}, march {march}")
 
         if cfg.checkpoint_every and (step_i + 1) % cfg.checkpoint_every == 0:
             save_checkpoint(output, step_i + 1, _state(renderer, optimizer, occ_state, ckpt_meta))
@@ -666,6 +772,7 @@ def train(
             rendered = infer(
                 renderer, occ_state, eval_set, indices, output, f"eval_{step_i}",
                 chunk=cfg.batch_size, render_chunk_fn=render_chunk_fn, packed_fn=packed_chunk_fn,
+                grid_args=eval_grid_args(),
             )
             round_metrics = evaluate(eval_set, rendered, indices)
             eval_acc.extend(round_metrics)
@@ -694,6 +801,7 @@ def train(
         rendered = infer(
             renderer, occ_state, test_set, indices, output, "test_full",
             chunk=cfg.batch_size, render_chunk_fn=render_chunk_fn, packed_fn=packed_chunk_fn,
+            grid_args=eval_grid_args(),
         )
         if test_set.rgbs is not None:
             test_metrics = evaluate(test_set, rendered, indices)

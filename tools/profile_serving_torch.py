@@ -6,7 +6,10 @@
 Builds the full-width K-Planes renderer (TrainConfig defaults, seeded random
 parameters, the shell occupancy), takes the rays of one 800x800 view of the
 generated spheres scene, and renders chunks of 2048 rays through the packed
-path (cap 2048 x 64) and the dense path.  For each path it reports the
+path (cap 2048 x 64) on the skip march (what `render_only` serves with;
+64 rounds, from the shell's skip grid) and on the dense march, and through
+the dense path.  Rays the packed path flags are not re-rendered here (the
+report gives their count).  For each path it reports the
 host-clock time per chunk (synchronized), the device time the profiler saw
 (sum of kernel times), the device's busy share of the window, and the
 kernels that took the most device time, to stdout and, with --out, to a
@@ -45,15 +48,17 @@ def _kernel_table(prof, top: int):
 
 
 def profile_path(name, fn, chunks, n_chunks: int, top: int) -> str:
+    """`fn(o, d)` returns a RenderOutput."""
     for o, d in chunks[:3]:  # warm up
         fn(o, d)
     torch.cuda.synchronize()
     work = chunks[:n_chunks]
     t0 = time.perf_counter()
-    for o, d in work:
-        fn(o, d)
+    outs = [fn(o, d) for o, d in work]
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / len(work)
+    flagged = sum(int((out.ray_valid == 0).sum()) for out in outs)
+    incomplete = sum(o.shape[0] - int(out.n_complete) for out, (o, _) in zip(outs, work))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for o, d in work:
@@ -65,7 +70,8 @@ def profile_path(name, fn, chunks, n_chunks: int, top: int) -> str:
         f"{name}: {wall * 1e3:.3f} ms/chunk host clock ({len(work)} chunks of 2048 rays); "
         f"under the profiler {prof_wall / len(work) * 1e3:.3f} ms/chunk, "
         f"device kernels {dev_us / 1e3 / len(work):.3f} ms/chunk, "
-        f"device busy {dev_us / 1e6 / prof_wall:.1%}",
+        f"device busy {dev_us / 1e6 / prof_wall:.1%}; {flagged / len(work):.1f} rays/chunk flagged for the "
+        f"dense fallback, {incomplete / len(work):.1f} of them out of skip-march rounds",
     ]
     for us, calls, key in rows:
         lines.append(f"  {us / 1e3 / len(work):8.3f} ms/chunk {us / dev_us:6.1%} "
@@ -103,9 +109,15 @@ def main() -> None:
               for k in range(mid - b * (args.chunks // 2), mid + b * (args.chunks // 2), b)]
     cap = cfg.batch_size * cfg.eval_samples_per_ray
     with torch.inference_mode():
+        grid = renderer.skip_grid(occ)
         report = [
             f"card: {card}",
-            profile_path("packed", lambda o, d: renderer.render_packed(occ, o, d, cap),
+            profile_path(f"packed, skip march ({renderer.skip_steps} rounds)",
+                         lambda o, d: renderer.render_packed(occ, o, d, cap, rgb_dir_branch="ray",
+                                                             march="skip", skip_grid=grid),
+                         chunks, args.chunks, args.top),
+            profile_path("packed, dense march",
+                         lambda o, d: renderer.render_packed(occ, o, d, cap, rgb_dir_branch="ray"),
                          chunks, args.chunks, args.top),
             profile_path("dense", lambda o, d: renderer.render_dense(occ, o, d),
                          chunks, max(3, args.chunks // 4), args.top),

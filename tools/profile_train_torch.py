@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one GPU (tinynerf_tpu_torch).
 
-    python3 tools/profile_train_torch.py [--method kplanes|cobafa] [--steps 10] [--out profile.txt]
+    python3 tools/profile_train_torch.py [--method kplanes|cobafa] [--march auto|dense|skip]
+        [--steps 10] [--out profile.txt]
 
 Builds the full-width trainer of `--method` (TrainConfig defaults: batch
 2048 rays, 400 samples, cap 819,200, bf16 compute; K-Planes planes
@@ -15,11 +16,14 @@ two occupancy states:
   * "converged": the thin-shell grid a trained scene converges to (few
     samples per ray, so the bucket grows and the march dominates).
 
-For each it reports the host-clock time per step (synchronized), the device
+In each state the march is the one `train()`'s `MarchPolicy` picks at the
+state's demand under `--march` (default "auto": dense early, the skip march
+converged; its grid rebuilt from the state).  For each state it reports the
+march, the host-clock time per step (synchronized), the device
 time the profiler saw (sum of kernel times), the device's busy share of the
 window, the kernels that took the most device time, and the share of the
-port's own CUDA kernels (`csrc/*.cu`: the weights, sort, accumulation and
-oct build kernels, by name), to stdout and, with --out, to a file.  Needs a
+port's own CUDA kernels (`csrc/*.cu`: the weights, sort, accumulation,
+oct and quad build and skip march kernels, by name), to stdout and, with --out, to a file.  Needs a
 CUDA device.
 """
 
@@ -37,13 +41,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tinynerf_tpu_torch.data import RayPool
-from tinynerf_tpu_torch.train import TrainConfig, build_renderer, make_optimizer, make_train_step, pick_bucket
+from tinynerf_tpu_torch.train import (
+    MarchPolicy, TrainConfig, build_renderer, make_optimizer, make_train_step, pick_bucket,
+)
 from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
 
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
 PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "bitonic",
-                "windowed_accumulate", "oct_build")
+                "windowed_accumulate", "oct_build", "quad_build", "skip_march")
 
 
 def _kernel_table(prof):
@@ -58,7 +64,7 @@ def _kernel_table(prof):
     return sum(r[0] for r in rows), rows
 
 
-def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> str:
+def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int, march: str) -> str:
     for _ in range(3):  # warm up
         m = step()
     torch.cuda.synchronize()
@@ -76,7 +82,8 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> 
         prof_wall = time.perf_counter() - t0
     dev_us, rows = _kernel_table(prof)
     lines = [
-        f"{name}: bucket {bucket} ({bucket * 2048} candidate rays), fill {fill:.3f} of cap {cap}; "
+        f"{name}: {march} march, bucket {bucket} ({bucket * 2048} candidate rays), fill {fill:.3f} of "
+        f"cap {cap}, {float(m['complete_frac']):.4f} of rays complete; "
         f"{wall * 1e3:.3f} ms/step host clock ({n_steps} steps); under the profiler "
         f"{prof_wall / n_steps * 1e3:.3f} ms/step, device kernels {dev_us / 1e3 / n_steps:.3f} ms/step, "
         f"device busy {dev_us / 1e6 / prof_wall:.1%}; peak device memory "
@@ -99,6 +106,7 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int) -> 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", choices=("kplanes", "cobafa"), default="kplanes")
+    ap.add_argument("--march", choices=("auto", "dense", "skip"), default="auto")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", type=Path, default=None, help="also write the report here")
@@ -111,7 +119,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    cfg = TrainConfig(method=args.method)
+    cfg = TrainConfig(method=args.method, march=args.march)
     pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
     renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda",
                               generator=torch.Generator().manual_seed(0))
@@ -122,14 +130,19 @@ def main() -> None:
     print(report[0])
     for name, occ in (("early", renderer.occupancy.init_state("cuda")),
                       ("converged", make_shell_occupancy(renderer.occupancy, device="cuda"))):
-        # the bucket train() would settle on: demand measured on one bucket-1 step
+        # the bucket and march train() would settle on: demand measured on
+        # one bucket-1 dense step
         probe = make_train_step(renderer, optimizer, cfg, n_cand=cfg.batch_size)
         m = probe(occ, *pool.arrays(), gen)
-        bucket = pick_bucket(cfg, max(1.0, float(m["fill"]) * cfg.sample_cap / float(m["rays_used"])))
-        step_fn = make_train_step(renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size)
+        demand = max(1.0, float(m["fill"]) * cfg.sample_cap / float(m["rays_used"]))
+        bucket = pick_bucket(cfg, demand)
+        march = MarchPolicy(renderer.supports_skip_march, cfg.march, renderer.skip_steps).pick(demand)
+        grid = (renderer.skip_grid(occ),) if march == "skip" else ()
+        step_fn = make_train_step(renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march)
         torch.cuda.reset_peak_memory_stats()
         report.append(profile_state(
-            name, lambda: step_fn(occ, *pool.arrays(), gen), args.steps, args.top, bucket, cfg.sample_cap))
+            name, lambda: step_fn(occ, *grid, *pool.arrays(), gen), args.steps, args.top, bucket,
+            cfg.sample_cap, march))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n\n".join(report) + "\n")
