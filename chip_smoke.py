@@ -15,11 +15,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    TB/s, or its f32 operations at 67 TFLOP/s, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time
    (`library_ms`): the packed and dense weights at the serving path's
-   shapes, their backwards, the bitonic sort and the windowed
+   shapes, their backwards, the radix sort and the windowed
    table-gradient accumulation (both payloads) at the training path's
-   shapes, the accumulation on cells laid out as training lays them out (a
-   hot window, and the packed buffer's pad tail in one cell with a zero
-   cotangent), so its split-window branch runs; the oct cell-pack build
+   shapes: the sort as the trainer calls it (packed keys, by their window
+   bits) and, under `full_range_*`, over all 32 bits of random keys, both
+   beside `torch.sort`; the accumulation on cells laid out as training
+   lays them out (a hot window, and the packed buffer's pad tail in one
+   cell with a zero cotangent), so its split-window branch runs, its main
+   kernel's device time apart from the wrapper's other launches, in the
+   windows of 64 cells the trainer sorts by on the card (sums in
+   registers) and, bf16, in windows of 256 (the shared-memory tile); the oct
+   cell-pack build
    over the full-width Cobafa field's seven grids and the quad cell-pack
    build over the K-Planes field's nine planes, each in bf16 and f32,
    bit-equal to its plain version and to the yardstick `copy_`; and the
@@ -157,12 +163,13 @@ def median_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, runs: int = 20):
-    """Device time per call (sum of the kernels' times under the profiler),
-    without the host's enqueue gaps that a single-call event pair includes.
-    The profiler has returned a window with no kernel at all (0.0 ms for
-    work that ran): such a window is taken again, up to three times, and
-    None (not measured) is returned if none recorded a kernel."""
+def device_ms_by_kernel(fn, runs: int = 20) -> dict:
+    """Device time per call by kernel name (the kernels' times under the
+    profiler, without the host's enqueue gaps that a single-call event pair
+    includes).  The profiler has returned a window with no kernel at all
+    (nothing recorded for work that ran): such a window is taken again, up
+    to three times, and {} (not measured) is returned if none recorded a
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -173,10 +180,17 @@ def device_ms(fn, runs: int = 20):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == dev)
-        if total_us > 0:
-            return total_us / 1e3 / runs
-    return None
+        by_name = {ev.key: ev.self_device_time_total / 1e3 / runs for ev in prof.key_averages()
+                   if ev.device_type == dev and ev.self_device_time_total > 0}
+        if by_name:
+            return by_name
+    return {}
+
+
+def device_ms(fn, runs: int = 20):
+    """Device time per call, all kernels summed; None if not measured."""
+    by_name = device_ms_by_kernel(fn, runs)
+    return sum(by_name.values()) if by_name else None
 
 
 def _ms(v) -> str:
@@ -203,8 +217,9 @@ def time_pair(label: str, kernel_fn, plain_fn, bound_: dict, library_fn=None) ->
     same function, timed only here; None where there is none)."""
     t = dict(ms=median_ms(kernel_fn), plain_ms=median_ms(plain_fn),
              device_ms=device_ms(kernel_fn), plain_device_ms=device_ms(plain_fn), **bound_,
-             library_ms=median_ms(library_fn) if library_fn is not None else None)
-    lib = f"{t['library_ms']:.4f} ms" if library_fn is not None else "none"
+             library_ms=median_ms(library_fn) if library_fn is not None else None,
+             library_device_ms=device_ms(library_fn) if library_fn is not None else None)
+    lib = f"{t['library_ms']:.4f} ms (device {_ms(t['library_device_ms'])})" if library_fn is not None else "none"
     print(f"{label}: call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib} (median of 20, "
           f"CUDA events); device {_ms(t['device_ms'])}, plain {_ms(t['plain_device_ms'])} (profiler, "
           f"per call); bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bound_bytes'] / 1e6:.1f} MB, "
@@ -383,23 +398,37 @@ def check_training_kernels(dev):
         bound(nbytes(sig2, dlt2, msk2, w2, g2) + 4 * r * s, WEIGHTS_BWD_FLOPS * r * s),
     ))
 
-    # kernel 4: the sort of the three projections' packed keys [3, 819,200]
-    n, n_cells, w_window = 819_200, 512 * 512, 256
-    cell_np, zero_np = accumulation_problem(rng, n, n_cells, w_window)
+    # kernel 4: the sort of the three projections' packed keys [3, 819,200],
+    # as the trainer calls it: by the keys' window bits (the low bits are an
+    # ascending iota), the windows those the trainer picks on the card
+    n, n_cells, f, nc = 819_200, 512 * 512, 96, 4
+    cell_np, zero_np = accumulation_problem(rng, n, n_cells)
     cell = t(cell_np)
-    keys = bitonic.pack_keys(cell >> 8, 20)
-    out = bitonic.sort_i32(keys)
-    ref = bitonic.sort_i32_plain(keys)
-    if not torch.equal(out, ref):
-        raise AssertionError("sort_i32 differs from torch.sort")
-    print(f"kernel bitonic sort [3, {n}]: bit-equal to torch.sort")
+    w_window = table_grad.default_window(dev, n_cells, n, nc * f)
+    keys, idx_bits, window_bits, _ = table_grad.window_keys(cell, n_cells, w_window)
+    bit_range = dict(begin_bit=idx_bits, end_bit=idx_bits + window_bits)
+    out = bitonic.sort_i32(keys, **bit_range)
+    if not (torch.equal(out, bitonic.sort_i32_plain(keys, **bit_range))
+            and torch.equal(out, torch.sort(keys, dim=-1).values)):
+        raise AssertionError("sort_i32 by the window bits differs from its plain version or from torch.sort")
+    print(f"kernel radix sort [3, {n}] packed keys, bits [{idx_bits}, {idx_bits + window_bits}) "
+          f"({n_cells // w_window} windows of {w_window} cells): bit-equal to torch.sort")
     results["sort"] = dict(max_abs_err=0.0, **time_pair(
-        f"kernel bitonic sort [3, {n}]", lambda: bitonic.sort_i32(keys),
-        lambda: bitonic.sort_i32_plain(keys), bound(2 * nbytes(keys)),
+        f"kernel radix sort [3, {n}] by {window_bits} window bits", lambda: bitonic.sort_i32(keys, **bit_range),
+        lambda: bitonic.sort_i32_plain(keys, **bit_range), bound(2 * nbytes(keys)),
         lambda: torch.sort(keys, dim=-1)))
+    # and over all 32 bits of random keys, like for like with torch.sort
+    rkeys = t(rng.integers(-(2**31), 2**31 - 1, (3, n), dtype=np.int64).astype(np.int32))
+    if not torch.equal(bitonic.sort_i32(rkeys), torch.sort(rkeys, dim=-1).values):
+        raise AssertionError("sort_i32 of random keys differs from torch.sort")
+    print(f"kernel radix sort [3, {n}] random keys, all 32 bits: bit-equal to torch.sort")
+    results["sort"].update({f"full_range_{k}": v for k, v in time_pair(
+        f"kernel radix sort [3, {n}] random keys, 32 bits", lambda: bitonic.sort_i32(rkeys),
+        lambda: bitonic.sort_i32_plain(rkeys), bound(2 * nbytes(rkeys)),
+        lambda: torch.sort(rkeys, dim=-1)).items()})
+    del rkeys
 
     # kernel 5: windowed accumulation, 3 x 819,200 samples into 262,144 x 384
-    f, nc = 96, 4
     gen = torch.Generator(dev).manual_seed(1)
     gq = torch.randn(3, n, f, device=dev, generator=gen)
     gq[t(zero_np)] = 0.0
@@ -408,7 +437,8 @@ def check_training_kernels(dev):
     gidx = (perm.long() + (torch.arange(3, device=dev) * n)[:, None]).reshape(-1)
     counts = (offsets[:, 1:] - offsets[:, :-1]).cpu().numpy()
     n_split = (counts > table_grad.ACCUM_CHUNK).sum(axis=1)
-    print(f"kernel windowed_accumulate input: windows split into chunks of {table_grad.ACCUM_CHUNK} "
+    print(f"kernel windowed_accumulate input: {n_cells // w_window} windows of {w_window} cells, split into "
+          f"chunks of {table_grad.ACCUM_CHUNK} "
           f"per projection {n_split.tolist()}, largest window {counts.max(axis=1).tolist()} samples, "
           f"{int(zero_np.sum())} samples with a zero cotangent")
     if not (n_split >= 2).all():
@@ -445,8 +475,35 @@ def check_training_kernels(dev):
             lambda: table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window),
             bound(nbytes(rows, offsets) + out_bytes, flops), library,
         )
+        # the accumulation kernel apart from the wrapper's other launches
+        # (the scan of the work list; the item table and the split windows'
+        # zero fill)
+        by_name = device_ms_by_kernel(
+            lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window))
+        main = sum(ms for name, ms in by_name.items() if "windowed_accumulate" in name)
+        timed["kernel_device_ms"] = main if by_name else None
+        timed["other_device_ms"] = sum(by_name.values()) - main if by_name else None
+        print(f"kernel windowed_accumulate {label} payload: device {_ms(timed['kernel_device_ms'])} in the "
+              f"accumulation kernel, {_ms(timed['other_device_ms'])} in the wrapper's other launches "
+              f"{sorted(k[:40] for k in by_name if 'windowed_accumulate' not in k)}")
         entry[label] = dict(max_abs_err=abs_err, **timed)
     del contrib, lib_out
+    # windows of 256 cells, the JAX package's: too large for the kernel that
+    # sums in registers, so the tile kernel takes them, a tile split over blocks
+    perm, offsets = table_grad.sort_by_window(cell, n_cells, 256)
+    gidx = (perm.long() + (torch.arange(3, device=dev) * n)[:, None]).reshape(-1)
+    rows = table_grad.pack_payload(gq, wq, cell, 256, torch.bfloat16).reshape(3 * n, -1)[gidx].reshape(3, n, -1)
+    out = table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, 256)
+    ref = table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, 256)
+    err = _rel_err(out, ref)
+    if not (err <= GRAD_RTOL_OF_MAX and bool((out[empty] == 0).all())):
+        raise AssertionError(f"windowed accumulation, windows of 256 cells, disagrees: {err}")
+    del out, ref
+    entry["bf16"]["window256_device_ms"] = device_ms(
+        lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, 256))
+    print(f"kernel windowed_accumulate bf16 payload, windows of 256 cells (the tile kernel): max|kernel-plain| / "
+          f"max|plain| = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g}), device {_ms(entry['bf16']['window256_device_ms'])}")
+    del rows
     # the training default is the bf16 payload (ops/interp.py); f32 rides along
     results["accumulate"] = {
         **entry["bf16"],
@@ -923,7 +980,7 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("segscan_bwd", "segscan.weights_packed_bwd", "segscan.cu", "tinynerf_tpu/ops/segscan.py:48"),
     ("weights_dense_bwd", "weights_dense.weights_dense_bwd", "weights_dense.cu",
      "tinynerf_tpu/ops/weights_pallas.py:70"),
-    ("sort", "bitonic.sort_i32", "bitonic.cu", "tinynerf_tpu/ops/bitonic.py:73"),
+    ("sort", "bitonic.sort_i32", "radix_sort.cu", "tinynerf_tpu/ops/bitonic.py:73"),
     ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
     ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
@@ -934,6 +991,7 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -974,6 +1032,7 @@ def main() -> None:
     for k in record["kernels"]:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was launched by no driven path")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
-backwards, the bitonic sort, the windowed table-gradient accumulation, the
+backwards, the radix sort, the windowed table-gradient accumulation, the
 oct and quad cell-pack builds and the skip march.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
@@ -248,24 +248,53 @@ def test_dense_weights_backward_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(out, ref, atol=_grad_tol(ref), rtol=0)
 
 
+# lengths around the sort kernel's 4096-key tile and 32-key warp rounds
+SORT_SHAPES = ((1,), (255,), (257,), (5000,), (4095,), (4096,), (4097,), (3, 1000), (2, 2049), (4, 4096),
+               (3, 819_200))
+
+
 @pytest.mark.cuda
 def test_sort_kernel_bit_equal_to_torch_sort(cuda_device):
-    """Any length (padded to a power of two >= 256), batched rows, negative
-    and repeated keys, and the training shape [3, 819,200]."""
+    """Any length (ragged last tiles), batched rows, negative and repeated
+    keys, and the training shape [3, 819,200], over all 32 bits."""
     rng = np.random.default_rng(14)
-    for shape in ((1,), (255,), (5000,), (3, 1000), (2, 2049), (4, 4096), (3, 819_200)):
+    for shape in SORT_SHAPES:
         keys = rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
         keys.reshape(-1)[::7] = 3
         k = T(keys).to(cuda_device)
         before = bitonic.sort_i32.launches
         out = bitonic.sort_i32(k)
+        torch.cuda.synchronize()
         assert bitonic.sort_i32.launches == before + 1
         assert torch.equal(out, torch.sort(k, dim=-1).values), shape
+        assert torch.equal(k.cpu(), T(keys)), shape  # the input is only read
 
 
-def _accum_case(rng, p, n, f, n_cells, skew=False):
+@pytest.mark.cuda
+def test_sort_kernel_bit_range(cuda_device):
+    """The call the training path makes: packed keys (window << idx_bits) |
+    iota sorted by the window bits alone equal torch.sort's; and over random
+    keys the bit-range sort is stable (equal to the plain version), with one
+    pass, several, a ragged last digit, and the sign bit."""
+    rng = np.random.default_rng(24)
+    for shape in SORT_SHAPES:
+        idx_bits = bitonic._bits(shape[-1])
+        for n_buckets in (1024, 3):
+            bucket = T(rng.integers(0, n_buckets, shape).astype(np.int32)).to(cuda_device)
+            keys = bitonic.pack_keys(bucket, idx_bits)
+            out = bitonic.sort_i32(keys, begin_bit=idx_bits, end_bit=idx_bits + bitonic._bits(n_buckets))
+            torch.cuda.synchronize()
+            assert torch.equal(out, torch.sort(keys, dim=-1).values), (shape, n_buckets)
+        keys = T(rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)).to(cuda_device)
+        for begin_bit, end_bit in ((0, 3), (4, 12), (7, 20), (20, 32), (31, 32), (9, 9)):
+            out = bitonic.sort_i32(keys, begin_bit=begin_bit, end_bit=end_bit)
+            torch.cuda.synchronize()
+            assert torch.equal(out, bitonic.sort_i32_plain(keys, begin_bit, end_bit)), (shape, begin_bit, end_bit)
+
+
+def _accum_case(rng, p, n, f, n_cells, skew=False, nc=4):
     g = rng.normal(size=(p, n, f)).astype(np.float32)
-    w4 = torch.from_numpy(rng.uniform(size=(p, n, 4)).astype(np.float32))
+    w4 = torch.from_numpy(rng.uniform(size=(p, n, nc)).astype(np.float32))
     cell = rng.integers(0, n_cells, size=(p, n)).astype(np.int32)
     if skew:
         # every sample in one cell of window 2 (the other windows empty), a
@@ -276,40 +305,86 @@ def _accum_case(rng, p, n, f, n_cells, skew=False):
     return torch.from_numpy(g), w4, torch.from_numpy(cell)
 
 
+def _poison_next_empty(like: torch.Tensor) -> None:
+    """The kernel's output is `torch.empty`: fill the block the allocator
+    hands out next for this size with NaN, so an element the kernel does not
+    write cannot pass for a sum left there by an earlier call."""
+    torch.full_like(like, float("nan"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("payload", [torch.float32, torch.bfloat16])
 def test_windowed_accumulate_kernel_matches_plain(cuda_device, payload):
     """Kernel vs plain decode + index_add_ on the same sorted payload, and the
     whole sorted pipeline vs the scatter reference; ragged sizes, empty and
-    skewed windows, and the training shape (3 x 819,200 samples into
-    262,144 cells x 384)."""
+    skewed windows, row widths that are no multiple of 4 or 8 values (a g of
+    12 or 20 bytes in bf16, the scalar store path), one projection, a table of
+    one window (whose samples span many staging stages and several chunks),
+    windows of exactly one chunk and one sample more, and the training shape
+    (3 x 819,200 samples into 262,144 cells x 384), by windows of 256 cells
+    (a tile split over blocks) and of 64."""
     rng = np.random.default_rng(15)
-    cases = [(2, 1500, 8, 600, False), (1, 5000, 4, 1000, True), (3, 819_200, 96, 262_144, False)]
+    chunk = table_grad.ACCUM_CHUNK
+    cases = [(2, 1500, 8, 600, False), (1, 5000, 4, 1000, True), (1, 3000, 6, 256, False),
+             (1, 40, 10, 200, False), (2, chunk, 12, 256, False), (1, chunk + 1, 5, 256, False),
+             (1, 17, 96, 256, False), (3, 819_200, 96, 262_144, False)]
     for p, n, f, n_cells, skew in cases:
         g, w4, cell = (x.to(cuda_device) for x in _accum_case(rng, p, n, f, n_cells, skew))
-        w_window = 256
-        n_cells_pad = -(-n_cells // w_window) * w_window
-        perm, offsets = table_grad.sort_by_window(cell, n_cells_pad, w_window)
-        for pi in range(p):  # the partition groups every window's samples
-            c = cell[pi][perm[pi].long()] // w_window
-            assert bool((c[1:] >= c[:-1]).all())
-        out = table_grad.table_grad_sorted(g, w4, cell, n_cells, w_window, payload)
-        g_ref = g.to(payload).float()  # the bf16 payload rounds g only
-        ref = table_grad.windowed_accumulate_ref(g_ref, w4, cell, n_cells)
-        # the bf16 payload's weights are a (hi, lo) pair, ~2^-16 relative
-        tol = _grad_tol(ref) if payload == torch.float32 else 3e-5 * float(ref.abs().max())
-        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
-        if skew:
-            assert float(out[:, : 2 * 256].abs().max()) == 0.0  # cells with no samples are 0
-        # kernel vs plain on one payload
-        gidx = perm.long() + (torch.arange(p, device=cuda_device) * n)[:, None]
-        rows = table_grad.pack_payload(g, w4, cell, w_window, payload)
-        sorted_rows = rows.reshape(p * n, -1)[gidx.reshape(-1)].reshape(p, n, -1)
-        before = table_grad.windowed_accumulate.launches
-        k = table_grad.windowed_accumulate(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
-        assert table_grad.windowed_accumulate.launches == before + 1
-        plain = table_grad.windowed_accumulate_plain(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
-        torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)
+        # the JAX package's window, and the one the trainer picks on the card
+        # (64 cells at 96 features: the tile fits one block, keys of 32 bits)
+        for w_window in sorted({256, table_grad.default_window(cuda_device, n_cells, n, 4 * f)}):
+            n_cells_pad = -(-n_cells // w_window) * w_window
+            perm, offsets = table_grad.sort_by_window(cell, n_cells_pad, w_window)
+            for pi in range(p):  # the partition groups every window's samples
+                c = cell[pi][perm[pi].long()] // w_window
+                assert bool((c[1:] >= c[:-1]).all())
+            out = table_grad.table_grad_sorted(g, w4, cell, n_cells, w_window, payload)
+            g_ref = g.to(payload).float()  # the bf16 payload rounds g only
+            ref = table_grad.windowed_accumulate_ref(g_ref, w4, cell, n_cells)
+            # the bf16 payload's weights are a (hi, lo) pair, ~2^-16 relative
+            tol = _grad_tol(ref) if payload == torch.float32 else 3e-5 * float(ref.abs().max())
+            torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+            if skew:
+                assert float(out[:, : 2 * 256].abs().max()) == 0.0  # cells with no samples are 0
+            # kernel vs plain on one payload
+            gidx = perm.long() + (torch.arange(p, device=cuda_device) * n)[:, None]
+            rows = table_grad.pack_payload(g, w4, cell, w_window, payload)
+            sorted_rows = rows.reshape(p * n, -1)[gidx.reshape(-1)].reshape(p, n, -1)
+            plain = table_grad.windowed_accumulate_plain(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
+            empty = torch.stack([torch.bincount(c, minlength=n_cells_pad) == 0 for c in cell])
+            _poison_next_empty(plain)
+            before = table_grad.windowed_accumulate.launches
+            k = table_grad.windowed_accumulate(sorted_rows, offsets, f, 4, n_cells_pad, w_window)
+            torch.cuda.synchronize()
+            assert table_grad.windowed_accumulate.launches == before + 1
+            torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)
+            assert bool((k[empty] == 0).all())  # cells without samples are exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nc,f,w_window", [(1, 16, 256), (8, 8, 64), (3, 7, 128), (4, 200, 256), (3, 150, 256), (8, 40, 1),
+                                          (4, 96, 64), (3, 7, 64), (1, 16, 32), (2, 50, 16), (4, 97, 64), (4, 96, 8)])
+def test_windowed_accumulate_kernel_layouts(cuda_device, payload, nc, f, w_window):
+    """Other corner counts, windows and widths than training's: one corner,
+    eight, three, a row too wide for one block's shared memory (the window
+    then splits into corners and bands of cells: 16 blocks per chunk),
+    windows of one cell; and windows of up to 64 cells x up to 4 corners x up
+    to 96 values, which the kernel that sums in registers takes (97 values:
+    the tile kernel again)."""
+    rng = np.random.default_rng(25)
+    p, n, n_cells = 2, 3000, 4 * max(w_window, 8)
+    g, w, cell = (x.to(cuda_device) for x in _accum_case(rng, p, n, f, n_cells, nc=nc))
+    g[:, ::5] = 0.0
+    perm, offsets = table_grad.sort_by_window(cell, n_cells, w_window)
+    gidx = perm.long() + (torch.arange(p, device=cuda_device) * n)[:, None]
+    rows = table_grad.pack_payload(g, w, cell, w_window, payload)
+    sorted_rows = rows.reshape(p * n, -1)[gidx.reshape(-1)].reshape(p, n, -1)
+    plain = table_grad.windowed_accumulate_plain(sorted_rows, offsets, f, nc, n_cells, w_window)
+    _poison_next_empty(plain)
+    k = table_grad.windowed_accumulate(sorted_rows, offsets, f, nc, n_cells, w_window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)
 
 
 # the Cobafa field's seven grids at full width (make_model("cobafa")), then

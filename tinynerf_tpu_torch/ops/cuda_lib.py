@@ -38,8 +38,8 @@ _SIGNATURES = {
     "tn_weights_dense": (_P, _P, _P, _I, _I, _F, _P, _P),
     "tn_weights_packed_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P),
     "tn_weights_dense_bwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "tn_sort_i32": (_P, _I, _I, _P),
-    "tn_windowed_accumulate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "tn_sort_i32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tn_windowed_accumulate": (_P, _P, _P) + (_I,) * 16 + (_P, _P),
     "tn_build_oct": (_P, _I, _I, _I, _I, _I, _P, _P),
     "tn_build_quad": (_P, _I, _I, _I, _I, _P, _P),
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,

@@ -4,11 +4,14 @@ Counterpart of `tinynerf_tpu/ops/table_grad.py`.  The backward of a
 cell-packed bilinear lookup is a scatter-add of per-sample rows
 concat_c(w[i, c] * g[i, :]) into the rows cell[i] of a [n_cells, nc * F]
 table.  The samples are first grouped by table WINDOW (W consecutive cells)
-with the bitonic sort (`ops/bitonic.py`), then each window is accumulated
+with the radix sort of `ops/bitonic.py`, then each window is accumulated
 by `windowed_accumulate`: on CUDA tensors the hand-written kernel of
-`csrc/table_grad.cu` (one shared-memory band of cells per block and chunk
-of a window's samples, f32 atomics), on CPU tensors its plain version,
-decode + `index_add_`.
+`csrc/table_grad.cu` (a window's samples staged in shared memory once by
+bulk asynchronous copies; each cell's sums kept in one warp's registers,
+or, for shapes too large for that, a window's tile in shared memory with
+f32 atomics; every output element written once), on CPU tensors its plain
+version, decode + `index_add_`.  On a CUDA device the pipeline sorts by
+windows of 64 cells where the JAX package takes 256 (`default_window`).
 
 One packed payload row per sample, so the sorted stream costs one
 permutation gather, in either of the JAX package's encodings (keyed on the
@@ -26,11 +29,24 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .bitonic import _bits, pack_keys, packed_bits_ok, sort_i32, unpack_keys
+from .bitonic import _bits, pack_keys, sort_i32, unpack_keys
 
 
-# samples of one window walked by one block of the accumulation kernel
+# samples of one window walked by one work item of the accumulation kernel
 ACCUM_CHUNK = 1024
+# the shapes of one of its blocks, smallest first: (bytes of the f32 tile of a
+# window's cells x corners, stages of the staging ring, bytes per stage,
+# threads).  A tile of up to 96 KB leaves an SM room for two blocks, so one
+# writes its tile out while the other accumulates; a larger tile has the SM
+# to itself; a window that does not fit the largest is split over blocks
+ACCUM_SHAPES = ((96 * 1024, 2, 8192, 544), (192 * 1024, 2, 16384, 1024))
+# windows of up to OWNER_WINDOW cells x up to 4 corners x up to 96 values go
+# to the kernel that keeps every cell's sums in one warp's registers: the
+# rows per stage of its ring (32, 64 or 128) and the ring's bytes (as many
+# stages as fit, at most 8); 0 bytes would send them to the tile kernel too
+ACCUM_OWNER_STAGE_ROWS = 128
+ACCUM_OWNER_RING_BYTES = 192 * 1024
+OWNER_WINDOW = 64
 
 
 def pack_payload(g, w_corners, cell, w_window: int, payload_dtype=torch.float32):
@@ -106,20 +122,26 @@ def windowed_accumulate(
     nw = n_cells_pad // w_window
     cuda_lib.check_cuda_inputs("windowed_accumulate", packed_s.dtype, (p, m, fp), packed_s)
     cuda_lib.check_cuda_inputs("windowed_accumulate", torch.int32, (p, nw + 1), offsets)
-    out = torch.zeros(p, n_cells_pad, n_corners * f_dim, dtype=torch.float32,
+    # the kernel writes every element (an empty window's zeros too)
+    out = torch.empty(p, n_cells_pad, n_corners * f_dim, dtype=torch.float32,
                       device=packed_s.device)
     if p and nw:
-        # the kernel's work list: window (p, v) is split into
-        # ceil(count / ACCUM_CHUNK) chunks; chunk_start is their exclusive scan
-        counts = (offsets[:, 1:] - offsets[:, :-1]).reshape(-1)
-        chunk_start = torch.cat([
-            counts.new_zeros(1), torch.cumsum((counts + ACCUM_CHUNK - 1) // ACCUM_CHUNK, 0),
-        ]).to(torch.int32)
-        max_chunks = p * nw + p * -(-m // ACCUM_CHUNK)  # >= the total, known without a sync
+        # the kernel's work list, made on the device into `scratch`: window
+        # (p, v) is split into max(1, ceil(count / ACCUM_CHUNK)) chunks; the
+        # exclusive scan of that, then 4 ints per chunk; max_items bounds the
+        # chunks without a sync
+        max_items = p * nw + p * -(-m // ACCUM_CHUNK)
+        scratch = torch.empty(p * nw + 4 + 4 * max_items, dtype=torch.int32, device=packed_s.device)
+        tile = w_window * n_corners * f_dim * 4
+        tile_bytes, stages, stage_bytes, threads = next(
+            (shape for shape in ACCUM_SHAPES if tile <= shape[0]), ACCUM_SHAPES[-1])
+        stage_rows = max(1, stage_bytes // (fp * packed_s.element_size()))
+        owner_stages = min(8, ACCUM_OWNER_RING_BYTES // (ACCUM_OWNER_STAGE_ROWS * fp * packed_s.element_size()))
         cuda_lib.library().call(
             "tn_windowed_accumulate", packed_s.data_ptr(), offsets.data_ptr(),
-            chunk_start.data_ptr(), max_chunks, ACCUM_CHUNK, p, m, fp, f_dim, n_corners,
-            nw, w_window, int(bf16), out.data_ptr(), cuda_lib.stream_of(packed_s),
+            scratch.data_ptr(), max_items, ACCUM_CHUNK, p, m, fp, f_dim, n_corners,
+            nw, w_window, int(bf16), tile_bytes, stages, stage_rows, threads,
+            owner_stages if owner_stages >= 2 else 0, ACCUM_OWNER_STAGE_ROWS // 32, out.data_ptr(), cuda_lib.stream_of(packed_s),
         )
         windowed_accumulate.launches += 1
     return out
@@ -128,22 +150,55 @@ def windowed_accumulate(
 windowed_accumulate.launches = 0
 
 
+KEY_BITS = 32  # of the packed sort keys: window id over sample index
+
+
+def default_window(device: torch.device, n_cells: int, n: int, width: int) -> int:
+    """The window the pipeline sorts by: 256 cells, the JAX package's, on
+    the CPU.  On a CUDA device the largest power of two <= OWNER_WINDOW whose
+    f32 tile [W, width] fits the tile kernel's smallest block shape, so that
+    one block reads each sample once (and up to 4 corners x 96 values are
+    summed in registers), as long as the packed keys still fit."""
+    w = 256
+    if device.type == "cuda":
+        while (w > 1 and (w > OWNER_WINDOW or w * width * 4 > ACCUM_SHAPES[0][0])
+               and _bits(-(-n_cells // (w // 2))) + _bits(n) <= KEY_BITS):
+            w //= 2
+    return w
+
+
+def window_keys(cell: torch.Tensor, n_cells_pad: int, w_window: int):
+    """The packed sort keys of `sort_by_window`: (window << idx_bits) |
+    sample index -> (keys [P, n] int32, idx_bits, window_bits, bias).  Keys
+    of all 32 bits carry the window id less `bias` = 2^(window_bits - 1), so
+    that bit 31 is a sign and the signed order is the windows' order; shorter
+    keys have no bias."""
+    n = cell.shape[-1]
+    nw = n_cells_pad // w_window
+    idx_bits, window_bits = _bits(n), _bits(nw)
+    if idx_bits + window_bits > KEY_BITS:
+        raise ValueError(f"sort_by_window: {nw} windows x {n} samples do not fit {KEY_BITS} key bits")
+    shift = w_window.bit_length() - 1
+    if (1 << shift) != w_window:
+        raise ValueError("sort_by_window: w_window must be a power of two")
+    bias = (1 << (window_bits - 1)) if idx_bits + window_bits == 32 else 0
+    return pack_keys((cell.to(torch.int32) >> shift) - bias, idx_bits), idx_bits, window_bits, bias
+
+
 def sort_by_window(cell: torch.Tensor, n_cells_pad: int, w_window: int):
     """Partition samples by table window.
 
     cell: [P, n] int32 cell ids in [0, n_cells_pad).  Returns (perm [P, n]
     int32 gather indices grouped by ascending window, offsets [P, NW + 1]
     int32 window sample ranges).  Within-window order is arbitrary."""
-    p, n = cell.shape
+    p = cell.shape[0]
     nw = n_cells_pad // w_window
-    if not packed_bits_ok(nw, n):
-        raise ValueError(f"sort_by_window: {nw} windows x {n} samples do not fit 31 bits")
-    shift = w_window.bit_length() - 1
-    if (1 << shift) != w_window:
-        raise ValueError("sort_by_window: w_window must be a power of two")
-    idx_bits = _bits(n)
-    skeys = sort_i32(pack_keys(cell.to(torch.int32) >> shift, idx_bits))
+    keys, idx_bits, window_bits, bias = window_keys(cell, n_cells_pad, w_window)
+    # the keys' low idx_bits are an ascending iota, so a stable sort by the
+    # window bits alone is the full ascending sort
+    skeys = sort_i32(keys, begin_bit=idx_bits, end_bit=idx_bits + window_bits)
     bucket, perm = unpack_keys(skeys, idx_bits)
+    bucket = bucket + bias
     queries = torch.arange(nw + 1, dtype=torch.int32, device=cell.device)
     offsets = torch.searchsorted(bucket.contiguous(), queries.expand(p, nw + 1).contiguous())
     return perm, offsets.to(torch.int32)
@@ -154,7 +209,7 @@ def table_grad_sorted(
     w_corners: torch.Tensor,  # [P, n, nc] corner lerp weights f32
     cell: torch.Tensor,  # [P, n] int cell ids in [0, n_cells)
     n_cells: int,
-    w_window: int = 256,
+    w_window: int | None = None,  # None: `default_window`
     payload_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """`zeros(n_cells, nc*F).index_add_(0, cell, concat_c(w[..., c, None] * g))`
@@ -162,6 +217,8 @@ def table_grad_sorted(
     gather + windowed_accumulate.  Returns [P, n_cells, nc*F] f32."""
     p, n, f_dim = g.shape
     nc = w_corners.shape[-1]
+    if w_window is None:
+        w_window = default_window(g.device, n_cells, n, nc * f_dim)
     n_cells_pad = -(-n_cells // w_window) * w_window
     perm, offsets = sort_by_window(cell, n_cells_pad, w_window)
     packed = pack_payload(g, w_corners, cell, w_window, payload_dtype)

@@ -48,8 +48,8 @@ from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
 
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
-PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "bitonic",
-                "windowed_accumulate", "oct_build", "quad_build", "skip_march")
+PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "radix_",
+                "windowed_", "oct_build", "quad_build", "skip_march")
 
 
 def _kernel_table(prof):
