@@ -14,8 +14,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    card could take (`bound_ms`: the bytes the function must move at 3.35
    TB/s, or its f32 operations at 67 TFLOP/s, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time
-   (`library_ms`): the packed and dense weights at the serving path's
-   shapes, their backwards, the radix sort and the windowed
+   (`library_ms`): the packed weights, forward and backward, on the
+   serving chunk's buffer [131,072] and on three training buffers
+   [819,200] (2,048 rays; the early step's 4,096 rays filling 0.937; the
+   converged step's 131,072 rays of mostly 0-8 samples), ids outside the
+   ray range exactly 0 and each direction one device launch per call (the
+   profiler's kernel list), and on one ray of 32 samples, whose device
+   time is the card's shortest launch of the kernel (`floor_device_ms`,
+   the floor under a bound that is smaller); the dense weights and their
+   backward at [2048, 400]; the radix sort and the windowed
    table-gradient accumulation (both payloads) at the training path's
    shapes: the sort as the trainer calls it (packed keys, by their window
    bits) and, under `full_range_*`, over all 32 bits of random keys, both
@@ -28,7 +35,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    cell-pack build
    over the full-width Cobafa field's seven grids and the quad cell-pack
    build over the K-Planes field's nine planes, each in bf16 and f32,
-   bit-equal to its plain version and to the yardstick `copy_`; and the
+   bit-equal to its plain version and to the yardstick `copy_` (the oct
+   build also at 3, 5 and 6 channels on grids that are not cubic); and the
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
    jitter, k_idx and complete equal to its plain version's (and the skip
@@ -215,8 +223,10 @@ def time_pair(label: str, kernel_fn, plain_fn, bound_: dict, library_fn=None) ->
     enqueue included) and device time per call, of kernel and plain, beside
     the bound and the time of `library_fn` (one PyTorch call computing the
     same function, timed only here; None where there is none)."""
+    by_name = device_ms_by_kernel(kernel_fn)
     t = dict(ms=median_ms(kernel_fn), plain_ms=median_ms(plain_fn),
-             device_ms=device_ms(kernel_fn), plain_device_ms=device_ms(plain_fn), **bound_,
+             device_ms=sum(by_name.values()) if by_name else None, device_kernels=sorted(by_name),
+             plain_device_ms=device_ms(plain_fn), **bound_,
              library_ms=median_ms(library_fn) if library_fn is not None else None,
              library_device_ms=device_ms(library_fn) if library_fn is not None else None)
     lib = f"{t['library_ms']:.4f} ms (device {_ms(t['library_device_ms'])})" if library_fn is not None else "none"
@@ -245,6 +255,62 @@ def packed_problem(rng, n_rays=2048, cap=131072, max_count=400):
     return sig, dlt, valid, seg, n_valid
 
 
+def _one_launch(label: str, timed: dict) -> None:
+    """The profiler's kernel list of one call: exactly one device launch."""
+    names = timed["device_kernels"]
+    print(f"{label}: kernels of one call (profiler): {[k[:60] for k in names] or 'not measured'}")
+    if len(names) > 1:
+        raise AssertionError(f"{label}: one call launched {len(names)} kernels: {names}")
+
+
+def check_packed_weights(dev, label: str, problem, n_rays: int) -> tuple:
+    """Kernel 1 on one packed buffer: the forward at both thresholds and the
+    backward against their plain versions, ids outside [0, n_rays) exactly
+    0, one device launch per call, and both timed.  Returns the forward's
+    and the backward's records."""
+    from tinynerf_tpu_torch.ops import segscan
+
+    sig, dlt, valid, seg, n_valid = problem
+    args = [torch.from_numpy(a).to(dev) for a in (sig, dlt, valid, seg)]
+    n = sig.size
+    outside = args[3] >= n_rays
+    err = 0.0
+    for thr in (0.0, 1e-4):
+        w_k = segscan.compute_weights_packed(*args, thr, n_segments=n_rays)
+        w_p = segscan.compute_weights_packed_plain(*args, thr, n_segments=n_rays)
+        torch.cuda.synchronize()
+        e = float((w_k - w_p).abs().max())
+        print(f"kernel segscan weights {label} thr={thr:g}: max|kernel-plain| = {e:.3e} (tol {WEIGHTS_ATOL:g}), "
+              f"{n_valid} valid samples of {n} in {n_rays} rays")
+        if not (e <= WEIGHTS_ATOL and bool((w_k[outside] == 0).all())):
+            raise AssertionError(f"packed weights ({label}) disagree: {e} > {WEIGHTS_ATOL}, or a pad is not 0")
+        err = max(err, e)
+    fwd = dict(max_abs_err=err, n_valid=n_valid, **time_pair(
+        f"kernel segscan weights {label} [{n}]",
+        lambda: segscan.compute_weights_packed(*args, 1e-4, n_segments=n_rays),
+        lambda: segscan.compute_weights_packed_plain(*args, 1e-4, n_segments=n_rays),
+        bound(nbytes(*args) + 4 * n, WEIGHTS_FWD_FLOPS * n),
+    ))
+    _one_launch(f"kernel segscan weights {label}", fwd)
+
+    w = segscan.compute_weights_packed(*args, 1e-4, n_segments=n_rays)
+    g = torch.randn(n, device=dev, generator=torch.Generator(dev).manual_seed(6))
+    out = segscan.weights_packed_bwd(*args, w, g, n_rays)
+    ref = segscan.weights_packed_bwd_plain(*args, w, g, n_rays)
+    err = _rel_err(out, ref)
+    print(f"kernel segscan backward {label}: max|kernel-plain| / max|plain| = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
+    if not (err <= GRAD_RTOL_OF_MAX and bool((out[outside] == 0).all())):
+        raise AssertionError(f"packed weights backward ({label}) disagrees: {err}, or a pad is not 0")
+    bwd = dict(max_abs_err=float((out - ref).abs().max()), n_valid=n_valid, **time_pair(
+        f"kernel segscan backward {label} [{n}]",
+        lambda: segscan.weights_packed_bwd(*args, w, g, n_rays),
+        lambda: segscan.weights_packed_bwd_plain(*args, w, g, n_rays),
+        bound(nbytes(*args, w, g) + 4 * n, WEIGHTS_BWD_FLOPS * n),
+    ))
+    _one_launch(f"kernel segscan backward {label}", bwd)
+    return fwd, bwd
+
+
 def check_kernels(dev):
     from tinynerf_tpu_torch.ops import segscan, weights_dense
 
@@ -254,21 +320,10 @@ def check_kernels(dev):
     # kernel 1: packed weights + segmented cumsum at cap = 2048 x 64
     sig, dlt, valid, seg, n_valid = packed_problem(rng)
     t = lambda a: torch.from_numpy(a).to(dev)
-    sig_t, dlt_t, val_t, seg_t = t(sig), t(dlt), t(valid), t(seg)
     n_rays = 2048
-    err = 0.0
-    for thr in (0.0, 1e-4):
-        w_k = segscan.compute_weights_packed(sig_t, dlt_t, val_t, seg_t, thr, n_segments=n_rays)
-        w_p = segscan.compute_weights_packed_plain(sig_t, dlt_t, val_t, seg_t, thr, n_segments=n_rays)
-        torch.cuda.synchronize()
-        e = float((w_k - w_p).abs().max())
-        print(f"kernel segscan weights thr={thr:g}: max|kernel-plain| = {e:.3e} (tol {WEIGHTS_ATOL:g}), "
-              f"{n_valid} valid samples of {sig.size}")
-        if not e <= WEIGHTS_ATOL:
-            raise AssertionError(f"packed weights disagree: {e} > {WEIGHTS_ATOL}")
-        err = max(err, e)
+    results["segscan"], _ = check_packed_weights(dev, "serving", (sig, dlt, valid, seg, n_valid), n_rays)
     x = rng.uniform(0.0, 1.0, sig.size).astype(np.float32)
-    x_t = t(x)
+    x_t, seg_t = t(x), t(seg)
     c_k = segscan.segmented_cumsum(x_t, seg_t).cpu().numpy()
     c_p = segscan.segmented_cumsum_plain(x_t, seg_t).cpu().numpy()
     starts = np.concatenate([[0], np.nonzero(seg[1:] != seg[:-1])[0] + 1])
@@ -280,12 +335,6 @@ def check_kernels(dev):
     print(f"kernel segscan cumsum: max|kernel-plain| = {np.abs(c_k - c_p).max():.3e}, "
           f"max|kernel-float64| = {np.abs(c_k - c_ref).max():.3e} "
           f"(rtol {CUMSUM_RTOL:g}, atol {CUMSUM_ATOL:g})")
-    results["segscan"] = dict(max_abs_err=err, **time_pair(
-        f"kernel segscan weights [{sig.size}]",
-        lambda: segscan.compute_weights_packed(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=n_rays),
-        lambda: segscan.compute_weights_packed_plain(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=n_rays),
-        bound(nbytes(sig_t, dlt_t, val_t, seg_t) + 4 * sig.size, WEIGHTS_FWD_FLOPS * sig.size),
-    ))
 
     # kernel 2: dense weights at [2048, 400]
     r, s = 2048, 400
@@ -311,18 +360,42 @@ def check_kernels(dev):
     return results
 
 
-def training_packed_problem(rng, n_rays=2048, cap=819_200, max_count=400):
-    """Training-shaped packed buffer: ray-major samples of 2048 rays (counts
-    in 0..400) filling ~95% of cap = 2048 x 400, then the pad tail."""
-    counts = rng.integers(0, max_count + 1, n_rays)
-    counts = (counts * (0.95 * cap / counts.sum())).astype(np.int64)
+def _packed_from_counts(rng, counts, cap):
+    n_rays = counts.size
     n_valid = int(counts.sum())
+    if n_valid > cap:
+        raise AssertionError("packed problem overflows its cap")
     seg = np.full(cap, n_rays, np.int32)
     seg[:n_valid] = np.repeat(np.arange(n_rays), counts)
     valid = (seg < n_rays).astype(np.float32)
     sig = rng.uniform(0.0, 50.0, cap).astype(np.float32) * valid
     dlt = np.full(cap, np.float32(5.196152 / 400), np.float32)
     return sig, dlt, valid, seg, n_valid
+
+
+def training_packed_problem(rng, n_rays=2048, cap=819_200, max_count=400, fill=0.95):
+    """Training-shaped packed buffer: ray-major samples of `n_rays` rays
+    (counts in 0..400) filling `fill` of cap = 2048 x 400, then the pad tail.
+    4,096 rays at 0.937 is the early training step (bucket 2, PERF.md)."""
+    counts = rng.integers(0, max_count + 1, n_rays)
+    return _packed_from_counts(rng, (counts * (fill * cap / counts.sum())).astype(np.int64), cap)
+
+
+def converged_packed_problem(rng, n_rays=131_072, cap=819_200):
+    """The converged training step's buffer (bucket 64, fill ~0.466): most
+    rays hold 0-8 samples (4 in 10 none at all), one in 200 a surface's
+    20-200."""
+    counts = rng.integers(0, 9, n_rays) * (rng.random(n_rays) < 0.6)
+    long_rays = rng.random(n_rays) < 0.005
+    counts[long_rays] = rng.integers(20, 201, int(long_rays.sum()))
+    return _packed_from_counts(rng, counts.astype(np.int64), cap)
+
+
+def one_ray_problem(n=32):
+    """One ray of 32 samples: a kernel's time on it is the time of the
+    card's shortest launch of that kernel (`floor_device_ms`)."""
+    return (np.linspace(0.0, 50.0, n, dtype=np.float32), np.full(n, np.float32(5.196152 / 400)),
+            np.ones(n, np.float32), np.zeros(n, np.int32), n)
 
 
 def accumulation_problem(rng, n=819_200, n_cells=512 * 512, w_window=256, n_pad=300_000,
@@ -350,33 +423,29 @@ def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def check_training_kernels(dev):
+def check_training_kernels(dev, results: dict) -> dict:
     """The backward kernels, the sort and the accumulation at the training
-    path's shapes, against their plain versions."""
-    from tinynerf_tpu_torch.ops import bitonic, segscan, table_grad, weights, weights_dense
+    path's shapes, against their plain versions; adds to `results`."""
+    from tinynerf_tpu_torch.ops import bitonic, table_grad, weights, weights_dense
 
     rng = np.random.default_rng(1)
     t = lambda a: torch.from_numpy(a).to(dev)
-    results = {}
 
-    # kernel 1's reverse scan: packed weights backward at [819,200]
-    sig, dlt, valid, seg, n_valid = training_packed_problem(rng)
-    sig_t, dlt_t, val_t, seg_t = t(sig), t(dlt), t(valid), t(seg)
-    w = segscan.compute_weights_packed(sig_t, dlt_t, val_t, seg_t, 1e-4, n_segments=2048)
-    g = torch.randn(sig.size, device=dev)
-    out = segscan.weights_packed_bwd(sig_t, dlt_t, val_t, seg_t, w, g, 2048)
-    ref = segscan.weights_packed_bwd_plain(sig_t, dlt_t, val_t, seg_t, w, g, 2048)
-    err = _rel_err(out, ref)
-    print(f"kernel segscan backward: max|kernel-plain| / max|plain| = {err:.3e} "
-          f"(tol {GRAD_RTOL_OF_MAX:g}), {n_valid} valid samples of {sig.size}")
-    if not err <= GRAD_RTOL_OF_MAX:
-        raise AssertionError(f"packed weights backward disagrees: {err}")
-    results["segscan_bwd"] = dict(max_abs_err=float((out - ref).abs().max()), **time_pair(
-        f"kernel segscan backward [{sig.size}]",
-        lambda: segscan.weights_packed_bwd(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
-        lambda: segscan.weights_packed_bwd_plain(sig_t, dlt_t, val_t, seg_t, w, g, 2048),
-        bound(nbytes(sig_t, dlt_t, val_t, seg_t, w, g) + 4 * sig.size, WEIGHTS_BWD_FLOPS * sig.size),
-    ))
+    # kernel 1 at the training buffer [819,200]: today's 2048 rays, then the
+    # two states of a training run, forward and backward
+    _, results["segscan_bwd"] = check_packed_weights(dev, "training, 2,048 rays", training_packed_problem(rng), 2048)
+    # the same kernels on one ray of 32 samples: the card's shortest launch
+    # of each, the floor under every bound that is smaller
+    floor = check_packed_weights(dev, "one ray of 32 samples", one_ray_problem(), 1)
+    results["segscan"]["floor_device_ms"] = floor[0]["device_ms"]
+    results["segscan_bwd"]["floor_device_ms"] = floor[1]["device_ms"]
+    for key, label, problem, n_rays in (
+            ("train_early", "early training, 4,096 rays", training_packed_problem(rng, 4096, fill=0.937), 4096),
+            ("train_converged", "converged training, 131,072 rays", converged_packed_problem(rng), 131_072)):
+        fwd, bwd = check_packed_weights(dev, label, problem, n_rays)
+        print(f"kernel segscan {label}: fill {fwd['n_valid'] / problem[0].size:.4f}")
+        results["segscan"].update({f"{key}_{k}": v for k, v in fwd.items()})
+        results["segscan_bwd"].update({f"{key}_{k}": v for k, v in bwd.items()})
 
     # kernel 3: dense weights backward at [2048, 400]
     r, s = 2048, 400
@@ -553,6 +622,15 @@ def check_oct_build(dev):
             bound(nbytes(*tables) + out_bytes),
             lambda: [oct_yardstick(t, out_dtype) for t in tables],
         ))
+    # other channel counts (the value-by-value path, chunks across corner
+    # pairs) and a grid that is not cubic
+    gen_np = np.random.default_rng(7)
+    for shape in ((20, 21, 22, 3), (33, 20, 17, 6), (9, 40, 25, 4), (12, 7, 30, 5)):
+        t = torch.from_numpy(gen_np.normal(size=shape).astype(np.float32)).to(dev)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            if not torch.equal(octbuild.build_oct(t, out_dtype), octbuild.build_oct_plain(t, out_dtype)):
+                raise AssertionError(f"oct build ({out_dtype}) of {shape} is not bit-equal to plain")
+    print("kernel oct build bf16 and f32, F = 3, 6, 4, 5 on grids that are not cubic: bit-equal to the plain build")
     for t in tables:  # the largest grid alone, bf16
         if t.shape[0] == max(field.basis_res):
             k = median_ms(lambda: octbuild.build_oct(t))
@@ -1010,7 +1088,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     kern = check_kernels(dev)
-    kern.update(check_training_kernels(dev))
+    check_training_kernels(dev, kern)
     kern.update(check_oct_build(dev))
     kern.update(check_quad_build(dev))
     kern.update(check_skip_march(dev))

@@ -50,15 +50,6 @@ def _packed(seed, n_rays=300, max_count=100, pad=700, p_empty=0.2):
     return sig, dlt, valid, seg, n_rays
 
 
-def test_segment_starts():
-    seg = torch.tensor([0, 0, 2, 2, 2, 3, 5, 5, 5], dtype=torch.int32)
-    # by id range: empty segments 1 and 4 get zero-length runs; id 5 is
-    # outside n_segments=5, so the last start is where it begins
-    assert segscan.segment_starts(seg, 5).tolist() == [0, 2, 2, 5, 6, 6]
-    assert segscan.segment_starts(seg, None).tolist() == [0, 2, 5, 6, 9]
-    assert segscan.segment_starts(seg[:0], None).tolist() == [0]
-
-
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
     """A tensor on another device is refused; nothing falls back."""
     m = torch.empty(8, device="meta")
@@ -180,6 +171,98 @@ def test_packed_weights_kernel_matches_plain(cuda_device, thr):
         segscan.segmented_cumsum(x, args[3]).cpu().numpy(),
         segscan.segmented_cumsum_plain(x, args[3]).cpu().numpy(), rtol=1e-5, atol=1e-4,
     )
+
+
+SCAN_TILE = 1024  # csrc/segscan.cu: kThreads x kItems samples per block
+
+
+def _ragged(seed, counts, pad, n_rays_extra=0):
+    """A packed buffer of rays of the given lengths, then `pad` samples of
+    id n_rays; every array and a cotangent."""
+    rng = np.random.default_rng(seed)
+    n_rays = len(counts) + n_rays_extra
+    n_valid = int(np.sum(counts))
+    seg = np.concatenate([np.repeat(np.arange(len(counts)), counts), np.full(pad, n_rays)]).astype(np.int32)
+    valid = (seg < n_rays).astype(np.float32)
+    sig = rng.uniform(0.0, 8.0, n_valid + pad).astype(np.float32)
+    dlt = rng.uniform(0.01, 0.1, n_valid + pad).astype(np.float32)
+    g = rng.normal(size=n_valid + pad).astype(np.float32)
+    return sig, dlt, valid, seg, g, n_rays
+
+
+def _scan_cases():
+    t = SCAN_TILE
+    rng = np.random.default_rng(26)
+    return {
+        # rays that end one short of, on and one past a tile edge, a ray over
+        # three tiles, empty rays in between, a pad tail of ragged length
+        "around_tile_edges": _ragged(27, [t - 1, 1, 0, t, 0, 0, t + 1, 3 * t + 5, 2, t - 3, 1], t + 3),
+        # n no multiple of 4: the last thread loads and stores one by one
+        "ragged_tail": _ragged(28, [5, 0, 300, 2 * t + 1], 2),
+        "one_ray_fills_the_buffer": _ragged(29, [5 * t + 7], 0),
+        "all_rays_empty": _ragged(30, [0] * 50, 3 * t + 1),
+        "no_pad": _ragged(31, list(rng.integers(0, 9, 3000)), 0),
+        "n_is_zero": _ragged(32, [], 0, n_rays_extra=4),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.0, 1e-4])
+@pytest.mark.parametrize("case", ["around_tile_edges", "ragged_tail", "one_ray_fills_the_buffer", "all_rays_empty",
+                                  "no_pad", "n_is_zero"])
+def test_packed_weights_kernels_on_ragged_buffers(cuda_device, thr, case):
+    """Forward, backward and the plain cumsum of the tiled kernels against
+    their plain versions; the pad tail exactly 0; one launch per call, none
+    for an empty buffer; a buffer that starts off a 16-byte boundary."""
+    sig, dlt, valid, seg, g, n_rays = _scan_cases()[case]
+    a = [T(x).to(cuda_device) for x in (sig, dlt, valid, seg)]
+    g = T(g).to(cuda_device)
+    n = sig.size
+    counts = [f.launches for f in (segscan.compute_weights_packed, segscan.weights_packed_bwd, segscan.segmented_cumsum)]
+    _poison_next_empty(a[0])
+    w = segscan.compute_weights_packed(*a, thr, n_segments=n_rays)
+    w_ref = segscan.compute_weights_packed_plain(*a, thr, n_segments=n_rays)
+    np.testing.assert_allclose(w.cpu().numpy(), w_ref.cpu().numpy(), atol=1e-5)
+    _poison_next_empty(a[0])
+    grad = segscan.weights_packed_bwd(*a, w, g, n_rays)
+    ref = segscan.weights_packed_bwd_plain(*a, w, g, n_rays)
+    torch.testing.assert_close(grad, ref, atol=_grad_tol(ref) if n else 0.0, rtol=0)
+    pad = a[3] >= n_rays
+    assert bool((w[pad] == 0).all()) and bool((grad[pad] == 0).all())
+    for n_seg in (None, n_rays):
+        _poison_next_empty(a[0])
+        c = segscan.segmented_cumsum(a[0], a[3], n_seg)
+        c_ref = segscan.segmented_cumsum_plain(a[0], a[3], n_seg)
+        np.testing.assert_allclose(c.cpu().numpy(), c_ref.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    after = [f.launches for f in (segscan.compute_weights_packed, segscan.weights_packed_bwd, segscan.segmented_cumsum)]
+    assert [x - y for x, y in zip(after, counts)] == ([1, 1, 2] if n else [0, 0, 0])
+    if n > 8:  # views one sample in: contiguous, but 4 bytes off the 16-byte boundary
+        b = [x[1:] for x in a]
+        w1 = segscan.compute_weights_packed(*b, thr, n_segments=n_rays)
+        np.testing.assert_allclose(
+            w1.cpu().numpy(), segscan.compute_weights_packed_plain(*b, thr, n_segments=n_rays).cpu().numpy(), atol=1e-5)
+        g1 = segscan.weights_packed_bwd(*b, w1, g[1:], n_rays)
+        ref1 = segscan.weights_packed_bwd_plain(*b, w1, g[1:], n_rays)
+        torch.testing.assert_close(g1, ref1, atol=_grad_tol(ref1), rtol=0)
+
+
+@pytest.mark.cuda
+def test_segmented_cumsum_kernel_any_contiguous_ids(cuda_device):
+    """Ids that do not ascend, negative ids, an id that comes back in a
+    later run, and a run longer than several tiles: sums stay inside each
+    run, also beside a run of large values."""
+    rng = np.random.default_rng(33)
+    lengths = [1, 7, 3 * SCAN_TILE + 130, 5, 300, 2, SCAN_TILE, 9]
+    ids = [5, -1, 9, 0, 3, 7, 5, 9]
+    seg = np.concatenate([np.full(n, i) for i, n in zip(ids, lengths)]).astype(np.int32)
+    x = rng.uniform(0, 1, seg.size).astype(np.float32)
+    x[8 : 8 + lengths[2]] += 1e4
+    out = segscan.segmented_cumsum(T(x).to(cuda_device), T(seg).to(cuda_device)).cpu().numpy()
+    start = 0
+    for n in lengths:
+        sl = slice(start, start + n)
+        np.testing.assert_allclose(out[sl], np.cumsum(x[sl].astype(np.float64)), rtol=1e-5)
+        start += n
 
 
 @pytest.mark.cuda
@@ -390,7 +473,8 @@ def test_windowed_accumulate_kernel_layouts(cuda_device, payload, nc, f, w_windo
 # the Cobafa field's seven grids at full width (make_model("cobafa")), then
 # ragged shapes: odd channel counts (12- and 24-byte corners), r = 2
 OCT_SHAPES = [(32, 32, 32, 8), (51, 51, 51, 8), (70, 70, 70, 8), (89, 89, 89, 4), (108, 108, 108, 4),
-              (128, 128, 128, 4), (64, 64, 64, 6), (5, 6, 7, 3), (7, 5, 6, 6), (2, 2, 2, 1), (9, 17, 9, 4)]
+              (128, 128, 128, 4), (64, 64, 64, 6), (5, 6, 7, 3), (7, 5, 6, 6), (2, 2, 2, 1), (9, 17, 9, 4),
+              (2, 40, 33, 4), (40, 2, 33, 8), (33, 40, 2, 6), (3, 300, 5, 2), (20, 21, 22, 5), (6, 7, 900, 16)]
 
 
 @pytest.mark.cuda
@@ -400,9 +484,16 @@ def test_oct_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
     for shape in OCT_SHAPES:
         table = T(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
         before = octbuild.build_oct.launches
+        _poison_next_empty(octbuild.build_oct_plain(table, out_dtype))
         out = octbuild.build_oct(table, out_dtype)
         assert octbuild.build_oct.launches == before + 1
         assert torch.equal(out, octbuild.build_oct_plain(table, out_dtype)), shape
+    # a table that starts off a 16-byte boundary (a view one value in)
+    flat = T(rng.normal(size=6 * 7 * 8 * 4 + 1).astype(np.float32)).to(cuda_device)
+    table = flat[1:].view(6, 7, 8, 4)
+    assert torch.equal(octbuild.build_oct(table, out_dtype), octbuild.build_oct_plain(table, out_dtype))
+    with pytest.raises(RuntimeError, match="tn_build_oct"):  # two slabs of two such lines exceed shared memory
+        octbuild.build_oct(torch.zeros(2, 2, 20_000, 4, device=cuda_device), out_dtype)
 
 
 @pytest.mark.cuda

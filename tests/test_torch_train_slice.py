@@ -258,3 +258,20 @@ def test_cli_trains_and_renders(world, scene, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli_main([a for a in base if a not in ("--method", "kplanes")] + ["--method", "kplanes"] * (
                 extra[0] != "--method") + extra + ["--output", str(tmp_path / "runs"), "--steps", "1"])
+
+
+def test_remat_field_raises_until_ported(tmp_path):
+    """`remat_field=True` and `--remat on` are refused (nothing would read
+    them); None / False and `auto` / `off` are taken, as before."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrainConfig(remat_field=True)
+    assert TrainConfig(remat_field=None).remat_field is None
+    assert TrainConfig(remat_field=False).remat_field is False
+    cli = ["--data", str(tmp_path / "none"), "--datatype", "synthetic", "--method", "kplanes",
+           "--output", str(tmp_path / "runs"), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="remat"):
+        cli_main(cli + ["--remat", "on"])
+    assert not (tmp_path / "runs").exists()  # refused before anything is written
+    for ok in ("auto", "off"):  # accepted: the run then fails on the missing scene instead
+        with pytest.raises(FileNotFoundError):
+            cli_main(cli + ["--remat", ok])

@@ -6,8 +6,8 @@ directory under `--output`, or, with `--resume`, continues the experiment
 `--output` names.  With `--render_only` it renders the test split from the
 latest checkpoint in `--output` (an experiment directory, written by either
 package) and reports metrics.  Nerfstudio data, unbounded scenes, the
-vanilla method and the sharding flags (`--shard_tables`, `--shard_bwd`)
-raise NotImplementedError naming the ROADMAP.md item.
+vanilla method, `--remat on` and the sharding flags (`--shard_tables`,
+`--shard_bwd`) raise NotImplementedError naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from pathlib import Path
 
 from .data import PoseSet, RayPool, parse_nerf_synthetic
 from .train import TrainConfig, render_only, train
+from .train.config import REMAT_NOT_PORTED
 
 
 def main(argv=None) -> None:
@@ -61,6 +62,8 @@ def main(argv=None) -> None:
             "nerfstudio data is not ported yet (ROADMAP.md Queue 1, "
             "'Unbounded scenes and nerfstudio')"
         )
+    if args.remat == "on":
+        raise NotImplementedError(REMAT_NOT_PORTED)
     data_path = Path(args.data)
     test_set = PoseSet(parse_nerf_synthetic(data_path, "test"))
     output = Path(args.output)

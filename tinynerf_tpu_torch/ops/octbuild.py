@@ -32,6 +32,10 @@ CORNERS_2D = tuple((dx, dy) for dx in (0, 1) for dy in (0, 1))
 
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 
+# the oct kernel's block shape (csrc/octbuild.cu): a block of OCT_THREADS
+# threads stages the table lines of up to OCT_BAND cells of j for one i
+OCT_BAND, OCT_THREADS = 2, 256
+
 
 def _shape(name: str, table: torch.Tensor, out_dtype, n_axes: int) -> tuple:
     if table.dim() != n_axes + 1 or min(table.shape[:n_axes]) < 2:
@@ -63,8 +67,8 @@ def build_oct(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     out = torch.empty((r0 - 1) * (r1 - 1) * (r2 - 1), 8 * f, dtype=out_dtype, device=table.device)
     if f:
         cuda_lib.library().call(
-            "tn_build_oct", table.data_ptr(), r0, r1, r2, f,
-            int(out_dtype == torch.bfloat16), out.data_ptr(), cuda_lib.stream_of(table),
+            "tn_build_oct", table.data_ptr(), r0, r1, r2, f, int(out_dtype == torch.bfloat16),
+            OCT_BAND, OCT_THREADS, out.data_ptr(), cuda_lib.stream_of(table),
         )
         build_oct.launches += 1
     return out

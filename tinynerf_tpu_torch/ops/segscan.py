@@ -1,28 +1,27 @@
 """Segmented scan over packed per-ray samples, and the packed weights on it.
 
 Counterpart of `tinynerf_tpu/ops/segscan.py`.  On a CUDA tensor each entry
-point launches the hand-written kernels in `csrc/segscan.cu` (one warp per
-segment, the carries in registers), the gradient of `compute_weights_packed`
+point is ONE launch of a hand-written kernel in `csrc/segscan.cu` (a block
+per tile of samples, a segmented scan inside the tile, the carry walked
+back from the tile's edge), the gradient of `compute_weights_packed`
 included; on a CPU tensor it runs the plain PyTorch version beside it.
 There is no fallback between the two: a CUDA input that the kernel cannot
 take raises.
 
-Input rule for the kernel: segment ids are contiguous runs in ASCENDING
-order (the renderer's ray-major ids are; `core/renderer.py`).  The JAX op
-accepts any contiguous ids, and so does the plain version here.
+Segment ids are contiguous runs (the renderer's ray-major ids are;
+`core/renderer.py`), ascending or not, as in the JAX op; the kernel finds
+the boundaries itself, from `seg[i] != seg[i-1]`.
 
-`n_segments`: when given, segments are the ids `0 .. n_segments-1` and
-their starts come from a sorted search on the device (no host sync); a
-sample whose id lies outside that range is left out of every scan and comes
-out 0 (the renderer passes `n_rays`, so its pad tail, id `n_rays`, gets
-weight 0, exactly as its `valid = 0` gives in the JAX op).  When None, the
-segment boundaries are found from the ids themselves, which costs one host
-sync on the CUDA path.
+`n_segments`: when given, a sample whose id lies outside `[0, n_segments)`
+comes out 0 (the renderer passes `n_rays`, so its pad tail, id `n_rays`,
+gets weight 0, exactly as its `valid = 0` gives in the JAX op); the kernel
+writes those zeros itself.  When None, every id counts.
 
-Sums stay segment-local in both versions: the kernel scans each segment on
-its own, and the plain version takes a float64 global cumsum minus each
-segment's base, so neither loses f32 precision to the buffer's total optical
-depth (the concern of `tinynerf_tpu/ops/segscan.py:13-15`).
+Sums stay segment-local in both versions: the kernel sums a segment's
+samples before the tile, then scans the tile, and the plain version takes a
+float64 global cumsum minus each segment's base, so neither loses f32
+precision to the buffer's total optical depth (the concern of
+`tinynerf_tpu/ops/segscan.py:13-15`).
 """
 
 from __future__ import annotations
@@ -94,42 +93,9 @@ def weights_packed_bwd_plain(
 # ------------------------------------------------------------------ kernel
 
 
-def segment_starts(seg: torch.Tensor, n_segments: Optional[int]) -> torch.Tensor:
-    """int32 [n_seg + 1] start offsets of the contiguous runs of `seg`."""
-    n = seg.shape[0]
-    if n_segments is not None:
-        ids = torch.arange(n_segments + 1, device=seg.device, dtype=seg.dtype)
-        return torch.searchsorted(seg, ids, out_int32=True)
-    bounds = torch.nonzero(seg[1:] != seg[:-1]).flatten().to(torch.int32) + 1
-    edge = lambda v: torch.full((1,), v, dtype=torch.int32, device=seg.device)
-    return torch.cat([edge(0), bounds, edge(n)]) if n else edge(0)
-
-
-def segmented_cumsum(
-    x: torch.Tensor, seg: torch.Tensor, n_segments: Optional[int] = None
-) -> torch.Tensor:
-    """Inclusive segment-local cumsum of a flat packed buffer.
-
-    x: [n] float32; seg: [n] int32 segment ids in contiguous ascending runs.
-    """
-    if cuda_lib.runs_plain("segmented_cumsum", x, seg):
-        return segmented_cumsum_plain(x, seg, n_segments)
-    (n,) = x.shape
-    cuda_lib.check_cuda_inputs("segmented_cumsum", torch.float32, (n,), x)
-    cuda_lib.check_cuda_inputs("segmented_cumsum", torch.int32, (n,), seg)
-    starts = segment_starts(seg, n_segments)
-    out = torch.zeros_like(x)  # samples outside every listed segment stay 0
-    n_seg = starts.shape[0] - 1
-    if n_seg > 0:
-        cuda_lib.library().call(
-            "tn_segmented_cumsum", x.data_ptr(), starts.data_ptr(), n_seg,
-            out.data_ptr(), cuda_lib.stream_of(x),
-        )
-        segmented_cumsum.launches += 1
-    return out
-
-
-segmented_cumsum.launches = 0
+def _id_range(n_segments: Optional[int]) -> int:
+    """The C entry points' id range: -1 for "every id counts"."""
+    return -1 if n_segments is None else int(n_segments)
 
 
 def _check_packed(name: str, seg, *floats) -> int:
@@ -139,40 +105,58 @@ def _check_packed(name: str, seg, *floats) -> int:
     return n
 
 
-def weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments, starts):
-    """The forward value: kernel on CUDA tensors (segments `starts`), plain
-    on CPU tensors."""
-    if starts is None:
-        return compute_weights_packed_plain(sigmas, deltas, valid, seg, threshold, n_segments)
-    _check_packed("compute_weights_packed", seg, sigmas, deltas, valid)
-    out = torch.zeros_like(sigmas)  # samples outside every listed segment: 0
-    n_seg = starts.shape[0] - 1
-    if n_seg > 0:
+def segmented_cumsum(
+    x: torch.Tensor, seg: torch.Tensor, n_segments: Optional[int] = None
+) -> torch.Tensor:
+    """Inclusive segment-local cumsum of a flat packed buffer.
+
+    x: [n] float32; seg: [n] int32 segment ids in contiguous runs.
+    """
+    if cuda_lib.runs_plain("segmented_cumsum", x, seg):
+        return segmented_cumsum_plain(x, seg, n_segments)
+    n = _check_packed("segmented_cumsum", seg, x)
+    out = torch.empty_like(x)  # the kernel writes every element
+    if n > 0:
         cuda_lib.library().call(
-            "tn_weights_packed", sigmas.data_ptr(), deltas.data_ptr(),
-            valid.data_ptr(), starts.data_ptr(), n_seg, float(threshold),
-            out.data_ptr(), cuda_lib.stream_of(sigmas),
+            "tn_segmented_cumsum", x.data_ptr(), seg.data_ptr(), n, _id_range(n_segments),
+            out.data_ptr(), cuda_lib.stream_of(x),
+        )
+        segmented_cumsum.launches += 1
+    return out
+
+
+segmented_cumsum.launches = 0
+
+
+def weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments=None):
+    """The forward value: kernel on CUDA tensors, plain on CPU tensors."""
+    if cuda_lib.runs_plain("compute_weights_packed", sigmas, deltas, valid, seg):
+        return compute_weights_packed_plain(sigmas, deltas, valid, seg, threshold, n_segments)
+    n = _check_packed("compute_weights_packed", seg, sigmas, deltas, valid)
+    out = torch.empty_like(sigmas)  # the kernel writes every element
+    if n > 0:
+        cuda_lib.library().call(
+            "tn_weights_packed", sigmas.data_ptr(), deltas.data_ptr(), valid.data_ptr(),
+            seg.data_ptr(), n, _id_range(n_segments), float(threshold), out.data_ptr(),
+            cuda_lib.stream_of(sigmas),
         )
         compute_weights_packed.launches += 1
     return out
 
 
-def weights_packed_bwd(sigmas, deltas, valid, seg, w, g, n_segments=None, starts=None):
-    """d loss / d sigmas of the packed weights: kernel on CUDA tensors
-    (segments `starts`, found from `seg` when None), plain on CPU tensors.
-    Samples outside the listed segments (the pad tail) get 0."""
+def weights_packed_bwd(sigmas, deltas, valid, seg, w, g, n_segments=None):
+    """d loss / d sigmas of the packed weights: kernel on CUDA tensors, plain
+    on CPU tensors.  Samples with an id outside `[0, n_segments)` (the pad
+    tail) get 0."""
     if cuda_lib.runs_plain("weights_packed_bwd", sigmas, deltas, valid, seg, w, g):
         return weights_packed_bwd_plain(sigmas, deltas, valid, seg, w, g, n_segments)
     g = g.contiguous()
-    _check_packed("weights_packed_bwd", seg, sigmas, deltas, valid, w, g)
-    if starts is None:
-        starts = segment_starts(seg, n_segments)
-    out = torch.zeros_like(sigmas)
-    n_seg = starts.shape[0] - 1
-    if n_seg > 0:
+    n = _check_packed("weights_packed_bwd", seg, sigmas, deltas, valid, w, g)
+    out = torch.empty_like(sigmas)  # the kernel writes every element
+    if n > 0:
         cuda_lib.library().call(
-            "tn_weights_packed_bwd", sigmas.data_ptr(), deltas.data_ptr(),
-            valid.data_ptr(), w.data_ptr(), g.data_ptr(), starts.data_ptr(), n_seg,
+            "tn_weights_packed_bwd", sigmas.data_ptr(), deltas.data_ptr(), valid.data_ptr(),
+            seg.data_ptr(), w.data_ptr(), g.data_ptr(), n, _id_range(n_segments),
             out.data_ptr(), cuda_lib.stream_of(sigmas),
         )
         weights_packed_bwd.launches += 1
@@ -185,17 +169,15 @@ weights_packed_bwd.launches = 0
 class _WeightsPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigmas, deltas, valid, seg, threshold, n_segments):
-        plain = cuda_lib.runs_plain("compute_weights_packed", sigmas, deltas, valid, seg)
-        starts = None if plain else segment_starts(seg, n_segments)
-        w = weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments, starts)
-        ctx.save_for_backward(sigmas, deltas, valid, seg, w, starts)
+        w = weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments)
+        ctx.save_for_backward(sigmas, deltas, valid, seg, w)
         ctx.n_segments = n_segments
         return w
 
     @staticmethod
     def backward(ctx, g):
-        sigmas, deltas, valid, seg, w, starts = ctx.saved_tensors
-        grad = weights_packed_bwd(sigmas, deltas, valid, seg, w, g, ctx.n_segments, starts)
+        sigmas, deltas, valid, seg, w = ctx.saved_tensors
+        grad = weights_packed_bwd(sigmas, deltas, valid, seg, w, g, ctx.n_segments)
         return grad, None, None, None, None, None
 
 
@@ -209,10 +191,14 @@ def compute_weights_packed(
 ) -> torch.Tensor:
     """Rendering weights directly on the packed [cap] layout.
 
-    sigmas/deltas/valid: [cap] float32; seg: [cap] int32 ascending ids.
+    sigmas/deltas/valid: [cap] float32; seg: [cap] int32 ids in contiguous runs.
     Same values as `ops.weights.compute_weights` on the dense layout;
     gradients flow to sigmas only (the closed form, `weights_packed_bwd`).
     """
+    if not (torch.is_grad_enabled() and sigmas.requires_grad):
+        # serving: no graph to record, and the Function's bookkeeping costs
+        # more host time than the kernel takes on the device
+        return weights_packed_fwd(sigmas, deltas, valid, seg, threshold, n_segments)
     return _WeightsPacked.apply(sigmas, deltas, valid, seg, threshold, n_segments)
 
 
