@@ -40,7 +40,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
    jitter, k_idx and complete equal to its plain version's (and the skip
-   grid's build timed);
+   grid's build timed); and the unbounded skip march on the isotropic grid
+   of the shell occupancy, rays drawn over the nerfstudio capture's
+   training views (a 2048-ray serving chunk and a 131,072-ray bucket, 96
+   rounds, with and without jitter), k_idx and complete equal to its plain
+   version's, timed the same way;
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
    of 2048 rays, 64 packed samples per ray, 64 skip-march rounds): a
@@ -79,12 +83,37 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    backward launched inside `train()`; the dense and skip steps at bucket
    64; then one full-width dense chunk's gradients through the oct-build
    kernel must match those through the plain build, every leaf to 1e-5 of
-   its max.
+   its max;
+7. the vanilla serving slice at full width (TrainConfig(method="vanilla"):
+   posenc(10) into 10 layers of 256, He init), as phase 5 on one view;
+8. the vanilla training slice at full width, as phase 4 (64 steps, the
+   dense and skip steps at bucket 64), then one deterministic step (2048
+   rays, f32 compute) with remat_field against one without, from the same
+   parameters: losses to 1e-6 relative, every gradient leaf to 1e-5 of its
+   max;
+9. the K-Planes serving slice on the unbounded marcher (the disparity grid
+   over the test poses' scene scale, the Mip-360 contraction, the
+   isotropic skip grid and the unbounded skip march, 96 rounds) of a
+   nerfstudio capture: nine generated 800x800 spheres views written as
+   tests/conftest.py writes one and read back with `parse_nerfstudio`
+   through the native PNG loader; the 8th-frame holdout leaves two views
+   to render (`render_only`, packed on the skip march with the dense
+   fallback), view 0 again densely and through `infer` on both marches;
+10. the K-Planes training slice on the unbounded marcher: `train()` for 64
+   steps on a `RayPool` of the capture's seven training views, then the
+   dense and skip steps at bucket 64 behind the shell occupancy (400
+   rounds: no ray cut, the same loss; then the 96-round default, timed)
+   and the dense chunk's gradients, from the seeded parameters (64 steps
+   saturate this field: every gradient of the trained chunk is 0) behind
+   the shell occupancy (the near field: far-field deltas of hundreds of
+   units scale the f32 rounding of the dense backward's total - incl to
+   ~1e-3 of the largest gradient; tests/test_torch_kernels.py holds those
+   deltas at 1e-5 with densities that end the rays early).
 
-Each of phases 3-6 sets every kernel's launch count to 0 just before it
+Each of phases 3-10 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after; the comparisons with the
 plain versions are not counted.  The last two lines are a JSON record of
-the kernels (launches summed over phases 3-6, and by phase) and
+the kernels (launches summed over phases 3-10, and by phase) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
 """
@@ -140,6 +169,14 @@ SKIP_BUCKET = 64  # the converged state's bucket: 131,072 candidate rays
 # f32 operations per active round of the skip march (csrc/skipmarch.cu):
 # position and jitter 9, box test 6, three voxel indices 30, the advance 3
 SKIP_ROUND_FLOPS = 48
+# and of the unbounded skip march: t_k and its jitter 16, position 6, the
+# inf-norm 5, the contraction 18, three voxel indices 18, the local bound 25
+# (radius, n_eff, m0, F(m0), 1/L), the advance through x_of_t 8
+UNBOUNDED_ROUND_FLOPS = 96
+# the vanilla step with remat_field against the one without, f32 compute:
+# the same arithmetic, the packed reduction's atomics summing in another
+# order
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL_OF_MAX = 1e-6, 1e-5
 # the card's published peaks (H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -688,12 +725,48 @@ def check_quad_build(dev):
                            **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
 
 
+def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march_args, round_flops: int,
+                 batch: int) -> dict:
+    """A skip march kernel against its plain version on rays drawn from
+    `pool`: a serving chunk (`batch` rays, timed without jitter) and a
+    training bucket (SKIP_BUCKET x `batch` rays, timed with jitter), each
+    with and without jitter, k_idx and complete equal.  `march_args(o, d)`
+    gives the arguments before the jitter words; each timing's bound counts
+    the rays read, k_idx and complete written, and per active round one
+    grid value and `round_flops` f32 operations (the work these inputs
+    need).  Returns the serving record with the bucket's beside it."""
+    perm = torch.randperm(pool.n_rays, device=pool.rays_o.device, generator=gen)
+    out = {}
+    for part, n_rays, jitter in (("serving", batch, None), ("training", SKIP_BUCKET * batch, seed)):
+        o, d = pool.rays_o[perm[:n_rays]].contiguous(), pool.rays_d[perm[:n_rays]].contiguous()
+        head = march_args(o, d)
+        args = lambda j: (*head, j, n_steps)
+        rounds = {}
+        for j in (None, seed):
+            k, c = kernel(*args(j))
+            k_ref, c_ref, rounds[j is not None] = plain(*args(j), count_rounds=True)
+            if not (torch.equal(k, k_ref) and torch.equal(c, c_ref)):
+                raise AssertionError(f"{label} ({part}, jitter {j is not None}) differs from plain")
+            print(f"kernel {label} {part} [{n_rays} rays x {n_steps} rounds], jitter {j is not None}: "
+                  f"k_idx and complete equal to plain; {int((k >= 0).sum())} samples emitted, "
+                  f"{int(c.sum())} rays complete, {rounds[j is not None]} active rounds")
+        timed_rounds = rounds[jitter is not None]
+        # the per-ray inputs (the grid, 3-D or more, is read per round)
+        per_ray = [t for t in head if isinstance(t, torch.Tensor) and t.dim() < 3]
+        n_bytes = nbytes(*per_ray) + 4 * n_rays * n_steps + n_rays + 4 * timed_rounds
+        out[part] = time_pair(
+            f"kernel {label} {part} [{n_rays} x {n_steps}]", lambda: kernel(*args(jitter)),
+            lambda: plain(*args(jitter)), bound(n_bytes, round_flops * timed_rounds))
+        out[part]["active_rounds"] = timed_rounds
+    # the serving chunk is the main record (313 launches per 800x800 view);
+    # the training bucket rides along
+    return {"max_abs_err": 0.0, **out["serving"], **{f"train_bucket_{k}": v for k, v in out["training"].items()}}
+
+
 def check_skip_march(dev):
     """The skip march on the shell occupancy's skip grid (the smoke's
-    serving state), with rays drawn over a generated 800x800 view: a
-    serving chunk (2048 rays, no jitter) and a training bucket (131,072
-    rays, jitter), 64 rounds, k_idx and complete equal to the plain
-    version's, with and without jitter; and the skip grid's build."""
+    serving state), with rays drawn over a generated 800x800 view, 64
+    rounds; and the skip grid's build."""
     from tinynerf_tpu_torch.core import skipmarch
     from tinynerf_tpu_torch.data import RayPool
     from tinynerf_tpu_torch.train import TrainConfig, build_renderer
@@ -702,44 +775,70 @@ def check_skip_march(dev):
     cfg = TrainConfig()
     renderer = build_renderer(cfg, 1.0, None, device="meta")
     marcher, occupancy, aabb = renderer.marcher, renderer.occupancy, renderer.contraction.aabb
-    n_steps = renderer.skip_steps
     occ = make_shell_occupancy(occupancy, device=dev)
     grid_ms = median_ms(lambda: renderer.skip_grid(occ), runs=5)
     grid = renderer.skip_grid(occ)
     print(f"skip grid {tuple(grid.shape)} from the {occupancy.size[0]}^3 shell occupancy: "
           f"{grid_ms:.3f} ms (median of 5, CUDA events; plain PyTorch)")
-    pool = RayPool(make_spheres_data(n_views=1, res=800, seed=0), device=dev)
-    gen = torch.Generator(dev).manual_seed(4)
-    perm = torch.randperm(pool.n_rays, device=dev, generator=gen)
-    seed = torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev)
-    out = {}
-    for label, n_rays, jitter in (("serving", cfg.batch_size, None),
-                                  ("training", SKIP_BUCKET * cfg.batch_size, seed)):
-        o, d = pool.rays_o[perm[:n_rays]].contiguous(), pool.rays_d[perm[:n_rays]].contiguous()
+
+    def march_args(o, d):
         t_min, t_exit = marcher.entry_exit(o, d)
-        args = lambda j: (o, d, t_min, t_exit, marcher.step_size, marcher.n_samples, aabb, grid, j, n_steps)
-        rounds = {}
-        for j in (None, seed):
-            k, c = skipmarch.skip_march(*args(j))
-            k_ref, c_ref, rounds[j is not None] = skipmarch.skip_march_plain(*args(j), count_rounds=True)
-            if not (torch.equal(k, k_ref) and torch.equal(c, c_ref)):
-                raise AssertionError(f"skip march ({label}, jitter {j is not None}) differs from plain")
-            print(f"kernel skip march {label} [{n_rays} rays x {n_steps} rounds], jitter {j is not None}: "
-                  f"k_idx and complete equal to plain; {int((k >= 0).sum())} samples emitted, "
-                  f"{int(c.sum())} rays complete, {rounds[j is not None]} active rounds")
-        # the work the timed input needs: each active round reads one grid
-        # value and does SKIP_ROUND_FLOPS f32 operations
-        timed_rounds = rounds[jitter is not None]
-        n_bytes = nbytes(o, d, t_min, t_exit) + 4 * n_rays * n_steps + n_rays + 4 * timed_rounds
-        out[label] = time_pair(
-            f"kernel skip march {label} [{n_rays} x {n_steps}]",
-            lambda: skipmarch.skip_march(*args(jitter)), lambda: skipmarch.skip_march_plain(*args(jitter)),
-            bound(n_bytes, SKIP_ROUND_FLOPS * timed_rounds),
-        )
-    # the serving chunk is the main record (313 launches per 800x800 view);
-    # the training bucket rides along
-    return {"skip_march": {"max_abs_err": 0.0, **out["serving"], "skip_grid_ms": grid_ms,
-                           **{f"train_bucket_{k}": v for k, v in out["training"].items()}}}
+        return o, d, t_min, t_exit, marcher.step_size, marcher.n_samples, aabb, grid
+
+    rec = _check_march("skip march", skipmarch.skip_march, skipmarch.skip_march_plain,
+                       RayPool(make_spheres_data(n_views=1, res=800, seed=0), device=dev),
+                       torch.Generator(dev).manual_seed(4),
+                       torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev),
+                       renderer.skip_steps, march_args, SKIP_ROUND_FLOPS, cfg.batch_size)
+    return {"skip_march": {**rec, "skip_grid_ms": grid_ms}}
+
+
+def check_skip_march_unbounded(dev, ns_root) -> dict:
+    """The unbounded skip march on the iso grid of the shell occupancy, with
+    rays drawn over the nerfstudio capture's training views (cameras on the
+    spheres' ring, so rays cross the core and the far field), 96 rounds;
+    and the iso grid's build."""
+    from tinynerf_tpu_torch.core import skipmarch
+    from tinynerf_tpu_torch.data import RayPool, parse_nerfstudio
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    cfg = TrainConfig(scene_type="unbounded")
+    pool = RayPool(parse_nerfstudio(ns_root, "train"), device=dev)
+    renderer = build_renderer(cfg, pool.scene_scale, None, device="meta")
+    marcher, contraction, occupancy = renderer.marcher, renderer.contraction, renderer.occupancy
+    occ = make_shell_occupancy(occupancy, device=dev)
+    grid_ms = median_ms(lambda: renderer.skip_grid(occ), runs=5)
+    grid = renderer.skip_grid(occ)
+    print(f"iso skip grid {tuple(grid.shape)} from the {occupancy.size[0]}^3 shell occupancy: "
+          f"{grid_ms:.3f} ms (median of 5, CUDA events; plain PyTorch); disparity grid over "
+          f"{marcher.uniform_range:.4f} (the training views' scene scale)")
+    rec = _check_march("skip march unbounded", skipmarch.skip_march_unbounded,
+                       skipmarch.skip_march_unbounded_plain, pool, torch.Generator(dev).manual_seed(8),
+                       torch.tensor([0x2345678, 0x9ABCDEF], dtype=torch.int64, device=dev),
+                       renderer.skip_steps, lambda o, d: (o, d, marcher, contraction, grid),
+                       UNBOUNDED_ROUND_FLOPS, cfg.batch_size)
+    return {"skip_march_unbounded": {**rec, "skip_grid_ms": grid_ms}}
+
+
+def write_nerfstudio_scene(root, n_frames: int = 9, res: int = 800):
+    """A nerfstudio capture of `n_frames` generated 800x800 spheres views,
+    as tests/conftest.py builds one: the Blender-synthetic writer, then one
+    `transforms.json` with global intrinsics (the 8th-frame holdout leaves
+    7 frames to train on and 2 to render)."""
+    from pathlib import Path
+
+    from tinynerf_tpu_torch.utils import make_synthetic_scene
+
+    root = Path(root)
+    make_synthetic_scene(root, n_train=n_frames, n_test=0, res=res, kind="spheres")
+    meta = json.loads((root / "transforms_train.json").read_text())
+    focal = res / (2.0 * np.tan(0.5 * meta["camera_angle_x"]))
+    frames = [{"file_path": fr["file_path"].lstrip("./") + ".png", "transform_matrix": fr["transform_matrix"]}
+              for fr in meta["frames"]]
+    (root / "transforms.json").write_text(json.dumps(
+        {"fl_x": focal, "fl_y": focal, "cx": res / 2.0, "cy": res / 2.0, "w": res, "h": res, "frames": frames}))
+    return root
 
 
 def counters() -> dict:
@@ -757,6 +856,7 @@ def counters() -> dict:
         "oct_build": octbuild.build_oct,
         "quad_build": octbuild.build_quad,
         "skip_march": skipmarch.skip_march,
+        "skip_march_unbounded": skipmarch.skip_march_unbounded,
     }
 
 
@@ -781,22 +881,39 @@ def read_counts(label: str, required) -> dict:
 def _field_label(field) -> str:
     if hasattr(field, "resolutions"):
         return f"K-Planes resolutions {field.resolutions}"
-    return (f"Cobafa basis grids {field.basis_res} x channels {field.channels}, coefficients "
-            f"{field.coef_res}^3 x {len(field.basis_res)}, field MLP 36 -> {field.mlp_hidden_dim} x 6")
+    if hasattr(field, "basis_res"):
+        return (f"Cobafa basis grids {field.basis_res} x channels {field.channels}, coefficients "
+                f"{field.coef_res}^3 x {len(field.basis_res)}, field MLP 36 -> {field.mlp_hidden_dim} x 6")
+    return f"vanilla posenc(10) -> {field.feature_dim} x 10 layers (He init)"
 
 
-# the kernels each driven path must launch (the field's table build: the
-# quad build for K-Planes, the oct build for Cobafa)
-FIELD_KERNELS = {"kplanes": ("quad_build",), "cobafa": ("oct_build",)}
-SERVING_KERNELS = {m: ("segscan", "weights_dense", "skip_march") + k for m, k in FIELD_KERNELS.items()}
-DENSE_MARCH_SERVING_KERNELS = {m: ("segscan",) + k for m, k in FIELD_KERNELS.items()}
-TRAINING_KERNELS = {"kplanes": ("segscan", "segscan_bwd", "sort", "accumulate", "quad_build"),
+# the kernels each driven path must launch, by (method, scene type): the
+# field's table build (the quad build for K-Planes, the oct build for
+# Cobafa, none for the vanilla MLP) and the marcher's skip march
+FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_build",)}
+SKIP_KERNEL = {"aabb": "skip_march", "unbounded": "skip_march_unbounded"}
+TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd"),
+                    "kplanes": ("segscan", "segscan_bwd", "sort", "accumulate", "quad_build"),
                     "cobafa": ("segscan", "segscan_bwd", "oct_build")}
-SKIP_STEP_KERNELS = {m: k + ("skip_march",) for m, k in TRAINING_KERNELS.items()}
+
+
+def serving_kernels(method: str, scene_type: str) -> tuple:
+    return ("segscan", "weights_dense", SKIP_KERNEL[scene_type]) + FIELD_KERNELS[method]
+
+
+def march_kernels(method: str, scene_type: str, march: str) -> tuple:
+    """A packed `infer` on the dense or the skip march."""
+    return ("segscan",) + FIELD_KERNELS[method] + ((SKIP_KERNEL[scene_type],) if march == "skip" else ())
+
+
+def skip_step_kernels(method: str, scene_type: str) -> tuple:
+    return TRAINING_KERNELS[method] + (SKIP_KERNEL[scene_type],)
+
+
 CHUNK_KERNELS = {m: ("weights_dense", "weights_dense_bwd") + k for m, k in FIELD_KERNELS.items()}
 
 
-def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str, method: str) -> dict:
+def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str) -> dict:
     """Behind the shell occupancy at bucket SKIP_BUCKET (131,072 rays drawn
     over the views), deterministic steps (no jitter, no dropout) through the
     dense march, the skip march with an n_samples-round budget (no ray cut:
@@ -835,14 +952,15 @@ def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str, method: str)
         res[label] = dict(loss=float(m["loss"]), ms=float(np.median(times)) * 1e3,
                           complete=round(float(m["complete_frac"]) * n_cand), fill=float(m["fill"]))
         print(f"{name} step, shell occupancy, bucket {SKIP_BUCKET} ({n_cand} rays), {label}: "
-              f"{res[label]['ms']:.2f} ms (median of 3, host clock, synchronized), loss "
-              f"{res[label]['loss']:.7f}, fill {res[label]['fill']:.4f}, {res[label]['complete']} rays "
-              f"complete [{card}]")
+              f"{res[label]['ms']:.2f} ms (median of 3, host clock, synchronized), "
+              f"{n_cand / res[label]['ms'] * 1e3:,.0f} candidate rays/s, loss {res[label]['loss']:.7f}, "
+              f"fill {res[label]['fill']:.4f}, {res[label]['complete']} rays complete "
+              f"({res[label]['complete'] / n_cand:.4f}) [{card}]")
     renderer.skip_steps = budget
     with torch.no_grad():
         for p, p0 in zip(renderer.parameters(), start):
             p.copy_(p0)
-    counts = read_counts(f"{name} dense and skip steps", SKIP_STEP_KERNELS[method])
+    counts = read_counts(f"{name} dense and skip steps", skip_step_kernels(cfg.method, cfg.scene_type))
     dense, full = res["dense"], res[f"skip {cfg.n_samples} rounds"]
     err = abs(full["loss"] - dense["loss"]) / abs(dense["loss"])
     print(f"{name} skip ({cfg.n_samples} rounds) vs dense step loss: relative difference {err:.3e} "
@@ -854,45 +972,61 @@ def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str, method: str)
     return counts
 
 
-def run_training(tmp: str, card: str, method: str) -> dict:
-    """Phases 4 (K-Planes) and 6 (Cobafa): `train()` at full width, the
-    launch counts inside it, and a full-width dense chunk's gradients
-    through the kernels against a reference pass through a plain version:
-    K-Planes swaps in the plain dense weights (kernel 3's check), Cobafa the
-    plain oct build (kernel 6's), each inside this script."""
-    from tinynerf_tpu_torch.core import renderer as renderer_module
-    from tinynerf_tpu_torch.data import RayPool
-    from tinynerf_tpu_torch.ops import interp, octbuild, weights, weights_dense
-    from tinynerf_tpu_torch.train import TrainConfig, train
-    from tinynerf_tpu_torch.utils import make_spheres_data
+def remat_check(renderer, pool, cfg, card: str, name: str) -> dict:
+    """One deterministic step (2048 rays drawn over the views, the
+    all-occupied grid, f32 compute) with remat_field against one without,
+    from the same parameters: the loss to REMAT_LOSS_RTOL and every gradient
+    leaf to REMAT_GRAD_RTOL_OF_MAX of its max; each step's peak memory."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
 
-    name = f"{method} training"
-    cfg = TrainConfig(method=method, output=tmp, steps=TRAIN_STEPS, seed=0)
-    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    renderer.compute_dtype = torch.float32
+    gen = torch.Generator("cuda").manual_seed(7)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:cfg.batch_size]
+    batch = tuple(a[rays].contiguous() for a in pool.arrays())
+    occ = renderer.occupancy.init_state("cuda")
+    start = [p.detach().clone() for p in renderer.parameters()]
+    res = {}
     zero_counts()
-    out = train(cfg, pool, device="cuda")
-    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method])}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for remat in (False, True):
+        with torch.no_grad():
+            for p, p0 in zip(renderer.parameters(), start):
+                p.copy_(p0)
+        renderer.remat_field = remat
+        step = make_train_step(renderer, make_optimizer(cfg, renderer), cfg, cfg.batch_size, deterministic=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(occ, *batch)
+        torch.cuda.synchronize()
+        res[remat] = dict(loss=float(m["loss"]), ms=(time.perf_counter() - t0) * 1e3,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          grads=[g.detach().clone() for _, g in tree_leaves_with_path(m["grads"])])
+    renderer.remat_field = False
+    with torch.no_grad():
+        for p, p0 in zip(renderer.parameters(), start):
+            p.copy_(p0)
+    counts = read_counts(f"{name} remat and plain steps", TRAINING_KERNELS[cfg.method])
+    err_loss = abs(res[True]["loss"] - res[False]["loss"]) / abs(res[False]["loss"])
+    err_grad = max(_rel_err(a, b) for a, b in zip(res[True]["grads"], res[False]["grads"]))
+    n_zero = sum(int(float(g.abs().max()) == 0.0) for g in res[False]["grads"])
+    print(f"{name} deterministic step [{cfg.batch_size} rays x {cfg.n_samples}] f32, remat_field on vs off: "
+          f"loss relative difference {err_loss:.3e} (tol {REMAT_LOSS_RTOL:g}), gradients max|diff| / max "
+          f"{err_grad:.3e} (tol {REMAT_GRAD_RTOL_OF_MAX:g}), {n_zero} of {len(res[False]['grads'])} leaves zero; "
+          f"off {res[False]['ms']:.2f} ms, peak {res[False]['peak_gb']:.2f} GB; on {res[True]['ms']:.2f} ms, "
+          f"peak {res[True]['peak_gb']:.2f} GB (one cold step each, host clock) [{card}]")
+    if n_zero or not (err_loss <= REMAT_LOSS_RTOL and err_grad <= REMAT_GRAD_RTOL_OF_MAX):
+        raise AssertionError(f"{name}: the steps with and without remat_field disagree")
+    return counts
 
-    losses = np.array([m.loss for m in out["train_metrics"]])
-    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
-        raise AssertionError(f"{name} losses: shape {losses.shape} or non-finite values")
-    first, last = losses[:8].mean(), losses[-8:].mean()
-    print(f"{name} loss: first 8 steps {first:.5f}, last 8 steps {last:.5f} "
-          f"(every 8th: {np.round(losses[::8], 5).tolist()})")
-    if not last < first:
-        raise AssertionError(f"the {name} loss did not fall")
-    occ = [m.occupancy for m in out["train_metrics"]]
-    print(f"{name} occupancy after the updates at steps 0 and 32: {occ[0]:.4f}, {occ[-1]:.4f}")
-    ms = out["elapsed_s"] / TRAIN_STEPS * 1e3
-    print(f"{name}: {ms:.2f} ms/step over {TRAIN_STEPS} steps (occupancy updates and host syncs "
-          f"included), {out['rays_per_sec_per_chip']:,.0f} rays/s used by the loss, "
-          f"peak device memory {peak_gb:.2f} GB [{card}]")
 
-    renderer = out["renderer"]
-    launches["skip_steps"] = skip_and_dense_steps(renderer, pool, cfg, card, name, method)
+def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
+    """One full-width dense chunk's gradients through the kernels against a
+    reference pass through a plain version: K-Planes swaps in the plain
+    dense weights (kernel 3's check), Cobafa the plain oct build (kernel
+    6's), each inside this script."""
+    from tinynerf_tpu_torch.core import renderer as renderer_module
+    from tinynerf_tpu_torch.ops import interp, octbuild, weights, weights_dense
 
     # one full-width dense chunk, f32 compute: d loss / d sigma, kept by a
     # hook on the sigma decoder, and every parameter's gradient
@@ -909,7 +1043,7 @@ def run_training(tmp: str, card: str, method: str) -> dict:
         sigma_out["y"] = y
 
     hook = renderer.sigma_decoder.register_forward_hook(keep_sigma)
-    grads, dsigma = {}, {}
+    grads, dsigma, launches = {}, {}, None
     for impl in ("kernel", "plain"):
         renderer.zero_grad(set_to_none=True)
         if impl == "plain" and method == "kplanes":
@@ -918,13 +1052,13 @@ def run_training(tmp: str, card: str, method: str) -> dict:
             interp.build_oct = octbuild.build_oct_plain
         zero_counts()
         try:
-            res = renderer.render_dense(out["occ_state"], o, d)
+            res = renderer.render_dense(occ_state, o, d)
             (res.rgb * cot).sum().backward()
         finally:
             renderer_module.compute_weights_dense = weights_dense.compute_weights_dense
             interp.build_oct = octbuild.build_oct
         if impl == "kernel":
-            launches["chunk"] = read_counts(f"{name} dense chunk", CHUNK_KERNELS[method])
+            launches = read_counts(f"{name} dense chunk", CHUNK_KERNELS[method])
         grads[impl] = {k: p.grad.detach().clone() for k, p in renderer.named_parameters()}
         dsigma[impl] = sigma_out["y"].grad.detach().clone()
     hook.remove()
@@ -948,25 +1082,95 @@ def run_training(tmp: str, card: str, method: str) -> dict:
         raise AssertionError(f"the {name} dense chunk's check is empty: no valid samples or zero gradients")
     if not (err_sigma <= limits[0] and err_dec <= limits[1] and err_field <= limits[2]):
         raise AssertionError(f"{name} dense chunk gradients disagree")
-    del out, renderer, grads, dsigma, res
+    return launches
+
+
+def run_training(tmp: str, card: str, method: str, scene_type: str = "aabb", pool=None) -> dict:
+    """Phases 4 (K-Planes), 6 (Cobafa), 8 (vanilla) and 10 (K-Planes,
+    unbounded): `train()` at full width on `pool` (default: four generated
+    800x800 views), the launch counts inside it, the dense and skip steps
+    at bucket 64; then the dense chunk's gradients against a plain version
+    (the table fields) or the remat check (vanilla)."""
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer, train
+    from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
+
+    name = f"{method} {scene_type} training"
+    cfg = TrainConfig(method=method, scene_type=scene_type, output=tmp, steps=TRAIN_STEPS, seed=0)
+    if pool is None:
+        pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = train(cfg, pool, device="cuda")
+    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method])}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = np.array([m.loss for m in out["train_metrics"]])
+    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{name} losses: shape {losses.shape} or non-finite values")
+    first, last = losses[:8].mean(), losses[-8:].mean()
+    print(f"{name} loss: first 8 steps {first:.5f}, last 8 steps {last:.5f} "
+          f"(every 8th: {np.round(losses[::8], 5).tolist()})")
+    if not last < first:
+        raise AssertionError(f"the {name} loss did not fall")
+    occ = [m.occupancy for m in out["train_metrics"]]
+    print(f"{name} occupancy after the updates at steps 0 and 32: {occ[0]:.4f}, {occ[-1]:.4f}")
+    ms = out["elapsed_s"] / TRAIN_STEPS * 1e3
+    print(f"{name}: {ms:.2f} ms/step over {TRAIN_STEPS} steps (occupancy updates and host syncs "
+          f"included), {out['rays_per_sec_per_chip']:,.0f} rays/s used by the loss, "
+          f"peak device memory {peak_gb:.2f} GB, {pool.n_rays} rays in the pool [{card}]")
+
+    renderer = out["renderer"]
+    launches["skip_steps"] = skip_and_dense_steps(renderer, pool, cfg, card, name)
+    if method == "vanilla":
+        launches["remat"] = remat_check(renderer, pool, cfg, card, name)
+    elif scene_type == "unbounded":
+        # 64 steps from random parameters saturate the unbounded field (the
+        # first samples opaque, the colors' sigmoid at 1: every gradient of
+        # the chunk exactly 0), so its chunk starts from the seeded
+        # parameters the run started from, behind the shell occupancy: the
+        # dense backward's closed form takes total(w g) - incl(w g) in f32,
+        # and the far field's deltas (hundreds of units) scale that
+        # difference's rounding, summed in another order by the kernel and
+        # by the plain version, to ~1e-3 of the largest gradient
+        fresh = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda",
+                               generator=torch.Generator().manual_seed(cfg.seed))
+        launches["chunk"] = chunk_check(fresh, make_shell_occupancy(fresh.occupancy, device="cuda"), pool,
+                                        cfg, f"{name} (seeded parameters, shell occupancy)", method)
+    else:
+        launches["chunk"] = chunk_check(renderer, out["occ_state"], pool, cfg, name, method)
+    del out, renderer
     torch.cuda.empty_cache()
     return launches
 
 
-def run_slice(tmp: str, card: str, method: str) -> dict:
-    """Phases 3 (K-Planes, two views) and 5 (Cobafa, one view): serving at
-    full width from a checkpoint of seeded random parameters."""
+def run_slice(tmp: str, card: str, method: str, scene_type: str = "aabb", pose_set=None) -> dict:
+    """Phases 3 (K-Planes, two views), 5 (Cobafa, one view), 7 (vanilla,
+    one view) and 9 (K-Planes, unbounded, the nerfstudio test split's two
+    views): serving at full width from a checkpoint of seeded random
+    parameters behind the shell occupancy."""
     from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
+    from tinynerf_tpu_torch.data import PoseSet
     from tinynerf_tpu_torch.train import (
         InferStats, TrainConfig, build_renderer, infer, make_render_chunk, make_render_chunk_packed,
         render_only, save_checkpoint,
     )
     from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_pose_set
 
-    name = f"{method} serving"
-    n_views = 2 if method == "kplanes" else 1
-    cfg = TrainConfig(method=method, output=tmp)
-    pose_set = make_spheres_pose_set(n_views=n_views, res=800, seed=0)
+    name = f"{method} {scene_type} serving"
+    if pose_set is None:
+        pose_set = make_spheres_pose_set(n_views=2 if method == "kplanes" else 1, res=800, seed=0)
+
+    def view0():
+        # view 0 alone, on the marcher of the whole set (an unbounded
+        # marcher spans its grid over the poses' scene scale)
+        one = PoseSet(dataclasses.replace(pose_set._data, cameras=pose_set._data.cameras[:1],
+                                          imgs=pose_set._data.imgs[:1]))
+        one.scene_scale = pose_set.scene_scale
+        return one
+
+    cfg = TrainConfig(method=method, scene_type=scene_type, output=tmp)
     renderer = build_renderer(
         cfg, pose_set.scene_scale, pose_set.bg_color, device="cuda",
         generator=torch.Generator().manual_seed(0),
@@ -980,34 +1184,31 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
     print(f"{name}: {_field_label(renderer.field)}, {n_params} params "
           f"({n_params * 4 / 1e6:.1f} MB f32), compute {cfg.compute_dtype}, "
           f"{cfg.n_samples} samples/ray, chunk {cfg.batch_size}, "
-          f"packed cap {cfg.batch_size * cfg.eval_samples_per_ray}, skip march {renderer.skip_steps} rounds")
+          f"packed cap {cfg.batch_size * cfg.eval_samples_per_ray}, skip march {renderer.skip_steps} rounds, "
+          f"{len(pose_set)} views, scene scale {pose_set.scene_scale:.4f}")
 
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     packed = InferStats()
     m_packed = render_only(cfg, pose_set, stats=packed)
     dense = InferStats()
-    m_dense = render_only(
-        dataclasses.replace(cfg, eval_render="dense"),
-        make_spheres_pose_set(n_views=1, res=800, seed=0),  # view 0 again
-        name="render_dense", stats=dense,
-    )
-    launches = {"serve": read_counts(f"{name} render_only", SERVING_KERNELS[method])}
+    m_dense = render_only(dataclasses.replace(cfg, eval_render="dense"), view0(), name="render_dense", stats=dense)
+    launches = {"serve": read_counts(f"{name} render_only", serving_kernels(method, scene_type))}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # view 0 once more, packed on the dense march, then on the skip march
     # again: both warm, so their times compare (render_only's first view
     # pays the warm-up)
-    view0 = make_spheres_pose_set(n_views=1, res=800, seed=0)
     cap = cfg.batch_size * cfg.eval_samples_per_ray
     rerun = {}
     for march, grid_args in (("dense", ()), ("skip", (renderer.skip_grid(occ),))):
         zero_counts()
         rerun[march] = InferStats()
-        infer(renderer, occ, view0, [0], tmp, f"render_{march}_march", chunk=cfg.batch_size,
+        infer(renderer, occ, view0(), [0], tmp, f"render_{march}_march", chunk=cfg.batch_size,
               render_chunk_fn=make_render_chunk(renderer),
               packed_fn=make_render_chunk_packed(renderer, cap, march=march), stats=rerun[march],
               grid_args=grid_args)
         launches[f"serve_{march}_march"] = read_counts(
-            f"{name} {march}-march packed infer",
-            DENSE_MARCH_SERVING_KERNELS[method] + (("skip_march",) if march == "skip" else ()))
+            f"{name} {march}-march packed infer", march_kernels(method, scene_type, march))
     dense_march, skip_warm = rerun["dense"], rerun["skip"]
     del renderer
 
@@ -1019,9 +1220,12 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
                 raise AssertionError(f"{name} {label} view {i}: bad metrics {m}")
             print(f"{name} {label} view {i}: {sec:.3f} s, {rays / sec:,.0f} rays/s, "
                   f"psnr {m.psnr:.3f}, ssim {m.ssim:.4f} (random weights) [{card}]")
+    n_rays = sum(packed.rays)
     print(f"{name} packed (skip march): {packed.packed_samples} packed samples, "
           f"{packed.fallback_rays} rays re-rendered densely, {packed.incomplete_rays} of them out of "
-          f"skip-march rounds; skip grid built in {packed.skip_grid_seconds * 1e3:.3f} ms [{card}]")
+          f"skip-march rounds (complete fraction {1 - packed.incomplete_rays / n_rays:.4f} of {n_rays} rays); "
+          f"skip grid built in {packed.skip_grid_seconds * 1e3:.3f} ms; peak device memory of the renders "
+          f"{peak_gb:.2f} GB [{card}]")
     print(f"{name} view 0, s/image: packed with the skip march {packed.seconds[0]:.3f} (render_only, "
           f"first view), then warm: packed with the dense march {dense_march.seconds[0]:.3f} "
           f"({dense_march.fallback_rays} rays re-rendered densely), packed with the skip march "
@@ -1043,7 +1247,7 @@ def run_slice(tmp: str, card: str, method: str) -> dict:
     for device in ("cuda", "cpu"):
         st = InferStats()
         render_only(cfg32, small, name=f"small_{device}", device=device, stats=st)
-        imgs[device] = st.images[0]
+        imgs[device] = np.stack(st.images)
     e = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
     print(f"{name} 32x32 f32 view, card kernels vs CPU plain: max abs {e:.3e} (tol {SMALL_VIEW_ATOL:g})")
     if not e <= SMALL_VIEW_ATOL:
@@ -1063,7 +1267,33 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
     ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
     ("skip_march", "skipmarch.skip_march", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:357"),
+    ("skip_march_unbounded", "skipmarch.skip_march_unbounded", "skipmarch.cu",
+     "tinynerf_tpu/core/skipmarch.py:209"),
 )
+
+
+def run_phases(card: str, ns_root) -> dict:
+    """Phases 3-10; returns phase -> kernel -> launches."""
+    from tinynerf_tpu_torch.data import PoseSet, RayPool, parse_nerfstudio
+
+    phases = [(3, "kplanes", "aabb", run_slice, {}), (4, "kplanes", "aabb", run_training, {}),
+              (5, "cobafa", "aabb", run_slice, {}), (6, "cobafa", "aabb", run_training, {}),
+              (7, "vanilla", "aabb", run_slice, {}), (8, "vanilla", "aabb", run_training, {}),
+              (9, "kplanes", "unbounded", run_slice, dict(pose_set=lambda: PoseSet(parse_nerfstudio(ns_root, "test")))),
+              (10, "kplanes", "unbounded", run_training,
+               dict(pool=lambda: RayPool(parse_nerfstudio(ns_root, "train"), device="cuda")))]
+    launches = {}
+    for phase, method, scene_type, run, data in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = {k: make() for k, make in data.items()}
+            for part, counts in run(tmp, card, method, scene_type, **kw).items():
+                launches[f"{phase}_{method}_{scene_type}_{part}"] = counts
+        print(f"phase {phase} ({method} {scene_type} {run.__name__}): {time.perf_counter() - t0:.1f} s")
+    for phase in (9, 10):  # the unbounded skip march on both unbounded paths
+        if not any(k.startswith(f"{phase}_") and c["skip_march_unbounded"] > 0 for k, c in launches.items()):
+            raise AssertionError(f"phase {phase} did not launch the unbounded skip march")
+    return launches
 
 
 def main() -> None:
@@ -1087,19 +1317,17 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda")
-    kern = check_kernels(dev)
-    check_training_kernels(dev, kern)
-    kern.update(check_oct_build(dev))
-    kern.update(check_quad_build(dev))
-    kern.update(check_skip_march(dev))
-    launches = {}  # phase -> kernel -> launches
-    for phase, method, run in ((3, "kplanes", run_slice), (4, "kplanes", run_training),
-                               (5, "cobafa", run_slice), (6, "cobafa", run_training)):
+    with tempfile.TemporaryDirectory() as scene_tmp:
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            for part, counts in run(tmp, card, method).items():
-                launches[f"{phase}_{method}_{part}"] = counts
-        print(f"phase {phase} ({method} {run.__name__}): {time.perf_counter() - t0:.1f} s")
+        ns_root = write_nerfstudio_scene(f"{scene_tmp}/capture")
+        print(f"nerfstudio capture of 9 generated 800x800 views written in {time.perf_counter() - t0:.1f} s")
+        kern = check_kernels(dev)
+        check_training_kernels(dev, kern)
+        kern.update(check_oct_build(dev))
+        kern.update(check_quad_build(dev))
+        kern.update(check_skip_march(dev))
+        kern.update(check_skip_march_unbounded(dev, ns_root))
+        launches = run_phases(card, ns_root)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}", "replaces": replaces,

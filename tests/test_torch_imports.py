@@ -1,8 +1,11 @@
 """The port stands alone: every module of `tinynerf_tpu_torch`, and
 `chip_smoke.py`, imports with jax, optax and the JAX package unimportable;
-and the port's own native PNG loader (`tinynerf_tpu_torch/native`, built
+the port's own native PNG loader (`tinynerf_tpu_torch/native`, built
 into `build/`, never beside its source) decodes a generated scene exactly
-as the JAX package's parser and the Pillow fallback do.
+as the JAX package's parser and the Pillow fallback do, PNGs of several
+sizes in one split included, while a file it cannot read goes to Pillow or,
+without Pillow, raises naming the file; and the port's scene writer
+(`make_synthetic_scene`, no Pillow) writes the JAX fixture's files.
 """
 
 import json
@@ -17,7 +20,8 @@ from tinynerf_tpu.data import parse_nerf_synthetic as jparse
 from tinynerf_tpu.utils.fixtures import make_synthetic_scene
 from tinynerf_tpu_torch import native
 from tinynerf_tpu_torch.data import parse_nerf_synthetic
-from tinynerf_tpu_torch.data.parsers import _load_image_rgb
+from tinynerf_tpu_torch.data.parsers import _load_image_rgb, _load_images
+from tinynerf_tpu_torch.utils import make_synthetic_scene as port_make_synthetic_scene
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -69,3 +73,43 @@ def test_native_loader_matches_jax_parser(scene, bg):
     for a, p in zip(got.imgs, paths):
         np.testing.assert_array_equal(a, _load_image_rgb(p, bg))
     assert native.load_images([scene / "missing.png"], (1.0, 1.0, 1.0)) is None
+
+
+@pytest.mark.parametrize("kind", ["blob", "spheres"])
+def test_make_synthetic_scene_matches_jax(tmp_path, kind):
+    """Every split's `transforms_*.json` equal, and every PNG decoding to
+    the JAX fixture's pixels (Pillow reads both here)."""
+    from PIL import Image
+
+    ours = port_make_synthetic_scene(tmp_path / "ours", n_train=2, n_test=1, res=24, kind=kind)
+    ref = make_synthetic_scene(tmp_path / "ref", n_train=2, n_test=1, res=24, kind=kind)
+    for split in ("train", "val", "test"):
+        meta = json.loads((ours / f"transforms_{split}.json").read_text())
+        assert meta == json.loads((ref / f"transforms_{split}.json").read_text())
+        for frame in meta["frames"]:
+            a, b = (np.asarray(Image.open((root / frame["file_path"]).with_suffix(".png")))
+                    for root in (ours, ref))
+            assert a.shape == (24, 24, 4)
+            np.testing.assert_array_equal(a, b)
+
+
+def test_load_images_by_size_and_other_formats(scene, tmp_path, monkeypatch):
+    """PNGs of two sizes and a JPEG in one list: each decoded as Pillow
+    decodes it, in order; without Pillow the JPEG raises, naming itself."""
+    from PIL import Image
+
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    pngs = [(scene / f["file_path"]).with_suffix(".png") for f in meta["frames"]]
+    small = tmp_path / "small.png"
+    Image.open(pngs[0]).resize((10, 7)).save(small)
+    jpg = tmp_path / "view.jpg"
+    Image.open(pngs[1]).convert("RGB").save(jpg)
+    paths = [pngs[0], small, jpg, pngs[2]]
+    got = _load_images(paths, (30, 200, 90))
+    assert [a.shape for a in got] == [(24, 24, 3), (7, 10, 3), (24, 24, 3), (24, 24, 3)]
+    for a, p in zip(got, paths):
+        np.testing.assert_array_equal(a, _load_image_rgb(p, (30, 200, 90)))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert len(_load_images([pngs[0], small], (255, 255, 255))) == 2  # PNGs need no Pillow
+    with pytest.raises(RuntimeError, match="view.jpg"):
+        _load_images(paths, (255, 255, 255))

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
 backwards, the radix sort, the windowed table-gradient accumulation, the
-oct and quad cell-pack builds and the skip march.
+oct and quad cell-pack builds and both skip marches (AABB and unbounded).
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -18,15 +18,15 @@ to 400 terms in another order); sorts bit-equal (the keys are the same
 multiset); accumulated table gradients 1e-5 of their largest magnitude
 (f32 sums in another order, the atomics' order changing run to run); the
 oct and quad builds bit-equal (a relayout that rounds each value once, to
-nearest even in both); the skip march's k_idx and complete equal (the
-kernel repeats the plain version's f32 operations, each rounded once).
+nearest even in both); the skip marches' k_idx and complete equal (each
+kernel repeats its plain version's f32 operations, each rounded once).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tinynerf_tpu_torch.core import RayMarcherAABB, skipmarch
+from tinynerf_tpu_torch.core import ContractionMip360, RayMarcherAABB, RayMarcherUnbounded, skipmarch
 from tinynerf_tpu_torch.ops import bitonic, cuda_lib, interp, octbuild, segscan, table_grad, weights, weights_dense
 
 torch.set_num_threads(2)
@@ -71,6 +71,10 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         octbuild.build_oct(torch.empty(4, 4, 4, 2, device="meta"))
     with pytest.raises(ValueError):
         octbuild.build_quad(torch.empty(4, 4, 2, device="meta"))
+    with pytest.raises(ValueError):
+        skipmarch.skip_march_unbounded(m.reshape(-1)[:6].reshape(2, 3), m.reshape(-1)[:6].reshape(2, 3),
+                                       RayMarcherUnbounded(), ContractionMip360(),
+                                       torch.empty(4, 4, 4, dtype=torch.int32, device="meta"), None, 8)
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_inputs("x", torch.float32, (4,), torch.zeros(4))
 
@@ -331,6 +335,30 @@ def test_dense_weights_backward_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(out, ref, atol=_grad_tol(ref), rtol=0)
 
 
+@pytest.mark.cuda
+def test_dense_weights_backward_kernel_unbounded_deltas(cuda_device):
+    """The unbounded marcher's steps (from ~0.01 near the camera to
+    hundreds of units in the disparity tail) and densities that end most
+    rays early: past a ray's last weighted sample incl(w g) - total(w g)
+    must be exactly 0 (the total taken from the same scan, as the TPU
+    kernel takes it), or the tail's deltas multiply a rounding residue far
+    past 1e-5 of the largest gradient."""
+    rng = np.random.default_rng(29)
+    r, s = 2048, 400
+    t, deltas = RayMarcherUnbounded(n_samples=s, near=0.1, uniform_range=13.6)._grid()
+    a = [T(x).to(cuda_device) for x in (
+        rng.uniform(0, 30, (r, s)).astype(np.float32),
+        np.broadcast_to(deltas, (r, s)).copy(),
+        (rng.random((r, s)) > 0.1).astype(np.float32),
+    )]
+    g = torch.randn(r, s, device=cuda_device)
+    w = weights_dense.compute_weights_dense(*a, 1e-4)
+    out = weights_dense.weights_dense_bwd(*a, w, g)
+    ref = weights.compute_weights_bwd(*a, w, g)
+    assert bool((w[:, -1] == 0).all())  # every ray ends early
+    torch.testing.assert_close(out, ref, atol=_grad_tol(ref), rtol=0)
+
+
 # lengths around the sort kernel's 4096-key tile and 32-key warp rounds
 SORT_SHAPES = ((1,), (255,), (257,), (5000,), (4095,), (4096,), (4097,), (3, 1000), (2, 2049), (4, 4096),
                (3, 819_200))
@@ -560,4 +588,33 @@ def test_skip_march_kernel_equals_plain(cuda_device, aabb):
                 k_ref, c_ref = skipmarch.skip_march_plain(*args)
                 assert torch.equal(k, k_ref), (shape, seed, n_steps)
                 assert torch.equal(c, c_ref), (shape, seed, n_steps)
+                assert int((k >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_skip_march_unbounded_kernel_equals_plain(cuda_device):
+    """Random iso grids, rays from ~4 units out and from near the origin
+    (the far field along the diagonals), with and without jitter, at a
+    full and a starved budget: k_idx and complete equal, on 20,000 rays."""
+    rng = np.random.default_rng(23)
+    for res, density, n_samples, near_origin in ((32, 0.02, 200, False), (16, 0.2, 64, False),
+                                                  (128, 0.005, 400, True)):
+        occ = T(rng.random((res,) * 3) < density).to(cuda_device)
+        grid = skipmarch.make_skip_grid_iso(occ)
+        n = 20_000
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32) if near_origin else \
+            -4.0 * d + rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+        o, d = T(o).to(cuda_device), T(d).to(cuda_device)
+        marcher = RayMarcherUnbounded(n_samples=n_samples, near=0.1, uniform_range=2.5)
+        for seed in (None, [0x12345678, 0x9ABCDEF0]):
+            for n_steps in (96, 7):
+                args = (o, d, marcher, ContractionMip360(), grid, seed, n_steps)
+                before = skipmarch.skip_march_unbounded.launches
+                k, c = skipmarch.skip_march_unbounded(*args)
+                assert skipmarch.skip_march_unbounded.launches == before + 1
+                k_ref, c_ref = skipmarch.skip_march_unbounded_plain(*args)
+                assert torch.equal(k, k_ref), (res, seed, n_steps)
+                assert torch.equal(c, c_ref), (res, seed, n_steps)
                 assert int((k >= 0).sum()) > 0

@@ -86,8 +86,15 @@ def test_make_model_matches_jax_resolutions(field_scale):
 
 
 def test_make_model_other_methods_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("vanilla")
+    """Every method of the JAX registry builds now (the vanilla field last,
+    as the JAX registry sizes it); only an unknown method raises."""
+    field, sig, _ = make_model("vanilla", field_scale=SCALE)
+    jfield = jmake_model("vanilla", field_scale=SCALE)[0]
+    assert field.feature_dim == jfield.feature_dim == 32
+    assert [tuple(w.shape) for w in field.mlp.w] == [(60, 32)] + [(32, 32)] * 9
+    assert tuple(sig.mlp.w[0].shape) == (32, 64)
+    with pytest.raises(NotImplementedError, match="Unknown method"):
+        make_model("nerfacto")
 
 
 def test_init_from_generator():

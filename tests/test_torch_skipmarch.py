@@ -85,7 +85,7 @@ def test_make_skip_grid_from_renderer_state():
     grid = random_grid((RES,) * 3, 0.1, 3) * np.random.default_rng(4).uniform(0, 0.02, (RES,) * 3)
     grid = grid.astype(np.float32)
     state = state_of(grid)
-    sg = NerfRenderer.skip_grid(SimpleNamespace(occupancy=m.occupancy, supports_skip_march=True), state)
+    sg = NerfRenderer.skip_grid(SimpleNamespace(occupancy=m.occupancy, marcher=m.marcher, supports_skip_march=True), state)
     kept = (grid > min(0.01, float(grid.mean())))
     assert 0 < kept.sum() < grid.size
     np.testing.assert_array_equal((sg[0] == 0).numpy(), kept)
@@ -128,7 +128,7 @@ def test_skip_sample_set_equals_dense_mask(aabb, density, seed):
     positions bit for bit."""
     m = marching(aabb)
     state = state_of(random_grid((RES,) * 3, density, seed))
-    sg = NerfRenderer.skip_grid(SimpleNamespace(occupancy=m.occupancy, supports_skip_march=True), state)
+    sg = NerfRenderer.skip_grid(SimpleNamespace(occupancy=m.occupancy, marcher=m.marcher, supports_skip_march=True), state)
     o, d = (T(a) for a in random_rays(256, seed + 20))
     for key in (None, jax.random.PRNGKey(13)):
         _, words = jitter_words(key)

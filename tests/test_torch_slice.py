@@ -28,6 +28,8 @@ from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
 from tinynerf_tpu_torch.core import OccupancyGrid
 from tinynerf_tpu_torch.train import (
     InferStats,
+    TrainConfig,
+    build_renderer,
     infer,
     load_checkpoint,
     make_render_chunk,
@@ -146,9 +148,11 @@ def test_checkpoint_round_trip_and_refusal(world, tmp_path):
 
 
 def test_cli_render_only(world, scene, tmp_path):
-    """`python -m tinynerf_tpu_torch --render_only` on the CPU; unported
-    methods and data formats raise, naming ROADMAP.md (training K-Planes is
-    in test_torch_train_slice.py)."""
+    """`python -m tinynerf_tpu_torch --render_only` on the CPU, of a K-Planes
+    and of a vanilla checkpoint; `--datatype nerfstudio` reads the scene as
+    a nerfstudio capture (this one has no `transforms.json`); the sharding
+    flags still raise, naming ROADMAP.md (training is in
+    test_torch_train_slice.py)."""
     exp = tmp_path / "exp"
     r = world["renderers"]["float32"]
     occ = make_shell_occupancy(OccupancyGrid.cube(128, r.marcher.step_size))  # the CLI's grid size
@@ -158,10 +162,17 @@ def test_cli_render_only(world, scene, tmp_path):
             "--field_scale", "0.07"]
     cli_main(base + ["--render_only", "--device", "cpu"])
     assert (exp / "render_0000.png").exists() and (exp / "metrics_render.json").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main([a if a != "kplanes" else "vanilla" for a in base] + ["--resume", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    vanilla = tmp_path / "vanilla"
+    rv = build_renderer(TrainConfig(method="vanilla", field_scale=0.07, occupancy_res=128), 1.0, None,
+                        device="cpu")
+    save_checkpoint(vanilla, 1, {"params": params_to_numpy(rv), "occ_state": occ_state_to_numpy(occ)})
+    cli_main([{"kplanes": "vanilla", str(exp): str(vanilla)}.get(a, a) for a in base]
+             + ["--render_only", "--device", "cpu"])
+    assert (vanilla / "render_0001.png").exists() and (vanilla / "metrics_render.json").exists()
+    with pytest.raises(FileNotFoundError, match="transforms.json"):
         cli_main([a if a != "synthetic" else "nerfstudio" for a in base] + ["--render_only"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli_main(base + ["--shard_tables", "--device", "cpu"])
     # a checkpoint whose occupancy grid does not fit the config is refused
     save_checkpoint(exp, 2, {"params": params_to_numpy(r), "occ_state": occ_state_to_numpy(world["tocc"])})
     with pytest.raises(ValueError, match="occupancy"):

@@ -236,7 +236,8 @@ def test_cli_trains_and_renders(world, scene, tmp_path):
     """`python -m tinynerf_tpu_torch` without --render_only: a new experiment
     directory (0 steps: the final render and checkpoint), then --resume
     trains from a step-1 checkpoint of the CLI's 128^3 occupancy grid (no
-    occupancy sweep falls in steps 1-2), then --render_only renders it."""
+    occupancy sweep falls in steps 1-2), then --render_only renders it;
+    `--method vanilla` trains as well, and `--shard_tables` raises."""
     base = ["--data", str(scene), "--datatype", "synthetic", "--method", "kplanes",
             "--batch_size", "64", "--n_samples", "32", "--field_scale", "0.07", "--device", "cpu"]
     cli_main(base + ["--output", str(tmp_path / "runs"), "--steps", "0"])
@@ -254,24 +255,26 @@ def test_cli_trains_and_renders(world, scene, tmp_path):
     assert len(json.loads((exp / "metrics_train.json").read_text())) == 1
     cli_main(base + ["--output", str(exp), "--render_only"])
     assert (exp / "metrics_render.json").exists()
-    for extra in (["--method", "vanilla"], ["--shard_tables"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli_main([a for a in base if a not in ("--method", "kplanes")] + ["--method", "kplanes"] * (
-                extra[0] != "--method") + extra + ["--output", str(tmp_path / "runs"), "--steps", "1"])
+    # the vanilla method trains too (0 steps: its final render and checkpoint)
+    cli_main([a if a != "kplanes" else "vanilla" for a in base] + ["--output", str(tmp_path / "vanilla"),
+                                                                    "--steps", "0"])
+    (new,) = (tmp_path / "vanilla").iterdir()
+    assert new.name.endswith("_vanilla_aabb_32") and (new / "ckpt_0.pkl").exists()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli_main(base + ["--shard_tables", "--output", str(tmp_path / "runs"), "--steps", "1"])
 
 
 def test_remat_field_raises_until_ported(tmp_path):
-    """`remat_field=True` and `--remat on` are refused (nothing would read
-    them); None / False and `auto` / `off` are taken, as before."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(remat_field=True)
+    """`remat_field=True` and `--remat on` are taken now, as None / False
+    and `auto` / `off` are: the renderer recomputes its field in the
+    backward (tests/test_torch_vanilla.py holds the step against JAX's)."""
+    assert TrainConfig(remat_field=True).remat_field is True
     assert TrainConfig(remat_field=None).remat_field is None
     assert TrainConfig(remat_field=False).remat_field is False
+    r = build_renderer(TrainConfig(remat_field=True, **CFG), 1.0, None, device="cpu")
+    assert r.remat_field is True
     cli = ["--data", str(tmp_path / "none"), "--datatype", "synthetic", "--method", "kplanes",
            "--output", str(tmp_path / "runs"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="remat"):
-        cli_main(cli + ["--remat", "on"])
-    assert not (tmp_path / "runs").exists()  # refused before anything is written
-    for ok in ("auto", "off"):  # accepted: the run then fails on the missing scene instead
+    for ok in ("on", "auto", "off"):  # accepted: the run then fails on the missing scene
         with pytest.raises(FileNotFoundError):
             cli_main(cli + ["--remat", ok])

@@ -1,7 +1,8 @@
 """Shared setup of the port-vs-JAX renderer tests (test_torch_render.py,
-test_torch_slice.py, test_torch_train_slice.py, test_torch_cobafa_slice.py):
-one generated scene, JAX-initialized parameters carried into port
-renderers, and the shell occupancy state."""
+test_torch_slice.py, test_torch_train_slice.py, test_torch_cobafa_slice.py,
+test_torch_vanilla.py, test_torch_unbounded.py): one generated scene,
+JAX-initialized parameters carried into port renderers, and the shell
+occupancy state."""
 
 import dataclasses
 
@@ -23,6 +24,10 @@ CFG = dict(field_scale=0.07, n_samples=32, batch_size=64, occupancy_res=16, seed
 # Cobafa at field_scale 0.1: basis grids 8/8/8/8/10/12 with 8/8/8/4/4/4
 # channels, coefficients 8^3 x 6, the full-width 36 -> 128 field MLP
 COBAFA_CFG = dict(CFG, method="cobafa", field_scale=0.1)
+# the vanilla field at field_scale 0.07: posenc(10) into 10 layers of width 32
+VANILLA_CFG = dict(CFG, method="vanilla")
+# K-Planes on the unbounded marcher and the Mip-360 contraction
+UNBOUNDED_CFG = dict(CFG, scene_type="unbounded")
 F32_ATOL = 1e-4  # tests/test_core.py:189's packed-vs-dense tolerance
 BF16_ATOL = 2e-2  # one-ulp bf16 rounding flips between frameworks
 

@@ -1,13 +1,13 @@
 """Command line: `python -m tinynerf_tpu_torch`, with `train.py`'s flags.
 
-Without `--render_only` it trains on `--device` (`--method kplanes` or
-`--method cobafa`, on Blender-synthetic AABB data) in a new experiment
-directory under `--output`, or, with `--resume`, continues the experiment
-`--output` names.  With `--render_only` it renders the test split from the
-latest checkpoint in `--output` (an experiment directory, written by either
-package) and reports metrics.  Nerfstudio data, unbounded scenes, the
-vanilla method, `--remat on` and the sharding flags (`--shard_tables`,
-`--shard_bwd`) raise NotImplementedError naming the ROADMAP.md item.
+Without `--render_only` it trains on `--device` (any `--method`, on
+Blender-synthetic or nerfstudio data, AABB or unbounded scenes) in a new
+experiment directory under `--output`, or, with `--resume`, continues the
+experiment `--output` names.  With `--render_only` it renders the test
+split from the latest checkpoint in `--output` (an experiment directory,
+written by either package) and reports metrics.  The sharding flags
+(`--shard_tables`, `--shard_bwd`) raise NotImplementedError naming the
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -17,9 +17,8 @@ import os
 import uuid
 from pathlib import Path
 
-from .data import PoseSet, RayPool, parse_nerf_synthetic
+from .data import PoseSet, RayPool, parse_nerf_synthetic, parse_nerfstudio
 from .train import TrainConfig, render_only, train
-from .train.config import REMAT_NOT_PORTED
 
 
 def main(argv=None) -> None:
@@ -57,15 +56,9 @@ def main(argv=None) -> None:
                              "kernels' plain versions)")
     args = parser.parse_args(argv)
 
-    if args.datatype != "synthetic":
-        raise NotImplementedError(
-            "nerfstudio data is not ported yet (ROADMAP.md Queue 1, "
-            "'Unbounded scenes and nerfstudio')"
-        )
-    if args.remat == "on":
-        raise NotImplementedError(REMAT_NOT_PORTED)
     data_path = Path(args.data)
-    test_set = PoseSet(parse_nerf_synthetic(data_path, "test"))
+    parse = parse_nerf_synthetic if args.datatype == "synthetic" else parse_nerfstudio
+    test_set = PoseSet(parse(data_path, "test"))
     output = Path(args.output)
     if args.resume or args.render_only:
         experiment_dir = output  # an existing experiment directory
@@ -106,8 +99,8 @@ def main(argv=None) -> None:
     if args.eval and cfg.eval_every is None:
         cfg.eval_every = max(1, cfg.total_steps // 8)
     train(
-        cfg, RayPool(parse_nerf_synthetic(data_path, "train"), device=args.device),
-        PoseSet(parse_nerf_synthetic(data_path, "val")), test_set,
+        cfg, RayPool(parse(data_path, "train"), device=args.device),
+        PoseSet(parse(data_path, "val")), test_set,
         resume=args.resume, device=args.device,
     )
 

@@ -7,7 +7,8 @@ The JAX renderer's parameters are a pytree
      "rgb":   {"mlp": [...]}}
 
 for K-Planes, with the field {"basis": [grid [r, r, r, C] per level],
-"coef": [R, R, R, L], "mlp": [...]} for Cobafa, of arrays; the port keeps
+"coef": [R, R, R, L], "mlp": [...]} for Cobafa and {"mlp": [...]} for the
+vanilla field, of arrays; the port keeps
 the same tensors, in the same layouts, in the renderer's field and decoder
 modules (`param_tree` lists them in that layout, which the optimizer state
 of a checkpoint shares).  Both directions
@@ -23,6 +24,7 @@ import torch
 from .core.occupancy import OccupancyState
 from .core.renderer import NerfRenderer
 from .models.cobafa import CobafaFeatureField
+from .models.vanilla import VanillaFeatureField
 
 
 def _copy_into(dst: torch.nn.Parameter, src, name: str) -> None:
@@ -42,6 +44,9 @@ def _mlp_into(mlp, layers, name: str) -> None:
 
 
 def _field_into(field, src: dict) -> None:
+    if isinstance(field, VanillaFeatureField):
+        _mlp_into(field.mlp, src["mlp"], "field mlp")
+        return
     if isinstance(field, CobafaFeatureField):
         if len(src["basis"]) != len(field.basis):
             raise ValueError(f"{len(src['basis'])} basis levels do not fit {len(field.basis)}")
@@ -74,7 +79,9 @@ def param_tree(renderer: NerfRenderer) -> dict:
     """The renderer's parameters (the module tensors themselves) in the JAX
     package's pytree layout."""
     field = renderer.field
-    if isinstance(field, CobafaFeatureField):
+    if isinstance(field, VanillaFeatureField):
+        field_tree = {"mlp": _mlp_tree(field.mlp)}
+    elif isinstance(field, CobafaFeatureField):
         field_tree = {"basis": list(field.basis), "coef": field.coef, "mlp": _mlp_tree(field.mlp)}
     else:
         field_tree = {"planes": [list(scale) for scale in field.planes]}

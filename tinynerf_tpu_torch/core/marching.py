@@ -1,10 +1,17 @@
-"""AABB ray marcher: per-ray sample distances t and step sizes delta.
+"""Ray marchers: per-ray sample distances t and step sizes delta.
 
-Counterpart of `RayMarcherAABB` in `tinynerf_tpu/core/marching.py`: a slab
-test gives the entry distance t_min (clamped to [near, far] and nudged
-1e-4 steps inside the box), then n_samples uniform steps of
-||aabb diagonal|| / n_samples.  Samples past the box are culled downstream
-by the contraction mask.  The unbounded marcher comes later (ROADMAP.md).
+Counterpart of `tinynerf_tpu/core/marching.py`, both [n_rays, n_samples]:
+
+  * `RayMarcherUnbounded`: the disparity spacing f(x) = 2x (x < 0.5) or
+    1 / (2 - 2x) over x_k = k * step_x, scaled by the scene scale and
+    shifted by `near`.  The grid does not depend on the ray, so it is
+    computed once on the host in numpy f32, as the JAX file does, and
+    broadcast; the unbounded skip march evaluates the same f32 expression
+    per sample and must match it bit for bit.
+  * `RayMarcherAABB`: a slab test gives the entry distance t_min (clamped
+    to [near, far] and nudged 1e-4 steps inside the box), then n_samples
+    uniform steps of ||aabb diagonal|| / n_samples.  Samples past the box
+    are culled downstream by the contraction mask.
 """
 
 from __future__ import annotations
@@ -14,6 +21,37 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+@dataclass(frozen=True)
+class RayMarcherUnbounded:
+    n_samples: int = 200
+    near: float = 0.0
+    far: float = 1e5
+    uniform_range: float = 1.0
+
+    @property
+    def step_size(self) -> float:
+        """Representative step (the occupancy update's)."""
+        return self.uniform_range / self.n_samples
+
+    @property
+    def step_x(self) -> float:
+        """Spacing of the disparity parameter x (x_k = k * step_x)."""
+        return (1.0 - 1.0 / (self.n_samples + 2)) / self.n_samples
+
+    def _grid(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(t [n_samples], deltas [n_samples]) in f32, from k * step_x (not
+        linspace): the skip march's closed form gives the same bits."""
+        x = np.arange(self.n_samples + 1, dtype=np.float32) * np.float32(self.step_x)
+        f = np.where(x < 0.5, 2.0 * x, 1.0 / (2.0 - 2.0 * x)).astype(np.float32)
+        t = f * np.float32(self.uniform_range) + np.float32(self.near)
+        return t[:-1], t[1:] - t[:-1]
+
+    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        t, deltas = (torch.from_numpy(a).to(rays_o.device) for a in self._grid())
+        shape = (rays_o.shape[0], self.n_samples)
+        return t.expand(shape), deltas.expand(shape)
 
 
 @dataclass(frozen=True)

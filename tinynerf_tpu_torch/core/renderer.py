@@ -12,6 +12,10 @@ paths with static shapes:
     rays, and rays whose samples spilled past `cap` come back flagged
     (`ray_valid = 0`) so the caller can re-render them densely.
 
+Both marchers run through both paths: the AABB one (box entry, uniform
+steps, the box mask) and the unbounded one (the disparity grid and the
+Mip-360 contraction, whose mask is all ones).
+
 The weights ops and their gradients are picked by the tensors' device (the
 JAX package picks by `jax.default_backend()`): on a CUDA tensor the
 hand-written kernels (`ops/segscan.py`, `ops/weights_dense.py`), on a CPU
@@ -24,28 +28,35 @@ for its mask, where the JAX package's renderer passes `fold_in(key, 1)`;
 `sigma_fn` and serving pass none.  `render_packed` marches densely (every
 sample point queried against the occupancy grid) or, with `march="skip"`
 and the skip grid of the current occupancy state (`skip_grid`), with the
-empty-space-skipping march (`core/skipmarch.py`, a CUDA kernel on the
-card): the same sample set, found in at most `skip_steps` rounds per ray
-instead of `n_samples` queries; rays that exhaust that budget come back
-flagged (`ray_valid = 0`, `n_complete`).
+empty-space-skipping march of its marcher (`core/skipmarch.py`, a CUDA
+kernel on the card): the same sample set, found in at most `skip_steps`
+rounds per ray instead of `n_samples` queries; rays that exhaust that
+budget come back flagged (`ray_valid = 0`, `n_complete`).
+
+`remat_field` recomputes the field's activations in the backward
+(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint`) instead of
+keeping them, when gradients are recorded; the recomputed forward gets the
+same inputs and dropout words, and the dropout hash is stateless, so it
+gives the same values.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..models.cobafa import CobafaFeatureField
 from ..ops.hashrng import hash_u01
 from ..ops.segscan import compute_weights_packed
 from ..ops.weights_dense import compute_weights_dense
-from .contraction import ContractionAABB
-from .marching import RayMarcherAABB
+from .contraction import ContractionAABB, ContractionMip360
+from .marching import RayMarcherAABB, RayMarcherUnbounded
 from .occupancy import OccupancyGrid, OccupancyState
-from .skipmarch import make_skip_grid, skip_march
+from .skipmarch import make_skip_grid, make_skip_grid_iso, skip_march, skip_march_unbounded
 
 
 class RenderOutput(NamedTuple):
@@ -64,13 +75,14 @@ class NerfRenderer(nn.Module):
         field: nn.Module,
         sigma_decoder: nn.Module,
         rgb_decoder: nn.Module,
-        marcher: RayMarcherAABB,
-        contraction: ContractionAABB,
+        marcher: Union[RayMarcherAABB, RayMarcherUnbounded],
+        contraction: Union[ContractionAABB, ContractionMip360],
         occupancy: Optional[OccupancyGrid] = None,
         bg_color: Optional[Tuple[float, float, float]] = None,
         early_termination: float = 1e-4,
         compute_dtype: torch.dtype = torch.float32,
         skip_steps: int = 96,
+        remat_field: bool = False,
     ):
         super().__init__()
         self.field = field
@@ -85,15 +97,21 @@ class NerfRenderer(nn.Module):
         # round budget per ray of the skip march; rays needing more are
         # flagged incomplete
         self.skip_steps = skip_steps
+        self.remat_field = remat_field
 
     # ------------------------------------------------------------- sub-fns
 
     def _field_apply(self, x: torch.Tensor, dropout_seed=None) -> tuple:
         """The field's feature pieces; `dropout_seed` (two uint32 words)
-        reaches only a field with dropout."""
+        reaches only a field with dropout.  With `remat_field`, and only
+        while gradients are recorded, through a checkpoint."""
         if dropout_seed is not None and isinstance(self.field, CobafaFeatureField):
-            return self.field.apply_pieces(x, self.compute_dtype, dropout_seed=dropout_seed)
-        return self.field.apply_pieces(x, self.compute_dtype)
+            fn = lambda xx: self.field.apply_pieces(xx, self.compute_dtype, dropout_seed=dropout_seed)
+        else:
+            fn = lambda xx: self.field.apply_pieces(xx, self.compute_dtype)
+        if self.remat_field and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        return fn(x)
 
     def sigma_fn(self, x: torch.Tensor) -> torch.Tensor:
         """Density at contracted coords [n, 3] -> [n]; feeds occupancy updates."""
@@ -128,41 +146,56 @@ class NerfRenderer(nn.Module):
 
     @property
     def supports_skip_march(self) -> bool:
-        """Skip grids are built from, and probed at, nearest-voxel occupancy,
-        and certify straight contracted-space rays: the AABB marcher."""
-        return (self.occupancy is not None and self.occupancy.interp == "nearest"
-                and isinstance(self.marcher, RayMarcherAABB)
-                and isinstance(self.contraction, ContractionAABB))
+        """Skip grids are built from, and probed at, nearest-voxel occupancy.
+        The cone grids certify straight contracted-space rays (the AABB
+        marcher); the isotropic grid the curved paths of the unbounded
+        marcher, with the advance bound of the order-inf contraction."""
+        if self.occupancy is None or self.occupancy.interp != "nearest":
+            return False
+        aabb = isinstance(self.marcher, RayMarcherAABB) and isinstance(self.contraction, ContractionAABB)
+        unbounded = (isinstance(self.marcher, RayMarcherUnbounded) and isinstance(self.contraction, ContractionMip360)
+                     and self.contraction.order == float("inf"))
+        return aabb or unbounded
 
     def skip_grid(self, occ_state: OccupancyState) -> torch.Tensor:
-        """The cone skip grids [6, r0, r1, r2] of the thresholded occupancy
-        state; rebuilt at each occupancy update, never checkpointed."""
+        """The skip grid of the thresholded occupancy state: the cone grids
+        [6, r0, r1, r2] for the AABB marcher, the isotropic grid [r, r, r]
+        for the unbounded one.  Rebuilt at each occupancy update, never
+        checkpointed."""
         if not self.supports_skip_march:
             raise ValueError("this renderer does not support skip marching")
-        return make_skip_grid(occ_state.grid > self.occupancy._threshold(occ_state))
+        occ = occ_state.grid > self.occupancy._threshold(occ_state)
+        return make_skip_grid_iso(occ) if isinstance(self.marcher, RayMarcherUnbounded) else make_skip_grid(occ)
 
     def _march_skip(self, rays_o, rays_d, skip_grid, jitter_seed=None):
         """Skip-marching front half: the candidate grid [R, skip_steps] whose
         valid entries are exactly the dense march's surviving samples, with
         positions recomputed by the dense march's operations, and the
         per-ray completeness flag."""
-        t_min, t_exit = self.marcher.entry_exit(rays_o, rays_d)
-        step = self.marcher.step_size
-        k_idx, complete = skip_march(
-            rays_o, rays_d, t_min, t_exit, step, self.marcher.n_samples,
-            self.contraction.aabb, skip_grid, jitter_seed, self.skip_steps,
-        )
-        maskb = k_idx >= 0
-        kk = torch.clamp(k_idx, min=0)
-        delta = np.float32(step).item()
-        t = t_min[:, None] + kk.float() * delta
-        deltas = torch.full_like(t, delta)
+        if isinstance(self.marcher, RayMarcherUnbounded):
+            k_idx, complete = skip_march_unbounded(
+                rays_o, rays_d, self.marcher, self.contraction, skip_grid, jitter_seed, self.skip_steps)
+            kk = torch.clamp(k_idx, min=0)
+            # positions and steps from the dense march's own grid
+            t_grid, d_grid = (torch.from_numpy(a).to(rays_o.device) for a in self.marcher._grid())
+            t, deltas = t_grid[kk], d_grid[kk]
+        else:
+            t_min, t_exit = self.marcher.entry_exit(rays_o, rays_d)
+            step = self.marcher.step_size
+            k_idx, complete = skip_march(
+                rays_o, rays_d, t_min, t_exit, step, self.marcher.n_samples,
+                self.contraction.aabb, skip_grid, jitter_seed, self.skip_steps,
+            )
+            kk = torch.clamp(k_idx, min=0)
+            delta = np.float32(step).item()
+            t = t_min[:, None] + kk.float() * delta
+            deltas = torch.full_like(t, delta)
         if jitter_seed is not None:
             u = hash_u01(jitter_seed, torch.arange(rays_o.shape[0], device=rays_o.device)[:, None], kk)
             t = t + u * deltas
         pos = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
         cpos, _ = self.contraction(pos)
-        return cpos, deltas, maskb.float(), complete
+        return cpos, deltas, (k_idx >= 0).float(), complete
 
     def _composite(self, weighted_rgb_sum, opacity):
         if self.bg_color is not None:

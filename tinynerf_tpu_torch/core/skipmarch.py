@@ -1,25 +1,34 @@
-"""Empty-space-skipping ray marching for the AABB marcher.
+"""Empty-space-skipping ray marching, for both marchers.
 
-Counterpart of `make_skip_grid` and `skip_march` in
-`tinynerf_tpu/core/skipmarch.py`.  A cone distance transform of the
-occupancy grid stores, per voxel and per (dominant axis, sign), how many
-axis slices a ray may advance before it can reach an occupied voxel; the
-march then visits, per ray, one voxel per round and either emits the sample
-(occupied voxel, inside the box) or jumps over the certified-empty span.
+Counterpart of `tinynerf_tpu/core/skipmarch.py`.  Two skip grids and two
+marches:
+
+  * AABB (`make_skip_grid`, `skip_march`): a cone distance transform of
+    the occupancy grid stores, per voxel and per (dominant axis, sign), how
+    many axis slices a ray may advance before it can reach an occupied
+    voxel; the march visits, per ray, one voxel per round and either emits
+    the sample (occupied voxel, inside the box) or jumps over the
+    certified-empty span.
+  * Unbounded (`make_skip_grid_iso`, `skip_march_unbounded`): the Mip-360
+    contraction bends world rays, so no cone can be certified; an isotropic
+    grid stores the Chebyshev radius around each voxel that is empty, and
+    the march converts that contracted radius into a world advance with a
+    local Lipschitz bound of the order-inf contraction, then into a jump on
+    the disparity grid through its closed-form inverse.
+
 The emitted set equals the dense march's surviving set bit for bit, jitter
-included: the transform runs on a laterally dilated occupancy (absorbing the
-nearest-voxel rounding and the jitter), the advance bound is conservative,
-and both marches compute a sample's position by the same f32 operations in
-the same order, with the same stateless hash (`ops/hashrng.py`).
+included: the grids absorb the nearest-voxel rounding and the jitter, the
+advance bounds are conservative, and both marches compute a sample's
+position by the same f32 operations in the same order, with the same
+stateless hash (`ops/hashrng.py`).
 
-`skip_march` is one CUDA kernel on a CUDA tensor (`csrc/skipmarch.cu`: one
-thread per ray walks all its rounds; eager PyTorch would launch ~25 small
-ops per round) and the plain round loop, `skip_march_plain`, on a CPU
-tensor.  The JAX `_probe` is a TPU lane trick for the same lookup; here it
-is a plain gather.  `make_skip_grid` is plain PyTorch: it runs once per
-`render_only` and once per occupancy update.  The isotropic grid and the
-unbounded march (`make_skip_grid_iso`, `skip_march_unbounded`) come with the
-unbounded marcher (ROADMAP.md).
+Each march is one CUDA kernel on a CUDA tensor (`csrc/skipmarch.cu`: one
+thread per ray walks all its rounds; eager PyTorch would launch dozens of
+small ops per round) and the plain round loop (`skip_march_plain`,
+`skip_march_unbounded_plain`) on a CPU tensor.  The JAX `_probe` is a TPU
+lane trick for the same lookup; here it is a plain gather.  The grids are
+plain PyTorch: they are built once per `render_only` and once per occupancy
+update.
 """
 
 from __future__ import annotations
@@ -94,6 +103,37 @@ def make_skip_grid(occ_bool: torch.Tensor) -> torch.Tensor:
             g = torch.where(occ_a, 0, torch.clamp(torch.clamp(c, min=1), 0, _MAX_D)).to(torch.int32)
             grids.append(torch.movedim(g, 0, axis))
     return torch.stack(grids).contiguous()
+
+
+def _maxpool_shift(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Max over the shifts {-radius, 0, +radius} along every axis, vacated
+    cells filled with 0 (not `max_pool3d`'s padding); on a radius-r pooled
+    map this gives the radius-2r pool."""
+    for axis in range(x.dim()):
+        n = x.shape[axis]
+        r = min(radius, n)
+        lo = torch.zeros_like(x)
+        hi = torch.zeros_like(x)
+        lo.narrow(axis, 0, n - r).copy_(x.narrow(axis, r, n - r))
+        hi.narrow(axis, r, n - r).copy_(x.narrow(axis, 0, n - r))
+        x = torch.maximum(x, torch.maximum(lo, hi))
+    return x
+
+
+def make_skip_grid_iso(occ_bool: torch.Tensor, n_levels: int = 8) -> torch.Tensor:
+    """Isotropic (Chebyshev-ball) skip grid for the curved contracted-space
+    paths of the unbounded marcher: int32 [r0, r1, r2], per voxel v 0 = v is
+    occupied (emit), g = every voxel within Chebyshev radius g - 1 of v is
+    unoccupied.  Bit-equal to the JAX package's."""
+    occ = occ_bool.float()
+    g = torch.where(occ_bool, 0, 1).to(torch.int32)
+    pooled = _maxpool_shift(occ, 1)
+    radius = 1
+    for _ in range(n_levels):
+        g = torch.where(~occ_bool & (pooled == 0.0), min(1 + radius, _MAX_D), g).to(torch.int32)
+        pooled = _maxpool_shift(pooled, radius)
+        radius *= 2
+    return g.contiguous()
 
 
 def _aabb_arrays(aabb, shape: Sequence[int]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -178,6 +218,18 @@ def skip_march_plain(
     return (k_idx, done, rounds) if count_rounds else (k_idx, done)
 
 
+def _seed_words(jitter_seed, dev) -> Optional[torch.Tensor]:
+    """The two jitter words as int64 [2] on `dev` (the kernels read them
+    there), or None."""
+    if jitter_seed is None:
+        return None
+    if isinstance(jitter_seed, torch.Tensor):
+        seed = jitter_seed.to(device=dev, dtype=torch.int64).reshape(-1)
+    else:
+        seed = torch.tensor([int(s) for s in jitter_seed], dtype=torch.int64, device=dev)
+    return torch.stack([seed[0], seed[-1]]).contiguous()
+
+
 def skip_march(
     rays_o: torch.Tensor,  # [R, 3]
     rays_d: torch.Tensor,  # [R, 3] unit-norm
@@ -205,14 +257,7 @@ def skip_march(
     cuda_lib.check_cuda_inputs("skip_march", torch.float32, (n_rays,), t_min, t_exit)
     cuda_lib.check_cuda_inputs("skip_march", torch.int32, skip_grid.shape, skip_grid)
     dev = rays_o.device
-    seed_ptr = None
-    if jitter_seed is not None:
-        if isinstance(jitter_seed, torch.Tensor):
-            seed = jitter_seed.to(device=dev, dtype=torch.int64).reshape(-1)
-        else:
-            seed = torch.tensor([int(s) for s in jitter_seed], dtype=torch.int64, device=dev)
-        seed = torch.stack([seed[0], seed[-1]]).contiguous()
-        seed_ptr = seed.data_ptr()
+    seed = _seed_words(jitter_seed, dev)
     _, r0, r1, r2 = skip_grid.shape
     lo, hi, w = _aabb_arrays(aabb, (r0, r1, r2))
     k_idx = torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev)
@@ -220,7 +265,7 @@ def skip_march(
     if n_rays:
         cuda_lib.library().call(
             "tn_skip_march", rays_o.data_ptr(), rays_d.data_ptr(), t_min.data_ptr(), t_exit.data_ptr(),
-            skip_grid.data_ptr(), seed_ptr, n_rays, r0, r1, r2, n_samples, float(np.float32(step_size)),
+            skip_grid.data_ptr(), seed.data_ptr() if seed is not None else None, n_rays, r0, r1, r2, n_samples, float(np.float32(step_size)),
             n_steps, *(float(v) for v in (*lo, *hi, *w)),
             k_idx.data_ptr(), complete.data_ptr(), cuda_lib.stream_of(rays_o),
         )
@@ -229,3 +274,158 @@ def skip_march(
 
 
 skip_march.launches = 0
+
+
+# an upper bound on the Euclidean-in / Chebyshev-out Lipschitz constant of
+# the order-inf Mip-360 contraction, its final / 2 included (the true one is
+# ~0.50596, at ||x||_inf = 1.25 with two near-equal dominant coordinates)
+_LIPSCHITZ = 0.5065
+
+
+def _unbounded_constants(marcher, skip_grid: torch.Tensor) -> dict:
+    """The march's f32 constants, each rounded as the JAX package rounds it."""
+    r = skip_grid.shape[0]
+    return dict(
+        step_x=np.float32(marcher.step_x), rng=np.float32(marcher.uniform_range),
+        near=np.float32(marcher.near),
+        x_last=np.float32(marcher.n_samples) * np.float32(marcher.step_x),  # one past the last sample's x
+        w_c=np.float32(2.0 / float(r - 1)),  # contracted voxel width
+        inv_sqrt3=np.float32(1.0 / np.sqrt(3.0)), inv_lip=np.float32(1.0 / _LIPSCHITZ),
+    )
+
+
+def _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps):
+    r = rays_o.shape[0]
+    if rays_o.shape != (r, 3) or rays_d.shape != (r, 3):
+        raise ValueError("skip_march_unbounded: expected rays [R, 3]")
+    # the certificate converts a Chebyshev voxel radius into a contracted
+    # distance with one voxel width: a grid that is not cubic would need
+    # its finest axis's
+    if skip_grid.dim() != 3 or len(set(skip_grid.shape)) != 1 or skip_grid.shape[0] < 2:
+        raise ValueError(f"skip_march_unbounded: expected a cubic skip grid [r, r, r], got {tuple(skip_grid.shape)}")
+    if contraction.order != float("inf"):
+        raise ValueError("skip_march_unbounded: the advance bound holds for the order-inf contraction only")
+    if n_steps < 1:
+        raise ValueError(f"skip_march_unbounded: n_steps must be >= 1, got {n_steps}")
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """||v||_2 over the last axis of [..., 3], summed in index order (a
+    library reduction may fuse the products into FMAs on the card)."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
+
+
+def skip_march_unbounded_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, marcher, contraction, skip_grid: torch.Tensor,
+    jitter_seed, n_steps: int, count_rounds: bool = False,
+):
+    """The plain version: the JAX package's round loop
+    (`tinynerf_tpu/core/skipmarch.py:skip_march_unbounded`) in its op order.
+    Every constant is an f32 0-dim tensor on the rays' device: a CPU scalar
+    divisor would turn CUDA's division into a product with its reciprocal.
+    With `count_rounds` it also returns the rounds in which a ray was still
+    active."""
+    _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps)
+    dev = rays_o.device
+    n_rays, n_samples = rays_o.shape[0], marcher.n_samples
+    r0, r1, r2 = skip_grid.shape
+    c = {k: torch.tensor(v, device=dev) for k, v in _unbounded_constants(marcher, skip_grid).items()}
+    step_x, rng, near = c["step_x"], c["rng"], c["near"]
+    res = torch.tensor([r0 - 1, r1 - 1, r2 - 1], dtype=torch.float32, device=dev)
+    flat = skip_grid.reshape(-1)
+    ray_ids = torch.arange(n_rays, device=dev)
+
+    def t_of_x(x):
+        f = torch.where(x < 0.5, 2.0 * x, 1.0 / torch.clamp(2.0 - 2.0 * x, min=1e-9))
+        return f * rng + near
+
+    def x_of_t(t):
+        y = torch.clamp((t - near) / rng, min=0.0)
+        return torch.where(y < 1.0, y * 0.5, 1.0 - 0.5 / torch.clamp(y, min=1.0))
+
+    # per ray, the closest approach to the origin: past t every point's
+    # radius is >= n_perp before it and >= the current radius after it
+    t_star = -(rays_o[:, 0] * rays_d[:, 0] + rays_o[:, 1] * rays_d[:, 1] + rays_o[:, 2] * rays_d[:, 2])
+    n_perp = _norm3(rays_o + rays_d * t_star[:, None])
+
+    k = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    done = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    ys, rounds = [], 0
+    for _ in range(n_steps):
+        kk = torch.clamp(k, max=n_samples - 1)
+        # the dense march's t: t_of_x(k * step_x), then + u * delta
+        t_lo = t_of_x(kk.float() * step_x)
+        t = t_lo
+        if jitter_seed is not None:
+            delta = t_of_x((kk + 1).float() * step_x) - t_lo
+            t = t_lo + hash_u01(jitter_seed, ray_ids, kk) * delta
+        pos = rays_o + rays_d * t[:, None]
+        cpos, _ = contraction(pos)
+        idx = torch.clamp(torch.round((cpos + 1.0) * 0.5 * res), min=0.0)
+        idx = torch.minimum(idx, res).long()
+        g = flat[(idx[:, 0] * r1 + idx[:, 1]) * r2 + idx[:, 2]]
+        active = ~done & (k < n_samples)
+        emit = active & (g == 0)
+        # the contracted-empty radius rho = (g - 1) w_c; jittered skipped
+        # samples stay within t_{k+m} - t_k of this one, whose contracted
+        # displacement is at most L (t_{k+m} - t_k): safe while t_{k+m} <=
+        # t_k + (rho - w_c) / L (the - w_c absorbs the rounding of both ends).
+        # L is bounded over the rest of the ray [t, inf): at inf-radius m the
+        # directional constant is at most F(m) = sqrt((1 - 1/(2m))^2 +
+        # (1 - 1/m)^2) / m, decreasing past its peak at m = 1.25; every point
+        # past t has inf-radius >= m0 = n_eff / sqrt(3), so for n_eff >= 2.25
+        # (m0 >= 1.3) L <= F(m0), else the global bound
+        rho = (g.float() - 1.0) * c["w_c"]
+        n_eff = torch.clamp(torch.where(t < t_star, n_perp, _norm3(pos)), min=1.0)
+        m0 = torch.clamp(n_eff * c["inv_sqrt3"], min=1.3)
+        f_m0 = torch.sqrt((1.0 - 0.5 / m0) ** 2 + (1.0 - 1.0 / m0) ** 2) / m0
+        l_inv = torch.where(n_eff >= 2.25, torch.maximum(1.0 / f_m0, c["inv_lip"]), c["inv_lip"])
+        t_safe = t_lo + torch.clamp((rho - c["w_c"]) * l_inv, min=0.0)
+        k_safe = torch.floor(torch.minimum(x_of_t(t_safe), c["x_last"]) / step_x).to(torch.int32)
+        adv = torch.clamp(k_safe - kk, min=1)
+        k_next = torch.where(active, k + adv, k)
+        done = done | (k_next >= n_samples)
+        ys.append(torch.where(emit, kk, -1))
+        if count_rounds:
+            rounds += int(active.sum())
+        k = k_next
+    k_idx = torch.stack(ys, dim=1)
+    return (k_idx, done, rounds) if count_rounds else (k_idx, done)
+
+
+def skip_march_unbounded(
+    rays_o: torch.Tensor,  # [R, 3]
+    rays_d: torch.Tensor,  # [R, 3] unit-norm
+    marcher,  # RayMarcherUnbounded
+    contraction,  # ContractionMip360, order inf
+    skip_grid: torch.Tensor,  # [r, r, r] int32 from make_skip_grid_iso
+    jitter_seed: Optional[object],
+    n_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """March the unbounded marcher's disparity grid with isotropic
+    empty-space skipping; the same return contract as `skip_march`.  The
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if cuda_lib.runs_plain("skip_march_unbounded", rays_o, rays_d, skip_grid):
+        return skip_march_unbounded_plain(rays_o, rays_d, marcher, contraction, skip_grid,
+                                          jitter_seed, n_steps)
+    _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps)
+    n_rays = rays_o.shape[0]
+    cuda_lib.check_cuda_inputs("skip_march_unbounded", torch.float32, (n_rays, 3), rays_o, rays_d)
+    cuda_lib.check_cuda_inputs("skip_march_unbounded", torch.int32, skip_grid.shape, skip_grid)
+    dev = rays_o.device
+    seed = _seed_words(jitter_seed, dev)
+    c = _unbounded_constants(marcher, skip_grid)
+    k_idx = torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev)
+    complete = torch.empty(n_rays, dtype=torch.bool, device=dev)
+    if n_rays:
+        cuda_lib.library().call(
+            "tn_skip_march_unbounded", rays_o.data_ptr(), rays_d.data_ptr(), skip_grid.data_ptr(),
+            seed.data_ptr() if seed is not None else None, n_rays, skip_grid.shape[0], marcher.n_samples,
+            n_steps, *(float(c[k]) for k in ("step_x", "rng", "near", "x_last", "w_c", "inv_sqrt3", "inv_lip")),
+            k_idx.data_ptr(), complete.data_ptr(), cuda_lib.stream_of(rays_o),
+        )
+        skip_march_unbounded.launches += 1
+    return k_idx, complete
+
+
+skip_march_unbounded.launches = 0

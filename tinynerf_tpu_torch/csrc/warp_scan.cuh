@@ -42,17 +42,26 @@ __device__ __forceinline__ float transmittance_weight(float s, float c, float m,
 // walked by one warp (every lane must call it):
 //   d sigma_k = delta_k * m_k * (incl_k(w g) - total(w g) + exp(-c_k) g_k)
 // with c_k the inclusive optical depth.  incl - total is minus the strict
-// suffix sum of w g, the reference's reverse scan.  Pass 1 reduces
-// total(w g); pass 2 scans s and w g together with both carries in
-// registers, so sums stay inside the ray.
+// suffix sum of w g, the reference's reverse scan.  Pass 1 scans w g for
+// total(w g), the last inclusive sum, as the TPU kernel takes it
+// (weights_pallas.py:_bwd_kernel); pass 2 repeats that scan operation for
+// operation, beside the scan of s, with both carries in registers, so sums
+// stay inside the ray and incl - total is exactly 0 past the ray's last
+// sample with a weight (a total reduced in another order would leave a
+// rounding residue there, which the unbounded marcher's far-field deltas,
+// hundreds of units, would multiply).
 __device__ __forceinline__ void weights_backward_run(
     const float* __restrict__ sigmas, const float* __restrict__ deltas,
     const float* __restrict__ m, const float* __restrict__ w,
     const float* __restrict__ g, int begin, int end, float* __restrict__ out) {
   const int lane = threadIdx.x & (kWarp - 1);
   float total = 0.0f;
-  for (int i = begin + lane; i < end; i += kWarp) total += w[i] * g[i];
-  total = warp_sum(total);
+  for (int base = begin; base < end; base += kWarp) {  // warp-uniform
+    const int i = base + lane;
+    // __fmul_rn: no FMA contraction, so that pass 2 rounds w g the same
+    const float incl = total + warp_inclusive_scan(i < end ? __fmul_rn(w[i], g[i]) : 0.0f);
+    total = __shfl_sync(kFullMask, incl, kWarp - 1);
+  }
   float carry_s = 0.0f, carry_wg = 0.0f;
   for (int base = begin; base < end; base += kWarp) {  // warp-uniform
     const int i = base + lane;
@@ -63,7 +72,7 @@ __device__ __forceinline__ void weights_backward_run(
       di = deltas[i];
       s = sigmas[i] * di * mi;
       gi = g[i];
-      wg = w[i] * gi;
+      wg = __fmul_rn(w[i], gi);
     }
     const float c = carry_s + warp_inclusive_scan(s);
     const float incl = carry_wg + warp_inclusive_scan(wg);

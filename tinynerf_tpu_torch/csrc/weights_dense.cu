@@ -20,9 +20,10 @@
 // __shfl_up_sync scan, a running carry in a register, and the fused exp/mask
 // epilogue, so sigma/delta/m are read once and w is written once.  Rows are
 // independent, so 2048 rows give 2048 warps, enough to fill the 132 SMs.
-// The backward keeps the layout: one warp per row, a reduction pass for
-// total(w g) and one scan pass for c and incl(w g) (warp_scan.cuh), ~28 B
-// read and 4 B written per sample, so memory bound as well.
+// The backward keeps the layout: one warp per row, a scan pass for
+// total(w g) (the scan's last sum, as the TPU kernel's) and one scan pass
+// for c and incl(w g) (warp_scan.cuh), ~28 B read and 4 B written per
+// sample, so memory bound as well.
 
 #include <cuda_runtime.h>
 

@@ -3,7 +3,7 @@ from .encodings import posenc_dim, positional_encoding
 from .kplanes import KPlanesFeatureField
 from .mlp import MLP, linear_apply, mlp_apply, mlp_apply_split, mlp_apply_split_per_ray
 from .registry import METHODS, make_model
-from .vanilla import ColorDecoder, OpacityDecoder
+from .vanilla import ColorDecoder, OpacityDecoder, VanillaFeatureField
 
 __all__ = [
     "positional_encoding",
@@ -19,4 +19,5 @@ __all__ = [
     "make_model",
     "ColorDecoder",
     "OpacityDecoder",
+    "VanillaFeatureField",
 ]

@@ -1,6 +1,6 @@
 """Method registry: field + the shared decoders, wired as the JAX package's
-`tinynerf_tpu/models/registry.py:make_model` does.  K-Planes and Cobafa are
-ported; the vanilla field is not yet."""
+`tinynerf_tpu/models/registry.py:make_model` does, for the vanilla, K-Planes
+and Cobafa fields."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch
 
 from .cobafa import CobafaFeatureField
 from .kplanes import KPlanesFeatureField
-from .vanilla import ColorDecoder, OpacityDecoder
+from .vanilla import ColorDecoder, OpacityDecoder, VanillaFeatureField
 
 METHODS = ("vanilla", "kplanes", "cobafa")
 
@@ -22,18 +22,24 @@ def make_model(
     field_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
     device=None,
-) -> Tuple[Union[KPlanesFeatureField, CobafaFeatureField], OpacityDecoder, ColorDecoder]:
+) -> Tuple[Union[VanillaFeatureField, KPlanesFeatureField, CobafaFeatureField], OpacityDecoder, ColorDecoder]:
     """Returns (feature_field, sigma_decoder, rgb_decoder), initialized from
     `generator` on `device`.
 
-    `field_scale` scales the table resolutions while keeping the structure.
-    K-Planes: the base resolution b = max(9, round(129 * s) | 1) and the
-    nesting (b, 2b-1, 4b-3) the fused multiscale lookup requires; 1.0 gives
-    the reference's (129, 257, 513).  Cobafa: basis grids max(8, int(r * s))
+    `field_scale` scales the field's spatial capacity while keeping its
+    structure.  Vanilla: the MLP width max(32, round(256 * s)), 8 hidden
+    layers on posenc(10).  K-Planes: the base resolution b =
+    max(9, round(129 * s) | 1) and the nesting (b, 2b-1, 4b-3) the fused
+    multiscale lookup requires; 1.0 gives the reference's (129, 257, 513).  Cobafa: basis grids max(8, int(r * s))
     for r in linspace(32, 128, 6) and a coefficient grid max(8, int(64 * s)),
     with the channels, frequencies and MLP width unchanged."""
     s = float(field_scale)
-    if method == "kplanes":
+    if method == "vanilla":
+        field = VanillaFeatureField(
+            n_freqs=10, hidden_features=max(32, int(round(256 * s))), hidden_layers=8,
+            generator=generator, device=device,
+        )
+    elif method == "kplanes":
         b = max(9, int(round(129 * s)) | 1)
         field = KPlanesFeatureField(
             feature_dim_per_plane=32, resolutions=(b, 2 * b - 1, 4 * b - 3),
@@ -47,10 +53,6 @@ def make_model(
             channels=(8, 8, 8, 4, 4, 4),
             mlp_hidden_dim=128,
             generator=generator, device=device,
-        )
-    elif method == "vanilla":
-        raise NotImplementedError(
-            "method 'vanilla' is not ported yet (ROADMAP.md Queue 1, item 11)"
         )
     else:
         raise NotImplementedError(f"Unknown method {method!r}.")

@@ -1,9 +1,14 @@
-"""The sigma and color decoders every field shares.
+"""The vanilla NeRF field and the sigma and color decoders every field shares.
 
-Counterpart of `OpacityDecoder` and `ColorDecoder` in
-`tinynerf_tpu/models/vanilla.py`; gradients come from autograd (the
-clamped exp's through `ops/trunc_exp.py`).  The vanilla feature field
-itself is not ported yet (ROADMAP.md Queue 1).
+Counterpart of `tinynerf_tpu/models/vanilla.py`; gradients come from
+autograd (the clamped exp's through `ops/trunc_exp.py`):
+
+  * `VanillaFeatureField`: posenc(n_freqs) -> MLP(hidden, layers), the
+    features the MLP's last layer (`feature_dim = hidden_features`);
+    train() takes (10, 256, 8) with He init;
+  * `OpacityDecoder`: MLP(dim -> 64 -> 1) then truncated_exp(x - 1) >= 0;
+  * `ColorDecoder`: [posenc(d) | d | features] -> MLP -> sigmoid, the
+    concat computed as a split first layer.
 """
 
 from __future__ import annotations
@@ -15,11 +20,42 @@ from torch import nn
 
 from ..ops.trunc_exp import truncated_exp
 from .encodings import posenc_dim, positional_encoding
-from .mlp import MLP, mlp_apply_split, mlp_apply_split_per_ray
+from .mlp import MLP, mlp_apply, mlp_apply_split, mlp_apply_split_per_ray
 
 
 def _pieces(features) -> tuple:
     return tuple(features) if isinstance(features, (tuple, list)) else (features,)
+
+
+class VanillaFeatureField(nn.Module):
+    # optimizer groups (train/loop.py `_decay_mask`): no tables
+    table_keys = frozenset()
+    mlp_keys = frozenset({"mlp"})
+
+    def __init__(
+        self, n_freqs: int = 10, hidden_features: int = 256, hidden_layers: int = 8,
+        generator: Optional[torch.Generator] = None, device=None,
+    ):
+        """He init (the JAX field's default `init_mode`): it keeps the
+        positional signal alive through the 10-layer stack, where the
+        reference's init decays it ~3x per layer."""
+        super().__init__()
+        self.n_freqs = n_freqs
+        self.hidden_features = hidden_features
+        self.mlp = MLP(posenc_dim(3, n_freqs), hidden_features, hidden_layers,
+                       generator=generator, device=device, init="he")
+
+    @property
+    def feature_dim(self) -> int:
+        return self.hidden_features
+
+    def apply_pieces(self, x: torch.Tensor, compute_dtype=torch.float32) -> tuple:
+        """x: [..., 3] in [-1, 1] -> ([..., feature_dim],), the decoders'
+        single piece."""
+        return (mlp_apply(self.mlp.layers(), positional_encoding(x, self.n_freqs), compute_dtype),)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        return self.apply_pieces(x, compute_dtype)[0]
 
 
 class OpacityDecoder(nn.Module):

@@ -60,6 +60,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
     return lib
 
 
+def png_size(path: Path) -> Optional[Tuple[int, int]]:
+    """(w, h) of a PNG from its header; None if the loader is unavailable
+    or the file is not a PNG it reads."""
+    lib = get_lib()
+    if lib is None or not str(path).lower().endswith(".png"):
+        return None
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.tn_png_dims(str(path).encode(), ctypes.byref(w), ctypes.byref(h)):
+        return None
+    return w.value, h.value
+
+
 def load_images(
     paths: List[Path], bg_color: Tuple[float, float, float], n_threads: int = 8
 ) -> Optional[np.ndarray]:

@@ -4,10 +4,9 @@ Counterpart of `tinynerf_tpu/train/config.py`, field for field, so one set
 of flags drives both packages; the JAX file documents each field.  The
 port runs on one device: `train` refuses the sharding fields
 (`shard_tables`, `shard_bwd`); `march` and `skip_steps` pick the march as
-in the JAX package.  `remat_field` (recompute the field's activations in
-the backward; the JAX package turns it on for the vanilla method only) is
-not ported: True raises, None and False run without it, as every ported
-method does in the JAX package by default.
+in the JAX package.  `remat_field` recomputes the field's activations in
+the backward: True / False set it, None takes the JAX package's rule (on
+for the vanilla method above 2,000,000 samples a step; `build_renderer`).
 """
 
 from __future__ import annotations
@@ -15,12 +14,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
-
-
-REMAT_NOT_PORTED = (
-    "remat_field=True (--remat on) is not ported yet: it comes with the vanilla "
-    "field (ROADMAP.md Queue 1, 'The vanilla field'); use None / False (--remat auto / off)"
-)
 
 
 @dataclass
@@ -78,10 +71,6 @@ class TrainConfig:
     profile_count: int = 5
     eval_render: str = "packed"  # packed | dense
     eval_samples_per_ray: int = 64
-
-    def __post_init__(self):
-        if self.remat_field:
-            raise NotImplementedError(REMAT_NOT_PORTED)
 
     @property
     def effective_skip_steps(self) -> int:

@@ -42,8 +42,8 @@ from ..convert import (
     tree_map,
     tree_map_with_path,
 )
-from ..core.contraction import ContractionAABB
-from ..core.marching import RayMarcherAABB
+from ..core.contraction import ContractionAABB, ContractionMip360
+from ..core.marching import RayMarcherAABB, RayMarcherUnbounded
 from ..core.occupancy import OccupancyGrid, OccupancyState
 from ..core.renderer import NerfRenderer
 from ..data.pipeline import PoseSet, RayPool, sample_ray_batch
@@ -64,19 +64,22 @@ def build_renderer(
     generator: Optional[torch.Generator] = None,
 ) -> NerfRenderer:
     """Wire field/decoders/marcher/contraction/occupancy from config.
-    Parameters are drawn from `generator` (default: seeded with cfg.seed)."""
-    if cfg.scene_type != "aabb":
-        raise NotImplementedError(
-            f"scene_type {cfg.scene_type!r} is not ported yet (ROADMAP.md Queue 1, "
-            "'Unbounded scenes and nerfstudio')"
-        )
+    Parameters are drawn from `generator` (default: seeded with cfg.seed).
+    An unbounded scene spans its disparity grid over `scene_scale`."""
+    if cfg.scene_type == "unbounded":
+        marcher = RayMarcherUnbounded(cfg.n_samples, near=cfg.near, far=1e5, uniform_range=scene_scale)
+        contraction = ContractionMip360(order=float("inf"))
+    elif cfg.scene_type == "aabb":
+        marcher = RayMarcherAABB(cfg.aabb, n_samples=cfg.n_samples, near=cfg.near)
+        contraction = ContractionAABB(cfg.aabb)
+    else:
+        raise NotImplementedError(f"Unknown scene type {cfg.scene_type!r}.")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     field_, sigma_dec, rgb_dec = make_model(
         cfg.method, fwd_clamp=cfg.fwd_clamp, field_scale=cfg.field_scale,
         generator=generator, device=device,
     )
-    marcher = RayMarcherAABB(cfg.aabb, n_samples=cfg.n_samples, near=cfg.near)
     occupancy = OccupancyGrid.cube(
         cfg.occupancy_res, marcher.step_size, threshold=cfg.occupancy_threshold,
         decay=cfg.occ_decay, interp=cfg.occupancy_interp,
@@ -86,12 +89,16 @@ def build_renderer(
         sigma_decoder=sigma_dec,
         rgb_decoder=rgb_dec,
         marcher=marcher,
-        contraction=ContractionAABB(cfg.aabb),
+        contraction=contraction,
         occupancy=occupancy,
         bg_color=tuple(float(c) for c in bg_color) if bg_color is not None else None,
         early_termination=cfg.early_termination,
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
         skip_steps=min(cfg.effective_skip_steps, cfg.n_samples),
+        # the JAX rule: only the wide vanilla MLP at caps whose activations
+        # approach the device memory needs it
+        remat_field=(cfg.remat_field if cfg.remat_field is not None
+                     else cfg.method == "vanilla" and cfg.sample_cap > 2_000_000),
     )
 
 

@@ -1,15 +1,19 @@
-"""Generated scenes for tests and chip runs, built in memory.
+"""Generated scenes for tests and chip runs.
 
-Counterpart of `tinynerf_tpu/utils/fixtures.py`: the three-lambertian-
-spheres scene (ray-traced analytically, camera poses drawn from a seeded
-numpy generator on a ring around the origin) returned as `NerfData` or a
-`PoseSet` directly, with no files (a `RayPool` for training takes the
-`NerfData`), and `make_shell_occupancy`, the converged-like
-occupancy state (a thin spherical shell) that the JAX package's bench
-renders against.
+Counterpart of `tinynerf_tpu/utils/fixtures.py`: two analytic scenes, a
+soft view-dependent blob and three lambertian spheres (camera poses drawn
+from a seeded numpy generator on a ring around the origin), written to disk
+as a Blender-synthetic folder (`make_synthetic_scene`, RGBA PNGs by the
+port's own writer, no Pillow) or, for the spheres, returned as `NerfData`
+or a `PoseSet` directly, with no files; and `make_shell_occupancy`, the
+converged-like occupancy state (a thin spherical shell) that the JAX
+package's bench renders against.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ import torch
 from ..core.occupancy import OccupancyGrid, OccupancyState
 from ..data.formats import Intrinsics, NerfData
 from ..data.pipeline import PoseSet
+from .image import write_png
 
 CAMERA_ANGLE_X = 0.6911112070083618
 
@@ -32,6 +37,25 @@ def look_at_matrix(eye: np.ndarray) -> np.ndarray:
     m = np.eye(4)
     m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, true_up, forward, eye
     return m
+
+
+def render_blob(cam: np.ndarray, res: int) -> np.ndarray:
+    """Analytic [res, res, 4] uint8 RGBA image: alpha falls off with each
+    ray's closest distance to a ball at the origin; color from the ray's
+    direction."""
+    focal = res / (2.0 * np.tan(0.5 * CAMERA_ANGLE_X))
+    xs = (np.arange(res) - res / 2.0 + 0.5) / focal
+    ys = -(np.arange(res) - res / 2.0 + 0.5) / focal
+    gx, gy = np.meshgrid(xs, ys, indexing="xy")
+    dirs = np.stack([gx, gy, -np.ones_like(gx)], -1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    dirs = dirs @ cam[:3, :3].T
+    o = cam[:3, 3]
+    t_close = -(dirs @ o)
+    dist = np.linalg.norm(o[None, None, :] + dirs * t_close[..., None], axis=-1)
+    alpha = np.clip(1.2 - dist / 0.8, 0.0, 1.0)
+    img = np.concatenate([0.5 + 0.5 * dirs, alpha[..., None]], -1)
+    return (img * 255).astype(np.uint8)
 
 
 # three lambertian spheres (center, radius, base rgb) inside the [-1.5,1.5]^3 box
@@ -73,6 +97,31 @@ def render_spheres(cam: np.ndarray, res: int) -> np.ndarray:
     alpha = np.isfinite(best_t).astype(np.float64)
     img = np.concatenate([rgb, alpha[..., None]], -1)
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+_RENDERERS = {"blob": render_blob, "spheres": render_spheres}
+
+
+def make_synthetic_scene(root: Path, n_train: int = 2, n_test: int = 2, res: int = 64,
+                         kind: str = "blob") -> Path:
+    """Write a Blender-synthetic scene under `root`: `{split}/r_{i}.png` and
+    `transforms_{split}.json` for train, val and test (val and test share
+    `n_test`), the same files as the JAX package's.  kind: "blob" (soft,
+    the tests' default) or "spheres" (solid, fittable to a high PSNR)."""
+    root = Path(root)
+    render = _RENDERERS[kind]
+    rng = np.random.default_rng(0)
+    for split, n in (("train", n_train), ("val", n_test), ("test", n_test)):
+        frames = []
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            theta = rng.uniform(0, 2 * np.pi)
+            cam = look_at_matrix(4.0 * np.array([np.cos(theta), np.sin(theta), 0.5 + 0.2 * rng.uniform()]))
+            write_png(render(cam, res), root / split / f"r_{i}.png")
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": cam.tolist()})
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, f)
+    return root
 
 
 def make_spheres_data(n_views: int = 2, res: int = 800, seed: int = 0) -> NerfData:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one GPU (tinynerf_tpu_torch).
 
-    python3 tools/profile_serving_torch.py [--chunks 20] [--out profile.txt]
+    python3 tools/profile_serving_torch.py [--method vanilla|kplanes|cobafa]
+        [--scene_type aabb|unbounded] [--chunks 20] [--out profile.txt]
 
-Builds the full-width K-Planes renderer (TrainConfig defaults, seeded random
-parameters, the shell occupancy), takes the rays of one 800x800 view of the
+Builds the full-width renderer of `--method` on the AABB or the unbounded
+marcher (TrainConfig defaults, seeded random parameters, the shell
+occupancy; an unbounded marcher spans its grid over the scene scale of two
+generated views), takes the rays of the first 800x800 view of the
 generated spheres scene, and renders chunks of 2048 rays through the packed
 path (cap 2048 x 64) on the skip march (what `render_only` serves with;
-64 rounds, from the shell's skip grid) and on the dense march, and through
-the dense path.  Rays the packed path flags are not re-rendered here (the
+64 rounds for AABB, 96 unbounded, from the shell's skip grid) and on the
+dense march, and through the dense path.  Rays the packed path flags are not re-rendered here (the
 report gives their count).  For each path it reports the
 host-clock time per chunk (synchronized), the device time the profiler saw
 (sum of kernel times), the device's busy share of the window, and the
@@ -49,6 +52,7 @@ def _kernel_table(prof, top: int):
 
 def profile_path(name, fn, chunks, n_chunks: int, top: int) -> str:
     """`fn(o, d)` returns a RenderOutput."""
+    torch.cuda.reset_peak_memory_stats()
     for o, d in chunks[:3]:  # warm up
         fn(o, d)
     torch.cuda.synchronize()
@@ -71,7 +75,8 @@ def profile_path(name, fn, chunks, n_chunks: int, top: int) -> str:
         f"under the profiler {prof_wall / len(work) * 1e3:.3f} ms/chunk, "
         f"device kernels {dev_us / 1e3 / len(work):.3f} ms/chunk, "
         f"device busy {dev_us / 1e6 / prof_wall:.1%}; {flagged / len(work):.1f} rays/chunk flagged for the "
-        f"dense fallback, {incomplete / len(work):.1f} of them out of skip-march rounds",
+        f"dense fallback, {incomplete / len(work):.1f} of them out of skip-march rounds; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
     ]
     for us, calls, key in rows:
         lines.append(f"  {us / 1e3 / len(work):8.3f} ms/chunk {us / dev_us:6.1%} "
@@ -83,6 +88,8 @@ def profile_path(name, fn, chunks, n_chunks: int, top: int) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--method", choices=("vanilla", "kplanes", "cobafa"), default="kplanes")
+    ap.add_argument("--scene_type", choices=("aabb", "unbounded"), default="aabb")
     ap.add_argument("--chunks", type=int, default=20)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", type=Path, default=None, help="also write the report here")
@@ -95,8 +102,8 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    cfg = TrainConfig()
-    pose_set = make_spheres_pose_set(n_views=1, res=800, seed=0)
+    cfg = TrainConfig(method=args.method, scene_type=args.scene_type)
+    pose_set = make_spheres_pose_set(n_views=2, res=800, seed=0)
     renderer = build_renderer(cfg, pose_set.scene_scale, pose_set.bg_color, device="cuda",
                               generator=torch.Generator().manual_seed(0))
     occ = make_shell_occupancy(renderer.occupancy, device="cuda")
@@ -111,7 +118,7 @@ def main() -> None:
     with torch.inference_mode():
         grid = renderer.skip_grid(occ)
         report = [
-            f"card: {card}",
+            f"card: {card}; method {args.method}, scene type {args.scene_type}",
             profile_path(f"packed, skip march ({renderer.skip_steps} rounds)",
                          lambda o, d: renderer.render_packed(occ, o, d, cap, rgb_dir_branch="ray",
                                                              march="skip", skip_grid=grid),

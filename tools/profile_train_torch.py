@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one GPU (tinynerf_tpu_torch).
 
-    python3 tools/profile_train_torch.py [--method kplanes|cobafa] [--march auto|dense|skip]
-        [--steps 10] [--out profile.txt]
+    python3 tools/profile_train_torch.py [--method vanilla|kplanes|cobafa]
+        [--scene_type aabb|unbounded] [--march auto|dense|skip] [--steps 10] [--out profile.txt]
 
 Builds the full-width trainer of `--method` (TrainConfig defaults: batch
-2048 rays, 400 samples, cap 819,200, bf16 compute; K-Planes planes
-129/257/513 x 3 x 32, or Cobafa basis grids 32..128^3 and coefficients
-64^3 x 6 with its 7-layer field MLP; seeded random parameters) on four
-generated 800x800 views of the spheres scene, and profiles train steps in
-two occupancy states:
+2048 rays, 400 samples, cap 819,200, bf16 compute; the vanilla field's
+posenc(10) into 10 layers of 256, K-Planes planes 129/257/513 x 3 x 32, or
+Cobafa basis grids 32..128^3 and coefficients 64^3 x 6 with its 7-layer
+field MLP; seeded random parameters) on the AABB or the unbounded marcher
+(`--scene_type`: the disparity grid over the views' scene scale and the
+Mip-360 contraction) on four generated 800x800 views of the spheres scene,
+and profiles train steps in two occupancy states:
 
   * "early": the all-occupied grid a run starts from (every marched sample
     in the box is kept, so the cap holds ~1-2 buckets of rays);
@@ -23,7 +25,7 @@ march, the host-clock time per step (synchronized), the device
 time the profiler saw (sum of kernel times), the device's busy share of the
 window, the kernels that took the most device time, and the share of the
 port's own CUDA kernels (`csrc/*.cu`: the weights, sort, accumulation,
-oct and quad build and skip march kernels, by name), to stdout and, with --out, to a file.  Needs a
+oct and quad build and both skip march kernels, by name), to stdout and, with --out, to a file.  Needs a
 CUDA device.
 """
 
@@ -49,7 +51,7 @@ from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
 PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "radix_",
-                "windowed_", "oct_build", "quad_build", "skip_march")
+                "windowed_", "oct_build", "quad_build", "skip_march_kernel", "skip_march_unbounded")
 
 
 def _kernel_table(prof):
@@ -105,7 +107,8 @@ def profile_state(name, step, n_steps: int, top: int, bucket: int, cap: int, mar
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--method", choices=("kplanes", "cobafa"), default="kplanes")
+    ap.add_argument("--method", choices=("vanilla", "kplanes", "cobafa"), default="kplanes")
+    ap.add_argument("--scene_type", choices=("aabb", "unbounded"), default="aabb")
     ap.add_argument("--march", choices=("auto", "dense", "skip"), default="auto")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
@@ -119,13 +122,13 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    cfg = TrainConfig(method=args.method, march=args.march)
+    cfg = TrainConfig(method=args.method, scene_type=args.scene_type, march=args.march)
     pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
     renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda",
                               generator=torch.Generator().manual_seed(0))
     optimizer = make_optimizer(cfg, renderer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = [f"card: {card}; method {args.method}, "
+    report = [f"card: {card}; method {args.method}, scene type {args.scene_type}, "
               f"{sum(p.numel() for p in renderer.parameters())} parameters"]
     print(report[0])
     for name, occ in (("early", renderer.occupancy.init_state("cuda")),
