@@ -110,10 +110,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ~1e-3 of the largest gradient; tests/test_torch_kernels.py holds those
    deltas at 1e-5 with densities that end the rays early).
 
-Each of phases 3-10 sets every kernel's launch count to 0 just before it
-drives its path and reads the counts just after; the comparisons with the
-plain versions are not counted.  The last two lines are a JSON record of
-the kernels (launches summed over phases 3-10, and by phase) and
+11. data parallelism over `torch.distributed` on the one card (NCCL refuses
+   two ranks on one device): (a) two spawned ranks on cuda:0 in a gloo
+   group, K-Planes at full width; rank 0 takes the ungrouped deterministic
+   step (2048 rays drawn over four generated 800x800 views, f32 compute),
+   then both take the grouped step replicated, with shard_tables and with
+   shard_tables + shard_bwd from the same parameters, each held against the
+   ungrouped one (loss 1e-5 relative, gradients rtol 1e-4 / atol 1e-6,
+   updated parameters the same plus the difference Adam's map makes of the
+   two gradients near 0); then `train()` with shard_tables for 16 steps,
+   with ms/step and peak memory per rank, and kernels 1, 4 and 5 must have
+   launched once per step and 7 nine times per step on both ranks; (b) one
+   NCCL rank in this process: the grouped step against the ungrouped one
+   with the training default bf16 table-gradient payload (loss 1e-6
+   relative, gradients and parameters as in (a)) and with the f32 payload
+   (each gradient leaf 1e-5 of its max), 4 `train()` steps through the
+   group (the same launches per step), then `render_only` from their
+   checkpoint over the group, packed and dense, against `render_only`
+   alone (max abs 1e-5).
+
+Each of phases 3-11 sets every kernel's launch count to 0 just before it
+drives its path and reads the counts just after (phase 11(a) in each
+rank's process, around `train()`); the comparisons with the plain
+versions and phase 11's deterministic and ungrouped steps are not
+counted.  The last two lines are a JSON
+record of the kernels (launches summed over phases 3-11, and by phase) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
 """
@@ -1255,6 +1276,293 @@ def run_slice(tmp: str, card: str, method: str, scene_type: str = "aabb", pose_s
     return launches
 
 
+# phase 11, data parallelism on the one card: the group's deterministic step
+# against the ungrouped one on the same global batch (f32 compute).  Two
+# gloo ranks: tests/test_zero.py:234-256's limits (loss 1e-5 relative;
+# gradients and updated parameters rtol 1e-4, atol 1e-6); one NCCL rank:
+# the loss 1e-6 relative, and the gradients and parameters at those limits
+# with the training default bf16 table-gradient payload, each gradient leaf
+# at 1e-5 of its max with the f32 payload (a bf16 rounding of a sample's
+# cotangent may go either way between two runs of one step).  Adam's
+# first step moves a parameter by lr * a / (|a| + eps), a the gradient with
+# its weight decay term: about lr times the sign of a however small a is,
+# and in proportion to a where |a| nears eps = 1e-15.  Where the two steps'
+# gradients, equal within the gradient limits, differ in sign (a sum of
+# terms that nearly cancel, taken in another order) or lie near eps, the
+# parameters may differ by up to 2 lr.  So a parameter is held to the
+# limits plus the difference Adam's map makes of the two gradients it was
+# given, lr * |a1 / (|a1| + eps) - a2 / (|a2| + eps)|, which is 0 to f32
+# rounding wherever |a| >> eps; those the limits alone would fail are counted
+DP_LOSS_RTOL, DP_RTOL, DP_ATOL = 1e-5, 1e-4, 1e-6
+NCCL_LOSS_RTOL, NCCL_GRAD_RTOL_OF_MAX = 1e-6, 1e-5
+DP_VARIANTS = {"replicated": {}, "shard_tables": dict(shard_tables=True),
+               "shard_tables + shard_bwd": dict(shard_tables=True, shard_bwd=True)}
+DP_TRAIN_STEPS, NCCL_TRAIN_STEPS = 16, 4
+# the launches of each rank's K-Planes train() step at least: kernels 1
+# (forward and backward), 4 and 5 once, 7 once per plane (9)
+DP_STEP_LAUNCHES = {"segscan": 1, "segscan_bwd": 1, "sort": 1, "accumulate": 1, "quad_build": 9}
+# sharded serving (render_only over one NCCL rank) against render_only alone
+DP_SERVE_ATOL = 1e-5
+
+
+def _check_train_launches(label: str, counts: dict, steps: int) -> None:
+    for name, per_step in DP_STEP_LAUNCHES.items():
+        if counts[name] < per_step * steps:
+            raise AssertionError(f"{label}: kernel {name} launched {counts[name]} times in {steps} train() "
+                                 f"steps, fewer than {per_step} per step")
+
+
+def _dp_world(tmp: str):
+    """Full-width K-Planes at f32 compute, four generated 800x800 views on
+    the card, and the 2048-ray global batch drawn over them."""
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+    from tinynerf_tpu_torch.utils import make_spheres_data
+
+    cfg = TrainConfig(method="kplanes", output=tmp, steps=DP_TRAIN_STEPS, seed=0, compute_dtype="float32")
+    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(7)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:cfg.batch_size]
+    batch = tuple(a[rays].contiguous() for a in pool.arrays())
+    renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda")
+    return cfg, pool, batch, renderer
+
+
+def _dp_step(renderer, cfg, batch, start, group=None) -> dict:
+    """One deterministic step from the parameters `start`: its loss, its
+    gradients and the updated parameters (JAX layout order), and without a
+    group the parameters before it."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+    from tinynerf_tpu_torch.parallel import shard_rays
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+
+    with torch.no_grad():
+        for p, p0 in zip(renderer.parameters(), start):
+            p.copy_(p0)
+    opt = make_optimizer(cfg, renderer, group)
+    before = [p.detach().clone() for p in opt.params] if group is None else None
+    decay = dict(decay=opt.decay, weight_decay=opt.weight_decay)
+    step = make_train_step(renderer, opt, cfg, cfg.batch_size, deterministic=True, group=group)
+    rays = shard_rays(group, *batch) if group is not None else batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(renderer.occupancy.init_state("cuda"), *rays)
+    torch.cuda.synchronize()
+    return dict(loss=float(m["loss"]), ms=(time.perf_counter() - t0) * 1e3,
+                paths=[path for path, _ in tree_leaves_with_path(m["grads"])],
+                grads=[g.detach().clone() for _, g in tree_leaves_with_path(m["grads"])],
+                params=[p.detach().clone() for p in opt.params], before=before, **decay)
+
+
+def _dp_compare(ours: dict, ref: dict, lr: float, eps: float) -> dict:
+    """Loss and every gradient against the reference step at DP_RTOL /
+    DP_ATOL, and every updated parameter at those limits plus the difference
+    Adam's map makes of the two steps' gradients (see DP_RTOL): the worst
+    excess over the bound (<= 0 passes), the elements over it, and the
+    parameters over the plain limits, with the largest difference in lr."""
+    def adam_dir(g, p0, decayed):
+        a = g + ref["weight_decay"] * p0 if decayed else g
+        return a / (a.abs() + eps)
+
+    g_worst, g_over, p_worst, p_over, p_adam, adam_lr = -np.inf, 0, -np.inf, 0, 0, 0.0
+    for go, gr in zip(ours["grads"], ref["grads"]):
+        e = (go - gr).abs() - (DP_ATOL + DP_RTOL * gr.abs())
+        g_worst, g_over = max(g_worst, float(e.max())), g_over + int((e > 0).sum())
+    for x, y, go, gr, p0, dec in zip(ours["params"], ref["params"], ours["grads"], ref["grads"], ref["before"],
+                                     ref["decay"]):
+        plain = (x - y).abs() - (DP_ATOL + DP_RTOL * y.abs())
+        adam = lr * (adam_dir(go, p0, dec) - adam_dir(gr, p0, dec)).abs()
+        e = plain - adam * (1.0 + 1e-3)
+        p_worst, p_over = max(p_worst, float(e.max())), p_over + int((e > 0).sum())
+        over = plain > 0
+        p_adam += int(over.sum())
+        if over.any():
+            adam_lr = max(adam_lr, float((x - y).abs()[over].max()) / lr)
+    return dict(loss_rel=abs(ours["loss"] - ref["loss"]) / abs(ref["loss"]), grad_excess=g_worst,
+                grads_over=g_over, param_excess=p_worst, params_over=p_over, params_adam=p_adam,
+                params_adam_max_lr=adam_lr)
+
+
+def dp_worker(rank: int, rdv: str, tmp: str) -> None:
+    """Phase 11(a), one of two ranks on cuda:0 in a gloo group: rank 0 first
+    takes the ungrouped step (the reference); both ranks take the grouped
+    step of each variant from the same parameters, then `train()` with
+    shard_tables for DP_TRAIN_STEPS steps.  Writes the launch counts of its
+    `train()` (the comparison steps' launches are not counted), step times,
+    peak memory and rank 0's comparisons to tmp/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from tinynerf_tpu_torch.parallel import wrap_default_group
+    from tinynerf_tpu_torch.train import TrainConfig, lr_schedule, train
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=2)
+    try:
+        group = wrap_default_group("cuda:0")
+        cfg, pool, batch, renderer = _dp_world(f"{tmp}/rank{rank}")
+        start = [p.detach().clone() for p in renderer.parameters()]
+        ref = _dp_step(renderer, cfg, batch, start) if rank == 0 else None
+        res = {"rank": rank, "steps": {}}
+        lr, eps = float(lr_schedule(cfg)(0)), cfg.adam_eps
+        for name, kw in DP_VARIANTS.items():
+            c = dataclasses.replace(cfg, **kw)
+            ours = _dp_step(renderer, c, batch, start, group)
+            res["steps"][name] = dict(ms=ours["ms"], **(_dp_compare(ours, ref, lr, eps) if ref is not None else {}))
+            del ours
+        del ref, start
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = TrainConfig(method="kplanes", output=f"{tmp}/train", steps=DP_TRAIN_STEPS, seed=0,
+                           shard_tables=True)
+        zero_counts()
+        out_train = train(tcfg, pool, device="cuda:0", group=group)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        losses = [m.loss for m in out_train["train_metrics"]]
+        res.update(train_ms=out_train["elapsed_s"] / DP_TRAIN_STEPS * 1e3, losses=losses,
+                   rays_per_sec_per_chip=out_train["rays_per_sec_per_chip"],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches)
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_data_parallel(card: str) -> dict:
+    """Phase 11: (a) two gloo ranks on the card, spawned; (b) one NCCL rank
+    in this process: its steps, `train()` and sharded serving.  Returns
+    part -> kernel -> launches."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tinynerf_tpu_torch.parallel import wrap_default_group
+    from tinynerf_tpu_torch.train import InferStats, TrainConfig, lr_schedule, render_only, train
+    from tinynerf_tpu_torch.utils import make_spheres_pose_set
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a rank that raises makes join() raise; each join() returns when
+        # one more rank has exited
+        ctx = mp.start_processes(dp_worker, args=(f"{tmp}/rdv", tmp), nprocs=2, join=False,
+                                 start_method="spawn")
+        while not ctx.join():
+            pass
+        results = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.json") as f:
+                results.append(json.load(f))
+    for res in results:
+        r = res["rank"]
+        print(f"phase 11(a) rank {r} of 2 (gloo, both on cuda:0): train() shard_tables {DP_TRAIN_STEPS} steps, "
+              f"{res['train_ms']:.2f} ms/step, {res['rays_per_sec_per_chip']:,.0f} rays/s per rank used by the "
+              f"loss, peak device memory {res['peak_gb']:.3f} GB, loss {res['losses'][0]:.5f} -> "
+              f"{res['losses'][-1]:.5f}; grouped deterministic steps "
+              + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in res["steps"].items())
+              + f" (one cold step each; two processes share the card over a host transport) [{card}]")
+        launches[f"11a_rank{r}"] = res["launches"]
+        print(f"phase 11(a) rank {r} train() launches: {res['launches']}")
+        _check_train_launches(f"phase 11(a) rank {r}", res["launches"], DP_TRAIN_STEPS)
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"phase 11(a) rank {r}: train() losses are not finite")
+    for name, cmp in results[0]["steps"].items():
+        print(f"phase 11(a) {name}, 2 ranks vs the ungrouped step [2048 rays x 400, f32]: loss relative "
+              f"difference {cmp['loss_rel']:.3e} (tol {DP_LOSS_RTOL:g}); gradients worst excess over "
+              f"rtol {DP_RTOL:g} / atol {DP_ATOL:g} {cmp['grad_excess']:.3e} ({cmp['grads_over']} elements "
+              f"over); updated parameters, the limits plus Adam's map of the gradients' difference: worst "
+              f"excess {cmp['param_excess']:.3e} ({cmp['params_over']} over); {cmp['params_adam']} of them over "
+              f"the limits alone, by at most {cmp['params_adam_max_lr']:.6f} lr")
+        if not (cmp["loss_rel"] <= DP_LOSS_RTOL and cmp["grads_over"] == 0 and cmp["params_over"] == 0):
+            raise AssertionError(f"phase 11(a) {name}: the 2-rank step disagrees with the ungrouped step")
+
+    # (b) one NCCL rank: the grouped code path on the card's own transport
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        group = wrap_default_group("cuda:0")
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, pool, batch, renderer = _dp_world(tmp)
+            start = [p.detach().clone() for p in renderer.parameters()]
+            lr, eps = float(lr_schedule(cfg)(0)), cfg.adam_eps
+            # the training default, the bf16 table-gradient payload
+            ref = _dp_step(renderer, cfg, batch, start)
+            ours = _dp_step(renderer, cfg, batch, start, group)
+            cmp = _dp_compare(ours, ref, lr, eps)
+            cmp["ms"], cmp["ref_ms"] = ours["ms"], ref["ms"]
+            del ours, ref
+            # the f32 payload, which carries the last bits a bf16 rounding drops
+            renderer.field.bwd_impl = "sorted"
+            ref = _dp_step(renderer, cfg, batch, start)
+            ours = _dp_step(renderer, cfg, batch, start, group)
+            del renderer, start
+            loss_rel = abs(ours["loss"] - ref["loss"]) / abs(ref["loss"])
+            errs = [_rel_err(a, b) for a, b in zip(ours["grads"], ref["grads"])]
+            worst = int(np.argmax(errs))
+            print(f"phase 11(b) 1 NCCL rank vs the ungrouped step [2048 rays x 400, f32, bf16 table-gradient "
+                  f"payload]: loss relative difference {cmp['loss_rel']:.3e} (tol {NCCL_LOSS_RTOL:g}); gradients "
+                  f"worst excess over rtol {DP_RTOL:g} / atol {DP_ATOL:g} {cmp['grad_excess']:.3e} "
+                  f"({cmp['grads_over']} elements over); updated parameters, the limits plus Adam's map of the "
+                  f"gradients' difference: worst excess {cmp['param_excess']:.3e} ({cmp['params_over']} over); "
+                  f"{cmp['params_adam']} of them over the limits alone, by at most {cmp['params_adam_max_lr']:.6f} "
+                  f"lr; {cmp['ms']:.1f} ms against {cmp['ref_ms']:.1f} ungrouped (one cold step each)")
+            print(f"phase 11(b) 1 NCCL rank vs the ungrouped step [2048 rays x 400, f32, f32 table-gradient "
+                  f"payload]: loss relative difference {loss_rel:.3e} (tol {NCCL_LOSS_RTOL:g}), gradients "
+                  f"max|diff| / max {errs[worst]:.3e} at {ref['paths'][worst]} (tol {NCCL_GRAD_RTOL_OF_MAX:g})")
+            if not (cmp["loss_rel"] <= NCCL_LOSS_RTOL and cmp["grads_over"] == 0 and cmp["params_over"] == 0):
+                raise AssertionError("phase 11(b): the NCCL-grouped step disagrees with the ungrouped step "
+                                     "(bf16 payload)")
+            if not (loss_rel <= NCCL_LOSS_RTOL and errs[worst] <= NCCL_GRAD_RTOL_OF_MAX):
+                raise AssertionError("phase 11(b): the NCCL-grouped step disagrees with the ungrouped step "
+                                     "(f32 payload)")
+            del ours, ref
+            torch.cuda.empty_cache()
+            tcfg = TrainConfig(method="kplanes", output=f"{tmp}/train", steps=NCCL_TRAIN_STEPS, seed=0)
+            zero_counts()
+            out = train(tcfg, pool, device="cuda:0", group=group)
+            launches["11b_nccl"] = read_counts("phase 11(b) 1 NCCL rank train()", DP_STEP_LAUNCHES)
+            _check_train_launches("phase 11(b) 1 NCCL rank", launches["11b_nccl"], NCCL_TRAIN_STEPS)
+            losses = [m.loss for m in out["train_metrics"]]
+            if len(losses) != NCCL_TRAIN_STEPS or not np.isfinite(losses).all():
+                raise AssertionError(f"phase 11(b): train() over the NCCL group gave {losses}")
+            print(f"phase 11(b) train() over 1 NCCL rank, {NCCL_TRAIN_STEPS} steps: "
+                  f"{out['elapsed_s'] / NCCL_TRAIN_STEPS * 1e3:.2f} ms/step (the occupancy sweep included), "
+                  f"losses {np.round(losses, 5).tolist()} [{card}]")
+            del out, pool
+            torch.cuda.empty_cache()
+            # sharded serving: render_only over the group from train()'s
+            # checkpoint, packed on the skip march and dense, against
+            # render_only alone
+            view = make_spheres_pose_set(n_views=1, res=800, seed=1)
+            for render, kernels in (("packed", march_kernels("kplanes", "aabb", "skip")),
+                                    ("dense", ("weights_dense",) + FIELD_KERNELS["kplanes"])):
+                rcfg = dataclasses.replace(tcfg, eval_render=render)
+                alone, grouped = InferStats(), InferStats()
+                render_only(rcfg, view, name=f"{render}_alone", device="cuda:0", stats=alone)
+                zero_counts()
+                render_only(rcfg, view, name=f"{render}_group", stats=grouped, group=group)
+                launches[f"11b_nccl_serve_{render}"] = read_counts(
+                    f"phase 11(b) 1 NCCL rank render_only {render}", kernels)
+                img, ref_img = grouped.images[0], alone.images[0]
+                e = float(np.abs(img - ref_img).max())
+                print(f"phase 11(b) render_only {render} over 1 NCCL rank vs alone, one 800x800 view: max abs "
+                      f"{e:.3e} (tol {DP_SERVE_ATOL:g}); {grouped.seconds[0]:.3f} s against "
+                      f"{alone.seconds[0]:.3f} s alone [{card}]")
+                if img.shape != (800, 800, 3) or not np.isfinite(img).all() or not e <= DP_SERVE_ATOL:
+                    raise AssertionError(f"phase 11(b): render_only {render} over the NCCL group disagrees")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("segscan", "segscan.compute_weights_packed", "segscan.cu", "tinynerf_tpu/ops/segscan.py:48"),
     ("weights_dense", "weights_dense.compute_weights_dense", "weights_dense.cu",
@@ -1328,6 +1636,9 @@ def main() -> None:
         kern.update(check_skip_march(dev))
         kern.update(check_skip_march_unbounded(dev, ns_root))
         launches = run_phases(card, ns_root)
+        t0 = time.perf_counter()
+        launches.update(run_data_parallel(card))
+        print(f"phase 11 (data parallel): {time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}", "replaces": replaces,

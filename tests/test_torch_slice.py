@@ -151,7 +151,7 @@ def test_cli_render_only(world, scene, tmp_path):
     """`python -m tinynerf_tpu_torch --render_only` on the CPU, of a K-Planes
     and of a vanilla checkpoint; `--datatype nerfstudio` reads the scene as
     a nerfstudio capture (this one has no `transforms.json`); the sharding
-    flags still raise, naming ROADMAP.md (training is in
+    flags render as without them on one rank (training is in
     test_torch_train_slice.py)."""
     exp = tmp_path / "exp"
     r = world["renderers"]["float32"]
@@ -171,8 +171,10 @@ def test_cli_render_only(world, scene, tmp_path):
     assert (vanilla / "render_0001.png").exists() and (vanilla / "metrics_render.json").exists()
     with pytest.raises(FileNotFoundError, match="transforms.json"):
         cli_main([a if a != "synthetic" else "nerfstudio" for a in base] + ["--render_only"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(base + ["--shard_tables", "--device", "cpu"])
+    # the sharding flags on one rank change nothing (as on a one-device JAX mesh)
+    (exp / "render_0000.png").unlink()
+    cli_main(base + ["--render_only", "--shard_tables", "--shard_bwd", "--device", "cpu"])
+    assert (exp / "render_0000.png").exists()
     # a checkpoint whose occupancy grid does not fit the config is refused
     save_checkpoint(exp, 2, {"params": params_to_numpy(r), "occ_state": occ_state_to_numpy(world["tocc"])})
     with pytest.raises(ValueError, match="occupancy"):

@@ -237,7 +237,8 @@ def test_cli_trains_and_renders(world, scene, tmp_path):
     directory (0 steps: the final render and checkpoint), then --resume
     trains from a step-1 checkpoint of the CLI's 128^3 occupancy grid (no
     occupancy sweep falls in steps 1-2), then --render_only renders it;
-    `--method vanilla` trains as well, and `--shard_tables` raises."""
+    `--method vanilla` trains as well, and `--shard_tables` on one rank
+    trains as without it (the JAX package's one-device no-op)."""
     base = ["--data", str(scene), "--datatype", "synthetic", "--method", "kplanes",
             "--batch_size", "64", "--n_samples", "32", "--field_scale", "0.07", "--device", "cpu"]
     cli_main(base + ["--output", str(tmp_path / "runs"), "--steps", "0"])
@@ -260,8 +261,11 @@ def test_cli_trains_and_renders(world, scene, tmp_path):
                                                                     "--steps", "0"])
     (new,) = (tmp_path / "vanilla").iterdir()
     assert new.name.endswith("_vanilla_aabb_32") and (new / "ckpt_0.pkl").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(base + ["--shard_tables", "--output", str(tmp_path / "runs"), "--steps", "1"])
+    # on one rank --shard_tables changes nothing but the checkpoint's meta
+    cli_main(base + ["--shard_tables", "--output", str(tmp_path / "sharded"), "--steps", "0"])
+    (new,) = (tmp_path / "sharded").iterdir()
+    _, state = jload_checkpoint(new / "ckpt_0.pkl")
+    assert state["meta"] == {"shard_tables": True, "n_devices": 1}
 
 
 def test_remat_field_raises_until_ported(tmp_path):

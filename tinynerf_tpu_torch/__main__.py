@@ -5,9 +5,18 @@ Blender-synthetic or nerfstudio data, AABB or unbounded scenes) in a new
 experiment directory under `--output`, or, with `--resume`, continues the
 experiment `--output` names.  With `--render_only` it renders the test
 split from the latest checkpoint in `--output` (an experiment directory,
-written by either package) and reports metrics.  The sharding flags
-(`--shard_tables`, `--shard_bwd`) raise NotImplementedError naming the
-ROADMAP.md item.
+written by either package) and reports metrics.
+
+Under `torchrun` it runs over the data-parallel group torchrun describes,
+one process per device (`parallel.make_group`: NCCL over cuda:LOCAL_RANK,
+gloo with `--device cpu`):
+
+    torchrun --standalone --nproc_per_node N -m tinynerf_tpu_torch ... [--shard_tables [--shard_bwd]]
+
+Rank 0 names the experiment directory and writes every file.
+`--shard_tables` keeps the tables' Adam moments sharded over the ranks
+(ZeRO-1) and `--shard_bwd` also splits the K-Planes backward's pullback; on
+one rank both change nothing.  Without torchrun it is the one-device CLI.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import uuid
 from pathlib import Path
 
 from .data import PoseSet, RayPool, parse_nerf_synthetic, parse_nerfstudio
+from .parallel import make_group
 from .train import TrainConfig, render_only, train
 
 
@@ -56,6 +66,7 @@ def main(argv=None) -> None:
                              "kernels' plain versions)")
     args = parser.parse_args(argv)
 
+    group = make_group(args.device)
     data_path = Path(args.data)
     parse = parse_nerf_synthetic if args.datatype == "synthetic" else parse_nerfstudio
     test_set = PoseSet(parse(data_path, "test"))
@@ -63,13 +74,16 @@ def main(argv=None) -> None:
     if args.resume or args.render_only:
         experiment_dir = output  # an existing experiment directory
     else:
-        while True:
-            name = f"{str(uuid.uuid4())[:8]}_{args.method}_{args.scene_type}_{args.n_samples}"
-            if not (output / name).is_dir():
-                break
-        experiment_dir = output / name
-        experiment_dir.mkdir(parents=True)
-    print(f"Experiment saved to {experiment_dir}")
+        name = None
+        if group.rank == 0:
+            while True:
+                name = f"{str(uuid.uuid4())[:8]}_{args.method}_{args.scene_type}_{args.n_samples}"
+                if not (output / name).is_dir():
+                    break
+            (output / name).mkdir(parents=True)
+        experiment_dir = output / group.broadcast_object(name)
+    if group.rank == 0:
+        print(f"Experiment saved to {experiment_dir}")
     cfg = TrainConfig(
         method=args.method,
         scene_type=args.scene_type,
@@ -93,15 +107,16 @@ def main(argv=None) -> None:
         field_scale=args.field_scale,
     )
     if args.render_only:
-        render_only(cfg, test_set, device=args.device)
+        render_only(cfg, test_set, device=args.device, group=group)
         return
     # --eval without an explicit cadence evaluates 8 times over the run
     if args.eval and cfg.eval_every is None:
         cfg.eval_every = max(1, cfg.total_steps // 8)
+    # over a group each rank moves only its shard of the pool to its device
     train(
-        cfg, RayPool(parse(data_path, "train"), device=args.device),
+        cfg, RayPool(parse(data_path, "train"), device="cpu" if group.grouped else args.device),
         PoseSet(parse(data_path, "val")), test_set,
-        resume=args.resume, device=args.device,
+        resume=args.resume, device=args.device, group=group,
     )
 
 

@@ -10,7 +10,8 @@ for K-Planes, with the field {"basis": [grid [r, r, r, C] per level],
 "coef": [R, R, R, L], "mlp": [...]} for Cobafa and {"mlp": [...]} for the
 vanilla field, of arrays; the port keeps
 the same tensors, in the same layouts, in the renderer's field and decoder
-modules (`param_tree` lists them in that layout, which the optimizer state
+modules (a K-Planes explicit opacity decoder holds {"linear": {"w", "b"}}
+where an MLP decoder holds {"mlp": [...]}) (`param_tree` lists them in that layout, which the optimizer state
 of a checkpoint shares).  Both directions
 go through numpy (the form checkpoints hold), so this module imports
 neither jax nor optax.
@@ -24,6 +25,7 @@ import torch
 from .core.occupancy import OccupancyState
 from .core.renderer import NerfRenderer
 from .models.cobafa import CobafaFeatureField
+from .models.kplanes import KPlanesExplicitOpacityDecoder
 from .models.vanilla import VanillaFeatureField
 
 
@@ -63,16 +65,32 @@ def _field_into(field, src: dict) -> None:
             _copy_into(dst, a, f"planes[{s}][{p}]")
 
 
+def decoder_into(decoder, src: dict, name: str) -> None:
+    """Copy a decoder's JAX-layout parameters into the module, in place."""
+    if isinstance(decoder, KPlanesExplicitOpacityDecoder):
+        _copy_into(decoder.w, src["linear"]["w"], f"{name}.linear.w")
+        _copy_into(decoder.b, src["linear"]["b"], f"{name}.linear.b")
+    else:
+        _mlp_into(decoder.mlp, src["mlp"], name)
+
+
 def load_params(renderer: NerfRenderer, params: dict) -> None:
     """Copy a JAX-layout parameter pytree (numpy or array leaves) into the
     renderer's modules, in place."""
     _field_into(renderer.field, params["field"])
-    _mlp_into(renderer.sigma_decoder.mlp, params["sigma"]["mlp"], "sigma")
-    _mlp_into(renderer.rgb_decoder.mlp, params["rgb"]["mlp"], "rgb")
+    decoder_into(renderer.sigma_decoder, params["sigma"], "sigma")
+    decoder_into(renderer.rgb_decoder, params["rgb"], "rgb")
 
 
 def _mlp_tree(m) -> list:
     return [{"w": w, "b": b} for w, b in zip(m.w, m.b)]
+
+
+def decoder_tree(decoder) -> dict:
+    """A decoder's parameters (the module tensors) in the JAX layout."""
+    if isinstance(decoder, KPlanesExplicitOpacityDecoder):
+        return {"linear": {"w": decoder.w, "b": decoder.b}}
+    return {"mlp": _mlp_tree(decoder.mlp)}
 
 
 def param_tree(renderer: NerfRenderer) -> dict:
@@ -87,8 +105,8 @@ def param_tree(renderer: NerfRenderer) -> dict:
         field_tree = {"planes": [list(scale) for scale in field.planes]}
     return {
         "field": field_tree,
-        "sigma": {"mlp": _mlp_tree(renderer.sigma_decoder.mlp)},
-        "rgb": {"mlp": _mlp_tree(renderer.rgb_decoder.mlp)},
+        "sigma": decoder_tree(renderer.sigma_decoder),
+        "rgb": decoder_tree(renderer.rgb_decoder),
     }
 
 

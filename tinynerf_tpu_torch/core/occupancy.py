@@ -1,18 +1,20 @@
-"""Occupancy grid: state, adaptive threshold, the nearest-voxel query and
-the decay/confirm update.
+"""Occupancy grid: state, adaptive threshold, the nearest-voxel and
+trilinear queries and the decay/confirm update.
 
 Counterpart of `tinynerf_tpu/core/occupancy.py`: the grid is explicit
 state (`OccupancyState`, a NamedTuple of a `[r0, r1, r2]` float32 grid
 indexed by (x, y, z) and its mean), queried at the nearest voxel in
-align_corners index space against the threshold min(base, mean).  An update
-evaluates the density at one jittered point per voxel,
+align_corners index space (`interp="nearest"`) or trilinearly
+(`"trilinear"`, the reference's grid_sample) against the threshold
+min(base, mean).  An update evaluates the density at one jittered point
+per voxel,
 
     grid = 1 if 1 - exp(-sigma * step_size) > threshold else decay * grid,
 
-sweeping the grid in chunks of x-slices to bound the field's memory.  The
-jitter comes from an explicit `torch.Generator` (or is passed in: jax.random
-and torch cannot give the same numbers).  The trilinear query is not
-ported (ROADMAP.md).
+sweeping the grid in chunks of x-slices to bound the field's memory; a
+data-parallel group splits the sweep into contiguous x-slabs, one per rank
+(`update_slab`).  The jitter comes from an explicit `torch.Generator` (or is
+passed in: jax.random and torch cannot give the same numbers).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..ops.interp import trilinear_lookup
 
 # field evaluations per chunk of the update sweep (16 x-slices of a 128^2
 # plane): bounds the sigma field's activations to a few hundred MB
@@ -41,10 +45,8 @@ class OccupancyGrid:
     interp: str = "nearest"
 
     def __post_init__(self):
-        if self.interp != "nearest":
-            raise NotImplementedError(
-                "only the nearest-voxel occupancy query is ported (ROADMAP.md Queue 1)"
-            )
+        if self.interp not in ("nearest", "trilinear"):
+            raise ValueError(f"unknown occupancy interp {self.interp!r}")
 
     @staticmethod
     def cube(res: int, step_size: float, threshold: float = 0.01,
@@ -63,6 +65,9 @@ class OccupancyGrid:
     def query(self, state: OccupancyState, coords: torch.Tensor) -> torch.Tensor:
         """coords: [..., 3] in [-1, 1] -> float32 mask (1.0 = occupied)."""
         thr = self._threshold(state)
+        if self.interp == "trilinear":
+            vals = trilinear_lookup(state.grid[..., None], coords)[..., 0]
+            return (vals > thr).float()
         r0, r1, r2 = self.size
 
         def nearest_idx(c, res):
@@ -108,6 +113,27 @@ class OccupancyGrid:
             alpha = 1.0 - torch.exp(-sigma * self.step_size)
             out[a : a + per] = torch.where(alpha > threshold, 1.0, self.decay * grid_slices[a : a + per])
         return out
+
+    def update_slab(
+        self,
+        state: OccupancyState,
+        sigma_fn: Callable[[torch.Tensor], torch.Tensor],
+        jitter: torch.Tensor,
+        slab: int,
+        n_slabs: int,
+    ) -> torch.Tensor:
+        """x-slab `slab` of `n_slabs` (r0 / n_slabs contiguous slices; r0
+        must divide) of the grid `update(state, sigma_fn, jitter=jitter)`
+        gives, computed from that slab's slices and jitter alone."""
+        r0 = self.size[0]
+        if r0 % n_slabs:
+            raise ValueError(f"{r0} grid slices do not split into {n_slabs} slabs")
+        lo, hi = slab * r0 // n_slabs, (slab + 1) * r0 // n_slabs
+        with torch.no_grad():
+            return self.update_slices(
+                state.grid[lo:hi], torch.arange(lo, hi, device=state.grid.device), jitter[lo:hi],
+                self._threshold(state), sigma_fn,
+            )
 
     def update(
         self,

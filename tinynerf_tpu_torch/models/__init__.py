@@ -1,6 +1,6 @@
 from .cobafa import CobafaFeatureField
 from .encodings import posenc_dim, positional_encoding
-from .kplanes import KPlanesFeatureField
+from .kplanes import KPlanesExplicitColorDecoder, KPlanesExplicitOpacityDecoder, KPlanesFeatureField
 from .mlp import MLP, linear_apply, mlp_apply, mlp_apply_split, mlp_apply_split_per_ray
 from .registry import METHODS, make_model
 from .vanilla import ColorDecoder, OpacityDecoder, VanillaFeatureField
@@ -9,6 +9,8 @@ __all__ = [
     "positional_encoding",
     "posenc_dim",
     "CobafaFeatureField",
+    "KPlanesExplicitColorDecoder",
+    "KPlanesExplicitOpacityDecoder",
     "KPlanesFeatureField",
     "MLP",
     "linear_apply",

@@ -10,9 +10,13 @@ nine builds per field call) and gathers one 4F row per sample, lerped in
 f32.  All lookups run under one autograd Function
 (`ops/interp.py:multiscale_lookup_multiproj`), whose backward takes every
 table gradient on the finest grid through the sorted-window pipeline (on a
-CUDA device) or a scatter (on the CPU).  The TV and L1 regularizers are
-here; their row-partitioned partials (sharded training) and the explicit
-decoders are not ported (ROADMAP.md).
+CUDA device) or a scatter (on the CPU); with `shard_bwd_group` set (the
+data-parallel step sets it under `shard_bwd`) that backward splits its
+pullback over the group's ranks.  The TV and L1 regularizers are here, and
+their row-partitioned partials, whose sum over blocks is the full loss
+(the sharded-table step gives each rank one block).  The explicit
+(bilinear-form) opacity and color decoders are here for parity with the
+JAX package; `train()` wires the vanilla decoders.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ import torch
 from torch import nn
 
 from ..ops.interp import multiscale_lookup_multiproj
+from ..ops.trunc_exp import truncated_exp
+from .encodings import posenc_dim, positional_encoding
+from .mlp import MLP, linear_apply, mlp_apply_split, mlp_apply_split_per_ray
 
 # coordinate pairs used per plane, in order: (x,y), (x,z), (y,z)
 DIMENSION_PAIRS: Tuple[Tuple[int, int], ...] = ((0, 1), (0, 2), (1, 2))
@@ -55,6 +62,13 @@ class KPlanesFeatureField(nn.Module):
                 t.uniform_(0.0, 1.0, generator=generator)
                 scale.append(nn.Parameter(t.to(device)))
             self.planes.append(scale)
+        # a `parallel.DataGroup` while a data-parallel step splits the
+        # backward's pullback over its ranks (the JAX `shard_bwd_axis`)
+        self.shard_bwd_group = None
+        # how the backward accumulates the table gradient (`ops/interp.py`
+        # `bwd_impl`): "auto" is the sorted windows with the bf16 payload
+        # on a CUDA device, "sorted" the same with the f32 payload
+        self.bwd_impl = "auto"
 
     @property
     def feature_dim(self) -> int:
@@ -68,6 +82,8 @@ class KPlanesFeatureField(nn.Module):
             [[self.planes[s][p] for s in range(n_scales)] for p in range(len(DIMENSION_PAIRS))],
             [x[..., [i, j]] for (i, j) in DIMENSION_PAIRS],
             GATHER_DTYPE,
+            bwd_impl=self.bwd_impl,
+            shard_group=self.shard_bwd_group,
         )
         features = []
         for s in range(n_scales):
@@ -105,3 +121,99 @@ class KPlanesFeatureField(nn.Module):
             total = total + torch.mean(torch.abs(plane))
             count += 1
         return total / count
+
+    # -- row-partitioned partials (the sharded-table step): the sum over
+    # block_idx in [0, n_blocks) is the full loss, and so the sum of their
+    # gradients the full gradient, while each block reads ~1/n_blocks of
+    # every plane's rows (contiguous blocks, a one-row halo for the
+    # cross-row differences), as `tinynerf_tpu/models/kplanes.py:
+    # loss_tv_partial` blocks them
+
+    def loss_tv_partial(self, block_idx: int, n_blocks: int) -> torch.Tensor:
+        total, count = 0.0, 0
+        for plane in self._planes():
+            r0, r1, f = plane.shape
+            w = r1 * f
+            v = plane.reshape(r0, w)
+            # cross-row pairs i in [0, r0 - 2], blocked by pair index
+            q0 = -(-(r0 - 1) // n_blocks)
+            lo, hi = block_idx * q0, min((block_idx + 1) * q0, r0 - 1)
+            rows = v[lo : max(hi, lo) + 1]
+            tv0 = torch.sum((rows[1:] - rows[:-1]) ** 2) / ((r0 - 1) * w)
+            # within-row pairs, blocked by row
+            q1 = min(-(-r0 // n_blocks), r0)
+            rows = v[block_idx * q1 : min((block_idx + 1) * q1, r0)]
+            tv1 = torch.sum((rows[:, f:] - rows[:, :-f]) ** 2) / (r0 * (w - f))
+            total = total + tv0 + tv1
+            count += 1
+        return total / count
+
+    def loss_l1_partial(self, block_idx: int, n_blocks: int) -> torch.Tensor:
+        total, count = 0.0, 0
+        for plane in self._planes():
+            r0 = plane.shape[0]
+            q = min(-(-r0 // n_blocks), r0)
+            rows = plane[block_idx * q : min((block_idx + 1) * q, r0)]
+            total = total + torch.sum(torch.abs(rows)) / plane.numel()
+            count += 1
+        return total / count
+
+
+def _full(features) -> torch.Tensor:
+    """The feature vector: the pieces' concat (a bilinear form needs it)."""
+    return torch.cat(tuple(features), dim=-1) if isinstance(features, (tuple, list)) else features
+
+
+class KPlanesExplicitOpacityDecoder(nn.Module):
+    """sigma = truncated_exp(<f, W f + b> - 1): a learned bilinear form
+    (`tinynerf_tpu/models/kplanes.py:KPlanesExplicitOpacityDecoder`; its
+    parameters are {"linear": {"w": [F, F], "b": [F]}})."""
+
+    def __init__(self, feature_dim: int, fwd_clamp: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.feature_dim = feature_dim
+        self.fwd_clamp = fwd_clamp
+        bound = 1.0 / feature_dim**0.5  # torch.nn.Linear's default init
+        u = lambda *shape: torch.empty(shape).uniform_(-bound, bound, generator=generator).to(device)
+        self.w = nn.Parameter(u(feature_dim, feature_dim))
+        self.b = nn.Parameter(u(feature_dim))
+
+    def forward(self, features, compute_dtype=torch.float32) -> torch.Tensor:
+        features = _full(features)
+        y = linear_apply({"w": self.w, "b": self.b}, features, compute_dtype)
+        x = torch.sum(features.to(compute_dtype) * y, dim=-1)
+        return truncated_exp(x.float() - 1.0, self.fwd_clamp)
+
+
+class KPlanesExplicitColorDecoder(nn.Module):
+    """rgb = sigmoid(<f, basis(d, f)>): an MLP of [posenc(d) | d | f] gives a
+    [3, F] basis per sample (`tinynerf_tpu/models/kplanes.py:
+    KPlanesExplicitColorDecoder`)."""
+
+    def __init__(self, feature_dim: int, n_freqs: int = 8, hidden_dim: int = 128,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.feature_dim = feature_dim
+        self.n_freqs = n_freqs
+        in_dim = feature_dim + posenc_dim(3, n_freqs) + 3
+        self.mlp = MLP(in_dim, hidden_dim, 3, 3 * feature_dim, generator, device)
+
+    def _combine(self, features: torch.Tensor, basis: torch.Tensor, compute_dtype) -> torch.Tensor:
+        basis = basis.reshape(*features.shape[:-1], 3, self.feature_dim)
+        out = torch.sum(features[..., None, :].to(compute_dtype) * basis, dim=-1)
+        return torch.sigmoid(out.float())
+
+    def forward(self, features, rays_d: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        features = _full(features)
+        pieces = (positional_encoding(rays_d, self.n_freqs), rays_d, features)
+        return self._combine(features, mlp_apply_split(self.mlp.layers(), pieces, compute_dtype), compute_dtype)
+
+    def apply_per_ray(self, features, d_ray: torch.Tensor, seg: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+        """Serving variant: the direction branch once per ray (d_ray [n_rays,
+        3]), gathered to the samples through `seg`."""
+        features = _full(features)
+        ray_pieces = (positional_encoding(d_ray, self.n_freqs), d_ray)
+        basis = mlp_apply_split_per_ray(self.mlp.layers(), ray_pieces, seg, (features,), compute_dtype)
+        return self._combine(features, basis, compute_dtype)

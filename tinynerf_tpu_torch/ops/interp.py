@@ -6,9 +6,11 @@ fields use: `_to_index_space`, `_cell_2d`, the per-scale value
 `_quad_lookup_fwd_value`, the exact 2x upsampling of nested grids and its
 transpose, `multiscale_lookup_multiproj` (the lookup of every scale of every
 projection under one autograd Function), and for Cobafa `_cell_3d`,
-`trilinear_lookup_oct` and `sawtooth`.  Tables are feature-last
-(`[r0, r1, F]`, `[r0, r1, r2, F]`); coordinates are in [-1, 1] with
-align_corners=True semantics (-1 -> index 0, +1 -> index r-1).
+`trilinear_lookup_oct` and `sawtooth`; the plain `trilinear_lookup` of the
+occupancy grid's trilinear query; and the pullback split over the ranks of
+a data-parallel group (`_sharded_pullback`, the JAX `shard_axis`).  Tables
+are feature-last (`[r0, r1, F]`, `[r0, r1, r2, F]`); coordinates are in
+[-1, 1] with align_corners=True semantics (-1 -> index 0, +1 -> index r-1).
 
 Both lookups go through the JAX package's cell-packed tables
 (`ops/octbuild.py`, CUDA kernels on the card): each K-Planes plane is built
@@ -20,6 +22,7 @@ the backward, so no packed table stays alive into it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -133,6 +136,79 @@ def _pullback_scales(fine: torch.Tensor, tables: Sequence[torch.Tensor]) -> tupl
     return tuple(grads)
 
 
+def _down_axis0_band(g: torch.Tensor) -> torch.Tensor:
+    """Transpose of `_upsample2x_axis0` restricted to a band of rows.
+
+    `g` holds the fine rows [s, s + m - 1] of a gradient, s even; the result
+    is what this band gives the coarse rows [s / 2, s / 2 + m // 2]: out[c]
+    = g[2c] + 0.5 * (g[2c - 1] + g[2c + 1]), with the terms outside the band
+    dropped.  A neighbouring band computes them (or they lie past the edge),
+    and the bands' outputs are summed, so nothing is lost.  With s = 0 and m
+    odd this is the whole transpose (the column axis uses it so)."""
+    m = g.shape[0]
+    no = m // 2 + 1
+    zero = g.new_zeros((1,) + tuple(g.shape[1:]))
+    even, odd = g[0::2], g[1::2]
+    if even.shape[0] < no:
+        even = torch.cat([even, zero])
+    up = torch.cat([zero, odd])  # g[2c - 1]
+    dn = odd if odd.shape[0] == no else torch.cat([odd, zero])  # g[2c + 1]
+    return even + 0.5 * (up + dn)
+
+
+def sharded_pullback_unit(r_fine: int, resolutions: Sequence[int]) -> int:
+    """Row granularity of the pullback's bands: a band starts on a multiple
+    of 2^k_max, so every halving level keeps even starts."""
+    return 2 ** max(int(round(math.log2((r_fine - 1) // (r - 1)))) for r in resolutions)
+
+
+def pullback_band(loc: torch.Tensor, tables: Sequence[torch.Tensor], r_fine: int,
+                  band_idx: int, n_bands: int) -> tuple:
+    """Each table's share of the gradient from band `band_idx` of `n_bands`:
+    `loc` holds fine rows [band_idx * band, (band_idx + 1) * band) of the
+    summed fine gradient (zero rows past r_fine).  Each scale's slice is
+    pulled back through its levels (columns whole, rows by band) and placed
+    in a zero full-shape gradient; the bands' outputs sum to
+    `_pullback_scales` of the whole fine gradient
+    (`tinynerf_tpu/ops/interp.py:_sharded_pullback`)."""
+    band = loc.shape[0]
+    rows_pad = band * n_bands
+    s0 = band_idx * band
+    grads, off = [], 0
+    for t in tables:
+        f = t.shape[-1]
+        k = int(round(math.log2((r_fine - 1) // (t.shape[0] - 1))))
+        g = loc[..., off : off + f]
+        off += f
+        for _ in range(k):
+            g = _down_axis0_band(g.transpose(0, 1)).transpose(0, 1)
+            g = _down_axis0_band(g)
+        start = s0 // 2**k
+        full = torch.zeros(rows_pad // 2**k + (1 if k else 0), t.shape[1], f, dtype=torch.float32,
+                           device=loc.device)
+        full[start : start + g.shape[0]] = g
+        grads.append(full[: t.shape[0]].contiguous())
+    return tuple(grads)
+
+
+def _sharded_pullback(gq_by_proj, tables_by_proj, r_fine: int, f_tot: int, group) -> list:
+    """The fused pullback split over the ranks of `group`: each rank's
+    fine gradient (of its own samples) is padded to band * N rows and
+    reduce-scattered over rows, so each rank holds its band of the SUMMED
+    fine gradient and pulls back only that band.  The per-rank table
+    gradients are partials whose sum over ranks is the replicated gradient;
+    the step's all-reduce or reduce-scatter completes them."""
+    unit = sharded_pullback_unit(r_fine, [t.shape[0] for t in tables_by_proj[0]])
+    band = -(-r_fine // (unit * group.world)) * unit
+    out = []
+    for gq, tables in zip(gq_by_proj, tables_by_proj):
+        fine = _fine_from_quad(gq, r_fine, f_tot)
+        fine = torch.cat([fine, fine.new_zeros(band * group.world - r_fine, r_fine, f_tot)])
+        loc = group.reduce_scatter_sum(fine)
+        out.extend(pullback_band(loc, tables, r_fine, group.rank, group.world))
+    return out
+
+
 def _fine_from_quad(gq: torch.Tensor, r_fine: int, f_tot: int) -> torch.Tensor:
     """[n_cells, 4*f_tot] corner-major quad gradient -> [r, r, f_tot]: each
     corner slice lands on its cell's corner node."""
@@ -173,10 +249,10 @@ class _MultiProj(torch.autograd.Function):
     (`_multiproj_bwd`).  Only coordinates and tables are saved."""
 
     @staticmethod
-    def forward(ctx, gather_dtype, bwd_impl, n_proj, n_scales, *inputs):
+    def forward(ctx, gather_dtype, bwd_impl, shard_group, n_proj, n_scales, *inputs):
         coords, tables = inputs[:n_proj], inputs[n_proj:]
         ctx.save_for_backward(*inputs)
-        ctx.meta = (bwd_impl, n_proj, n_scales)
+        ctx.meta = (bwd_impl, shard_group, n_proj, n_scales)
         return tuple(
             _quad_lookup_fwd_value(tables[p * n_scales + s], coords[p], gather_dtype)
             for p in range(n_proj) for s in range(n_scales)
@@ -184,7 +260,7 @@ class _MultiProj(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        bwd_impl, n_proj, n_scales = ctx.meta
+        bwd_impl, shard_group, n_proj, n_scales = ctx.meta
         saved = ctx.saved_tensors
         coords, tables = saved[:n_proj], saved[n_proj:]
         by_proj = [tables[p * n_scales : (p + 1) * n_scales] for p in range(n_proj)]
@@ -219,11 +295,14 @@ class _MultiProj(torch.autograd.Function):
                 .index_add_(0, cells[p], (ws[p][:, :, None] * gs[p][:, None, :]).reshape(n, 4 * f_tot))
                 for p in range(n_proj)
             ]
-        table_grads = []
-        for p in range(n_proj):
-            fine = _fine_from_quad(gq_by_proj[p], r_fine, f_tot)
-            table_grads.extend(_pullback_scales(fine, by_proj[p]))
-        return (None, None, None, None) + (None,) * n_proj + tuple(table_grads)
+        if shard_group is not None:
+            table_grads = _sharded_pullback(gq_by_proj, by_proj, r_fine, f_tot, shard_group)
+        else:
+            table_grads = []
+            for p in range(n_proj):
+                fine = _fine_from_quad(gq_by_proj[p], r_fine, f_tot)
+                table_grads.extend(_pullback_scales(fine, by_proj[p]))
+        return (None,) * 5 + (None,) * n_proj + tuple(table_grads)
 
 
 def multiscale_lookup_multiproj(
@@ -231,6 +310,7 @@ def multiscale_lookup_multiproj(
     coords_by_proj: Sequence[torch.Tensor],
     gather_dtype: torch.dtype = torch.bfloat16,
     bwd_impl: str = "auto",
+    shard_group=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], ...]:
     """Per-projection multiscale bilinear lookups with one shared backward.
 
@@ -247,10 +327,15 @@ def multiscale_lookup_multiproj(
     or by one scatter per projection (`bwd_impl`: "auto", "sorted",
     "sorted_bf16" or "scatter"), then the fine table and each scale's table
     through the upsampling transpose.  Coordinates get no gradient (sample
-    positions come from the no-grad march)."""
+    positions come from the no-grad march).
+
+    `shard_group` (a `parallel.DataGroup`, the JAX `shard_axis`): every
+    rank of the group calls the backward together, and the pullback is
+    split over them by row bands (`_sharded_pullback`); the table gradients
+    are then per-rank partials that sum over ranks to the full ones."""
     n_proj, n_scales = len(tables_by_proj), len(tables_by_proj[0])
     flat = [t for ts in tables_by_proj for t in ts]
-    out = _MultiProj.apply(gather_dtype, bwd_impl, n_proj, n_scales, *coords_by_proj, *flat)
+    out = _MultiProj.apply(gather_dtype, bwd_impl, shard_group, n_proj, n_scales, *coords_by_proj, *flat)
     return tuple(tuple(out[p * n_scales : (p + 1) * n_scales]) for p in range(n_proj))
 
 
@@ -320,6 +405,29 @@ def trilinear_lookup_oct(
     table's type).  Gradients flow to the table only (sample positions come
     from the no-grad march)."""
     return _TrilinearOct.apply(table, coords, gather_dtype)
+
+
+def trilinear_lookup(table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Plain trilinear lookup of `table` [r0, r1, r2, F] at coords [..., 3]
+    in [-1, 1] -> f32 [..., F] (`tinynerf_tpu/ops/interp.py:trilinear_lookup`,
+    the occupancy grid's trilinear query): the eight corners of the floor
+    cell, each upper corner clamped to the table, weighted and summed in
+    `CORNERS_3D` order."""
+    r0, r1, r2, f = table.shape
+    x = _to_index_space(coords[..., 0], r0)
+    y = _to_index_space(coords[..., 1], r1)
+    z = _to_index_space(coords[..., 2], r2)
+    x0, y0, z0 = (torch.floor(v).long() for v in (x, y, z))
+    lo = (x0, y0, z0)
+    hi = (torch.clamp(x0 + 1, max=r0 - 1), torch.clamp(y0 + 1, max=r1 - 1), torch.clamp(z0 + 1, max=r2 - 1))
+    t = (x - x0, y - y0, z - z0)
+    flat = table.reshape(r0 * r1 * r2, f)
+    idx = torch.stack([((lo, hi)[dx][0] * r1 + (lo, hi)[dy][1]) * r2 + (lo, hi)[dz][2]
+                       for dx, dy, dz in CORNERS_3D], dim=-1)
+    w = torch.stack([(1 - t[0], t[0])[dx] * (1 - t[1], t[1])[dy] * (1 - t[2], t[2])[dz]
+                     for dx, dy, dz in CORNERS_3D], dim=-1)
+    vals = flat[idx].float()  # [..., 8, F]
+    return torch.sum(vals * w[..., None], dim=-2)
 
 
 def sawtooth(x: torch.Tensor, f: float) -> torch.Tensor:

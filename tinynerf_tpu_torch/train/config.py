@@ -2,9 +2,11 @@
 
 Counterpart of `tinynerf_tpu/train/config.py`, field for field, so one set
 of flags drives both packages; the JAX file documents each field.  The
-port runs on one device: `train` refuses the sharding fields
-(`shard_tables`, `shard_bwd`); `march` and `skip_steps` pick the march as
-in the JAX package.  `remat_field` recomputes the field's activations in
+sharding fields act over a data-parallel group of several ranks as over a
+JAX mesh of several devices (`shard_tables`: ZeRO-1 table moments;
+`shard_bwd`, with it: the K-Planes pullback split by row bands) and change
+nothing on one; `march` and `skip_steps` pick the march as in the JAX
+package.  `remat_field` recomputes the field's activations in
 the backward: True / False set it, None takes the JAX package's rule (on
 for the vanilla method above 2,000,000 samples a step; `build_renderer`).
 """

@@ -1,4 +1,5 @@
-"""Training, inference and evaluation on one device.
+"""Training, inference and evaluation, on one device or over a
+data-parallel group of processes (one device each).
 
 Counterpart of `tinynerf_tpu/train/loop.py`: `build_renderer`, the
 optimizer (`lr_schedule`, `_decay_mask`, the fused Adam), `make_train_step`,
@@ -9,11 +10,21 @@ serving entry points (`make_render_chunk`, `make_render_chunk_packed`,
   * parameters live in the renderer's modules and the Adam state in the
     optimizer object, so the step and chunk functions take no `params`
     argument; checkpoints still hold both in the JAX layout (`convert.py`);
-  * one device, named by the caller (`device`); no mesh, no sharding
-    (`shard_tables` / `shard_bwd` raise);
+  * one device, named by the caller (`device`), or a `parallel.DataGroup`
+    (`group`, one process per device, the JAX mesh's counterpart): each
+    rank keeps its 1/N of the ray pool, samples and packs 1/N of a step's
+    rays with 1/N of the sample cap, and the step all-reduces the loss
+    pieces and the gradients (`shard_tables`: reduce-scatters the table
+    gradients, keeps 1/N of the tables' Adam moments and all-gathers the
+    updated tables; `shard_bwd`: splits the K-Planes pullback by row
+    bands); serving splits each chunk's rays over the ranks and gathers
+    the results; only rank 0 writes files.  With no group (or a group of
+    one rank and no process group) every function runs the one-device
+    code;
   * PyTorch runs eagerly, so a "compiled step" is a closure, and the random
-    streams are `torch.Generator`s seeded from (seed, step), so a resumed
-    run continues its stream as the JAX one does with `fold_in`;
+    streams are `torch.Generator`s seeded from (seed, step), and the batch
+    stream from the rank as well, so a resumed run continues its stream as
+    the JAX one does with `fold_in`;
   * as in the JAX package, `render_only` serves with the skip march
     whenever the renderer supports it, and `train` switches to it through
     `MarchPolicy` once the demand estimate leaves ample round budget; the
@@ -48,15 +59,12 @@ from ..core.occupancy import OccupancyGrid, OccupancyState
 from ..core.renderer import NerfRenderer
 from ..data.pipeline import PoseSet, RayPool, sample_ray_batch
 from ..models.registry import make_model
+from ..parallel import zero
+from ..parallel.mesh import DataGroup, shard_rays
 from ..utils.image import save_png
 from .checkpoint import ScaleByAdamState, latest_checkpoint, load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .metrics import EvalMetrics, TrainMetrics, eval_metrics
-
-MULTI_DEVICE_NOT_PORTED = (
-    "shard_tables / shard_bwd need several devices, which the port does not "
-    "drive yet (ROADMAP.md Queue 1, 'Multi-device')"
-)
 
 
 def build_renderer(
@@ -159,11 +167,20 @@ class FusedAdam:
     with lr read at the pre-increment count and c1 = 1 - b1^count, c2 =
     1 - b2^count at the post-increment one.  The state is {count, mu, nu}
     with mu/nu in the parameters' JAX layout, so checkpoints keep the JAX
-    format (`state` / `load_state`)."""
+    format (`state` / `load_state`).
+
+    With `group` and `sharded_tree` (ZeRO-1, `parallel/zero.py`; the JAX
+    `init_opt_state` on a sharded-table mesh), the sharded leaves' moments
+    are this rank's [Lp / N] slices of their flat views, `step` takes those
+    leaves' gradients as the same slices (the reduce-scattered view),
+    updates this rank's slice of the parameter and all-gathers the full
+    table back, and `state` / `load_state` exchange the JAX global view
+    (flat [Lp] moments)."""
 
     def __init__(self, tree: dict, schedule, eps: float, weight_decay: float,
                  decay_tree: dict, table_ratio: float, table_tree: dict,
-                 b1: float = 0.9, b2: float = 0.999):
+                 b1: float = 0.9, b2: float = 0.999,
+                 group: Optional[DataGroup] = None, sharded_tree: Optional[dict] = None):
         leaves = list(tree_leaves_with_path(tree))
         self.tree = tree
         self.paths = [path for path, _ in leaves]
@@ -172,14 +189,28 @@ class FusedAdam:
         table = dict(tree_leaves_with_path(table_tree))
         self.decay = [bool(decay[path]) for path in self.paths]
         self.table = [bool(table[path]) for path in self.paths]
+        sharded = dict(tree_leaves_with_path(sharded_tree)) if sharded_tree is not None else {}
+        self.sharded = [bool(sharded.get(path, False)) for path in self.paths]
+        self.group = group
         self.schedule, self.eps, self.weight_decay = schedule, eps, weight_decay
         self.table_ratio, self.b1, self.b2 = table_ratio, b1, b2
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [self._zero_moment(p, sh) for p, sh in zip(self.params, self.sharded)]
+        self.nu = [self._zero_moment(p, sh) for p, sh in zip(self.params, self.sharded)]
+
+    def _zero_moment(self, p: torch.Tensor, sharded: bool) -> torch.Tensor:
+        if not sharded:
+            return torch.zeros_like(p)
+        return p.new_zeros(zero.padded_len(p.numel(), self.group.world) // self.group.world)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update from `grads` (aligned with the parameters; a sharded
+        leaf's gradient is this rank's flat slice)."""
+        targets = self.params
+        if any(self.sharded):
+            targets = [zero.local_slice(p, self.group.world, self.group.rank) if sh else p
+                       for p, sh in zip(self.params, self.sharded)]
         lr = self.schedule(self.count)
         self.count += 1
         c1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
@@ -188,7 +219,7 @@ class FusedAdam:
         if self.weight_decay != 0.0:
             for i, dec in enumerate(self.decay):
                 if dec:
-                    grads[i] = grads[i] + self.weight_decay * self.params[i]
+                    grads[i] = grads[i] + self.weight_decay * targets[i]
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
@@ -203,7 +234,10 @@ class FusedAdam:
             for i, tab in enumerate(self.table):
                 if tab:
                     upd[i].mul_(self.table_ratio)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_add_(targets, upd)
+        for p, t, sh in zip(self.params, targets, self.sharded):
+            if sh:
+                p.view(-1).copy_(self.group.all_gather(t)[: p.numel()])
 
     def as_tree(self, leaves: Sequence) -> dict:
         """`leaves` (aligned with the parameters) in the parameters' layout."""
@@ -211,31 +245,46 @@ class FusedAdam:
         return tree_map_with_path(lambda path, _: by_path[path], self.tree)
 
     def state(self) -> ScaleByAdamState:
-        """{count, mu, nu} as numpy, in the JAX package's layout."""
+        """{count, mu, nu} as numpy, in the JAX package's layout (sharded
+        moments all-gathered into their flat [Lp] global view: every rank of
+        the group calls this together)."""
+
+        def full(moments):
+            return [to_numpy(self.group.all_gather(t) if sh else t) for t, sh in zip(moments, self.sharded)]
+
         return ScaleByAdamState(
             count=np.asarray(self.count, np.int32),
-            mu=self.as_tree([to_numpy(t) for t in self.mu]),
-            nu=self.as_tree([to_numpy(t) for t in self.nu]),
+            mu=self.as_tree(full(self.mu)),
+            nu=self.as_tree(full(self.nu)),
         )
 
     def load_state(self, state) -> None:
-        """Load {count, mu, nu} written by either package."""
+        """Load {count, mu, nu} written by either package (sharded moments
+        from their flat [Lp] global view: this rank takes its slice)."""
         mu = dict(tree_leaves_with_path(state.mu))
         nu = dict(tree_leaves_with_path(state.nu))
         with torch.no_grad():
             for i, path in enumerate(self.paths):
                 for dst, src in ((self.mu[i], mu[path]), (self.nu[i], nu[path])):
                     src = np.asarray(src, np.float32)
-                    if tuple(src.shape) != tuple(dst.shape):
-                        raise ValueError(f"optimizer state {path}: {src.shape} does not fit {tuple(dst.shape)}")
+                    want = tuple(dst.shape)
+                    if self.sharded[i]:
+                        want = (dst.shape[0] * self.group.world,)
+                    if tuple(src.shape) != want:
+                        raise ValueError(f"optimizer state {path}: {src.shape} does not fit {want}")
+                    if self.sharded[i]:
+                        src = src[self.group.rank * dst.shape[0] : (self.group.rank + 1) * dst.shape[0]]
                     dst.copy_(torch.from_numpy(src.copy()))
         self.count = int(np.asarray(state.count))
 
 
-def make_optimizer(cfg: TrainConfig, renderer: NerfRenderer) -> FusedAdam:
+def make_optimizer(cfg: TrainConfig, renderer: NerfRenderer, group: Optional[DataGroup] = None) -> FusedAdam:
     """Adam + L2-in-grad weight decay (masked off the feature tables) + the
     piecewise-constant schedule + the split table lr, over the renderer's
-    parameters, as `tinynerf_tpu/train/loop.py:make_optimizer`."""
+    parameters, as `tinynerf_tpu/train/loop.py:make_optimizer`, with its
+    initial state as `init_opt_state` makes it: the tables' moments sharded
+    over `group` with `cfg.shard_tables` on a group of several ranks and a
+    field that declares tables, else whole."""
     tree = param_tree(renderer)
     mask = _decay_mask(tree, renderer.field.table_keys, renderer.field.mlp_keys)
     decay_tree = tree_map(lambda _: True, tree) if cfg.decay_tables else mask
@@ -246,8 +295,19 @@ def make_optimizer(cfg: TrainConfig, renderer: NerfRenderer) -> FusedAdam:
     else:
         ratio = 1.0
         table_tree = tree_map(lambda _: False, tree)
+    sharded_tree = None
+    if _zero_sharded(cfg, renderer, group):
+        sharded_tree = zero.table_mask_tree(tree, frozenset(renderer.field.table_keys))
     return FusedAdam(tree, lr_schedule(cfg), cfg.adam_eps, cfg.weight_decay,
-                     decay_tree, ratio, table_tree)
+                     decay_tree, ratio, table_tree, group=group, sharded_tree=sharded_tree)
+
+
+def _zero_sharded(cfg: TrainConfig, renderer: NerfRenderer, group: Optional[DataGroup]) -> bool:
+    """The JAX rule for the sharded-table (ZeRO-1) step: `shard_tables`, a
+    group of several ranks and a field with declared tables; on one rank
+    `shard_tables` changes nothing."""
+    return (cfg.shard_tables and group is not None and group.grouped and group.world > 1
+            and zero.has_tables(param_tree(renderer), frozenset(renderer.field.table_keys)))
 
 
 # ---------------------------------------------------------------- train step
@@ -260,6 +320,7 @@ def make_train_step(
     n_cand: int,
     deterministic: bool = False,
     march: str = "dense",
+    group: Optional[DataGroup] = None,
 ) -> Callable:
     """One train step for `n_cand` candidate rays:
     fn(occ_state, pool_o, pool_d, pool_rgb, generator) -> metrics, a dict of
@@ -276,7 +337,12 @@ def make_train_step(
     jitter and no dropout (the JAX step's `krender=None`), and adds the
     gradients (JAX layout, the update's input) to the metrics: the JAX
     package's seam for comparing steps.
+
+    With a `group` that has a process group, the data-parallel step of
+    `_make_group_step`; otherwise this one-device step.
     """
+    if group is not None and group.grouped:
+        return _make_group_step(renderer, optimizer, cfg, n_cand, deterministic, march, group)
     cap = cfg.sample_cap
     field_ = renderer.field
     has_reg = cfg.method == "kplanes" and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
@@ -320,40 +386,201 @@ def make_train_step(
     return step
 
 
-def make_occupancy_update(renderer: NerfRenderer) -> Callable:
-    """fn(occ_state, generator) -> the state after one decay/confirm sweep."""
+def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainConfig, n_cand: int,
+                     deterministic: bool, march: str, group: DataGroup) -> Callable:
+    """The data-parallel step over `group` (`tinynerf_tpu/train/loop.py:
+    make_train_step` on a mesh, and `_make_zero_step`), with the one-device
+    step's signature; `pool_*` are this rank's shard of the pool.
 
-    def update(occ_state, generator=None):
-        return renderer.occupancy.update(occ_state, renderer.sigma_fn, generator)
+    Each rank samples n_cand / N rays from its shard (`deterministic`: the
+    shard's leading n_cand / N rays, no jitter, no dropout), packs them with
+    cap / N samples and renders them.  One all-reduce sums the loss
+    numerator, its denominator, the sample and complete-ray counts (and,
+    sharded, the regularizer's row blocks); each rank then takes the
+    gradient of its numerator times 1 / max(global den, 1), and
 
-    return update
+      * replicated: the gradients are all-reduced, and the K-Planes TV / L1
+        regularizer's (computed whole on every rank) added after;
+      * `shard_tables` (a group of several ranks and a field with tables):
+        the regularizer is this rank's row block (`loss_tv_partial`), its
+        gradient joins the data gradient before the reduction, table
+        gradients are reduce-scattered to this rank's flat slice and the
+        others all-reduced (`zero.reduce_grads`), and Adam updates the
+        slices and all-gathers the tables (`FusedAdam`);
+      * `shard_bwd` with `shard_tables` on a K-Planes field: the field's
+        backward splits its pullback over the ranks (`shard_bwd_group`), and
+        its per-rank table gradients are partials the reduction completes.
+
+    The metrics are the group's: global loss, rays used, fill over the
+    global cap, complete fraction of the global candidates; with
+    `deterministic` also the reduced gradients in the JAX layout."""
+    world, rank = group.world, group.rank
+    if n_cand % world or cfg.sample_cap % world:
+        raise ValueError(f"candidate rays {n_cand} and sample cap {cfg.sample_cap} must divide "
+                         f"the group's {world} ranks")
+    if march not in ("dense", "skip"):
+        raise ValueError(f"unknown march {march!r}")
+    local_cand, local_cap = n_cand // world, cfg.sample_cap // world
+    use_skip = march == "skip"
+    field_ = renderer.field
+    table_keys = frozenset(field_.table_keys)
+    sharded = _zero_sharded(cfg, renderer, group)
+    if sharded != any(optimizer.sharded):
+        raise ValueError("the optimizer's state layout does not fit this step: build it with "
+                         "make_optimizer(cfg, renderer, group)")
+    bwd_group = group if (sharded and cfg.shard_bwd and hasattr(field_, "shard_bwd_group")) else None
+    has_reg = cfg.method == "kplanes" and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
+    params = optimizer.params
+
+    def regularizer(partial: bool) -> torch.Tensor:
+        if partial:
+            reg = cfg.tv_reg_alpha * field_.loss_tv_partial(rank, world)
+            if cfg.l1_reg_alpha != 0.0:
+                reg = reg + cfg.l1_reg_alpha * field_.loss_l1_partial(rank, world)
+            return reg
+        reg = cfg.tv_reg_alpha * field_.loss_tv()
+        if cfg.l1_reg_alpha != 0.0:
+            reg = reg + cfg.l1_reg_alpha * field_.loss_l1()
+        return reg
+
+    def grads_of(objective) -> list:
+        grads = torch.autograd.grad(objective, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g.contiguous() for p, g in zip(params, grads)]
+
+    def step(occ_state, *rest):
+        skip_grid = rest[0] if use_skip else None
+        pool_o, pool_d, pool_rgb, *gen = rest[1:] if use_skip else rest
+        if deterministic:
+            rays_o, rays_d, rgbs = pool_o[:local_cand], pool_d[:local_cand], pool_rgb[:local_cand]
+            jitter_seed = dropout_seed = None
+        else:
+            rays_o, rays_d, rgbs = sample_ray_batch(gen[0], pool_o, pool_d, pool_rgb, local_cand)
+            words = torch.randint(0, 2**32, (4,), generator=gen[0], device=pool_o.device)
+            jitter_seed, dropout_seed = words[:2], words[2:]
+        if bwd_group is not None:
+            field_.shard_bwd_group = bwd_group
+        try:
+            out = renderer.render_packed(occ_state, rays_o, rays_d, local_cap,
+                                         jitter_seed=jitter_seed, dropout_seed=dropout_seed,
+                                         march=march, skip_grid=skip_grid)
+            per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
+            num = torch.sum(per_ray_mse * out.ray_valid)
+            den = torch.sum(out.ray_valid)
+            reg = regularizer(sharded) if has_reg else None
+            # [num, den, samples, complete rays, regularizer block]: one sum
+            stats = torch.stack([num.detach(), den, out.n_samples.float(), out.n_complete.float(),
+                                 reg.detach() if sharded and has_reg else torch.zeros_like(den)])
+            group.all_reduce_sum(stats)
+            scale = 1.0 / torch.clamp(stats[1], min=1.0)
+            objective = num * scale
+            if sharded and has_reg:
+                objective = objective + reg
+            grads = grads_of(objective)
+        finally:
+            if bwd_group is not None:
+                field_.shard_bwd_group = None
+        loss = stats[0] * scale
+        if sharded:
+            if has_reg:
+                loss = loss + stats[4]
+            gview = [v for _, v in tree_leaves_with_path(
+                zero.reduce_grads(optimizer.as_tree(grads), table_keys, group))]
+            optimizer.step(gview)
+            if deterministic:
+                full = zero.unview(optimizer.as_tree(gview), optimizer.tree, table_keys, group)
+        else:
+            grads = [group.all_reduce_sum(g) for g in grads]
+            if has_reg:
+                loss = loss + reg.detach()
+                grads = [g + r for g, r in zip(grads, grads_of(reg))]
+            optimizer.step(grads)
+            if deterministic:
+                full = optimizer.as_tree(grads)
+        metrics = {"loss": loss, "rays_used": stats[1], "fill": stats[2] / cfg.sample_cap,
+                   "complete_frac": stats[3] / n_cand}
+        if deterministic:
+            metrics["grads"] = full
+        return metrics
+
+    return step
 
 
-def make_render_chunk(renderer: NerfRenderer) -> Callable:
-    """Dense render of one ray chunk: fn(occ_state, rays_o, rays_d) -> rgb."""
+def make_occupancy_update(renderer: NerfRenderer, group: Optional[DataGroup] = None) -> Callable:
+    """fn(occ_state, generator) -> the state after one decay/confirm sweep.
+
+    With a `group` (a process group whose world size divides the grid's
+    x-resolution, as the JAX mesh update asks): every rank draws the same
+    full jitter from the same stream, sweeps its contiguous x-slab
+    (`OccupancyGrid.update_slab`), and the slabs are all-gathered once, so
+    every rank holds the one-rank sweep's grid."""
+    occ = renderer.occupancy
+    if group is None or not group.grouped:
+        def update(occ_state, generator=None):
+            return occ.update(occ_state, renderer.sigma_fn, generator)
+
+        return update
+    if occ.size[0] % group.world:
+        raise ValueError(f"occupancy resolution {occ.size[0]} does not split over {group.world} ranks")
+
+    def update_sharded(occ_state, generator=None):
+        jitter = torch.rand((*occ.size, 3), generator=generator, device=occ_state.grid.device)
+        slab = occ.update_slab(occ_state, renderer.sigma_fn, jitter, group.rank, group.world)
+        grid = group.all_gather(slab)
+        return OccupancyState(grid=grid, mean=grid.mean())
+
+    return update_sharded
+
+
+def make_render_chunk(renderer: NerfRenderer, group: Optional[DataGroup] = None) -> Callable:
+    """Dense render of one ray chunk: fn(occ_state, rays_o, rays_d) -> rgb.
+    With a `group` (whose world size divides the chunk) each rank renders
+    its 1/N of the rays and every rank gets the gathered chunk."""
 
     def render_chunk(occ_state, rays_o, rays_d):
         return renderer.render_dense(occ_state, rays_o, rays_d).rgb
 
-    return render_chunk
+    if group is None or not group.grouped:
+        return render_chunk
+
+    def render_chunk_sharded(occ_state, rays_o, rays_d):
+        return group.all_gather(render_chunk(occ_state, *shard_rays(group, rays_o, rays_d)))
+
+    return render_chunk_sharded
 
 
-def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "dense") -> Callable:
+def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "dense",
+                             group: Optional[DataGroup] = None) -> Callable:
     """Fixed-capacity packed render of one ray chunk, the serving path, with
     the skip march when `march="skip"` (the skip grid is then the trailing
     argument): fn(occ_state, rays_o, rays_d, *grid) -> (rgb [R, 3], ok [R]
     bool, n_samples, n_complete).  ok=False rays overflowed the cap or
     exhausted the skip march's rounds; `infer` re-renders exactly those
-    through the dense path, so packed serving is exact."""
+    through the dense path, so packed serving is exact.  With a `group`
+    (whose world size divides the chunk and `cap`) each rank packs its 1/N
+    of the rays into cap / N samples, and every rank gets the gathered
+    colors and flags and the summed counts."""
     if march not in ("dense", "skip"):
         raise ValueError(f"unknown march {march!r}")
+    grouped = group is not None and group.grouped
+    if grouped and cap % group.world:
+        raise ValueError(f"eval cap {cap} does not split over {group.world} ranks")
+    local_cap = cap // group.world if grouped else cap
 
     def render(occ_state, rays_o, rays_d, *grid):
-        out = renderer.render_packed(occ_state, rays_o, rays_d, cap, rgb_dir_branch="ray",
+        out = renderer.render_packed(occ_state, rays_o, rays_d, local_cap, rgb_dir_branch="ray",
                                      march=march, skip_grid=grid[0] if grid else None)
         return out.rgb, out.ray_valid > 0.0, out.n_samples, out.n_complete
 
-    return render
+    if not grouped:
+        return render
+
+    def render_sharded(occ_state, rays_o, rays_d, *grid):
+        rgb, ok, n_samples, n_complete = render(occ_state, *shard_rays(group, rays_o, rays_d), *grid)
+        both = group.all_gather(torch.cat([rgb, ok.float()[:, None]], dim=1))
+        counts = group.all_reduce_sum(torch.stack([n_samples, n_complete]).long())
+        return both[:, :3], both[:, 3] > 0.0, counts[0], counts[1]
+
+    return render_sharded
 
 
 @dataclass
@@ -389,18 +616,23 @@ def infer(
     packed_fn: Optional[Callable] = None,
     stats: Optional[InferStats] = None,
     grid_args: Tuple = (),
+    write: bool = True,
 ) -> List[np.ndarray]:
     """Render full images pose by pose in fixed-size ray chunks on the
-    renderer's device and save `{name}_{i:04d}.png`.  With `packed_fn` (and
-    its trailing `grid_args`), the rays it flags (cap overflow, skip-march
-    rounds exhausted) are re-rendered by `render_chunk_fn` (dense), gathered
-    over the image into chunks of the same shape (the JAX `infer` re-renders
-    per packed chunk; every ray's value is the same either way)."""
+    renderer's device and save `{name}_{i:04d}.png` (unless `write` is
+    False: the ranks but 0 of a group).  With `packed_fn` (and its trailing
+    `grid_args`), the rays it flags (cap overflow, skip-march rounds
+    exhausted) are re-rendered by `render_chunk_fn` (dense), gathered over
+    the image into chunks of the same shape (the JAX `infer` re-renders per
+    packed chunk; every ray's value is the same either way).  Sharded chunk
+    functions gather every chunk to every rank, so all ranks flag the same
+    rays and call the dense chunks in lockstep."""
     if render_chunk_fn is None:
         render_chunk_fn = make_render_chunk(renderer)
     device = _renderer_device(renderer)
     folder = Path(folder)
-    folder.mkdir(parents=True, exist_ok=True)
+    if write:
+        folder.mkdir(parents=True, exist_ok=True)
     pad_d = torch.tensor([0.0, 0.0, 1.0], device=device)
 
     rendered: List[np.ndarray] = []
@@ -455,7 +687,8 @@ def infer(
             stats.rays.append(n)
             stats.images.append(img)
         rendered.append(img)
-        save_png(img, folder / f"{name}_{i:04d}.png")
+        if write:
+            save_png(img, folder / f"{name}_{i:04d}.png")
     return rendered
 
 
@@ -471,17 +704,25 @@ def render_only(
     name: str = "render",
     device="cuda",
     stats: Optional[InferStats] = None,
+    group: Optional[DataGroup] = None,
 ) -> Optional[List[EvalMetrics]]:
     """Render `pose_set` from the latest checkpoint in cfg.output (the CLI's
-    `--render_only`) on `device`.  Writes `{name}_{i:04d}.png` per pose and,
-    with ground truth, `metrics_render.json`; returns the per-image metrics
-    (None without ground truth)."""
+    `--render_only`) on `device`, or on every rank of `group` in lockstep
+    (each chunk split over the ranks where its sizes divide, as the JAX
+    package splits it over the mesh).  Writes `{name}_{i:04d}.png` per pose
+    and, with ground truth, `metrics_render.json` (rank 0); returns the
+    per-image metrics (None without ground truth)."""
+    grouped = group is not None and group.grouped
+    if grouped:
+        device = group.device
+    lead = not grouped or group.rank == 0
     output = Path(cfg.output)
     ck = latest_checkpoint(output)
     if ck is None:
         raise FileNotFoundError(f"no checkpoint found under {output}")
     step, state = load_checkpoint(ck)
-    print(f"Rendering from {ck} (step {step})")
+    if lead:
+        print(f"Rendering from {ck} (step {step})")
 
     renderer = build_renderer(
         cfg, scene_scale=pose_set.scene_scale,
@@ -495,12 +736,14 @@ def render_only(
             f"checkpoint occupancy grid {tuple(occ_state.grid.shape)} does not fit "
             f"occupancy_res={cfg.occupancy_res}"
         )
+    chunk_group, packed_group = _serving_groups(cfg, group)
     packed_fn = None
     grid_args: Tuple = ()
     if cfg.eval_render == "packed":
         can_skip = renderer.supports_skip_march
         packed_fn = make_render_chunk_packed(
-            renderer, cfg.batch_size * cfg.eval_samples_per_ray, march="skip" if can_skip else "dense")
+            renderer, cfg.batch_size * cfg.eval_samples_per_ray, march="skip" if can_skip else "dense",
+            group=packed_group)
         if can_skip:
             t0 = time.perf_counter()
             grid_args = (renderer.skip_grid(occ_state),)
@@ -511,18 +754,28 @@ def render_only(
     indices = list(range(len(pose_set)))
     rendered = infer(
         renderer, occ_state, pose_set, indices, output, name,
-        chunk=cfg.batch_size, render_chunk_fn=make_render_chunk(renderer),
-        packed_fn=packed_fn, stats=stats, grid_args=grid_args,
+        chunk=cfg.batch_size, render_chunk_fn=make_render_chunk(renderer, chunk_group),
+        packed_fn=packed_fn, stats=stats, grid_args=grid_args, write=lead,
     )
     if pose_set.rgbs is None:
         return None
     metrics = evaluate(pose_set, rendered, indices)
-    with open(output / "metrics_render.json", "w") as f:
-        json.dump([asdict(x) for x in metrics], f)
-    psnrs = [m.psnr for m in metrics]
-    print(f"rendered {len(metrics)} poses: psnr {np.mean(psnrs):.2f} "
-          f"(min {np.min(psnrs):.2f}, max {np.max(psnrs):.2f})")
+    if lead:
+        _write_json(output / "metrics_render.json", [asdict(x) for x in metrics])
+        psnrs = [m.psnr for m in metrics]
+        print(f"rendered {len(metrics)} poses: psnr {np.mean(psnrs):.2f} "
+              f"(min {np.min(psnrs):.2f}, max {np.max(psnrs):.2f})")
     return metrics
+
+
+def _serving_groups(cfg: TrainConfig, group: Optional[DataGroup]) -> Tuple:
+    """(dense chunk group, packed chunk group): the group where the chunk
+    (and the packed path's eval cap) split over its ranks, else None (every
+    rank renders whole chunks), as the JAX package picks its mesh."""
+    if group is None or not group.grouped or cfg.batch_size % group.world:
+        return None, None
+    eval_cap = cfg.batch_size * cfg.eval_samples_per_ray
+    return group, (group if eval_cap % group.world == 0 else None)
 
 
 
@@ -628,11 +881,14 @@ class MarchPolicy:
 # ---------------------------------------------------------------------- train
 
 
-def _generator(device, seed: int, step: int, stream: int) -> torch.Generator:
+def _generator(device, seed: int, step: int, stream: int, rank: int = 0) -> torch.Generator:
     """The random stream `stream` of step `step` (0: batch and jitter, 1:
     occupancy jitter), a function of (seed, step) so a resumed run goes on
-    with the streams of the steps it has not taken."""
-    return torch.Generator(device=device).manual_seed(((seed * 1_000_003 + step) << 1) | stream)
+    with the streams of the steps it has not taken; rank r > 0 of a group
+    folds r into the top bits (the JAX step's `fold_in(key, axis_index)`),
+    and rank 0 keeps the one-device stream."""
+    base = ((seed * 1_000_003 + step) << 1) | stream
+    return torch.Generator(device=device).manual_seed((base ^ (rank << 56)) & (2**64 - 1))
 
 
 def train(
@@ -642,17 +898,33 @@ def train(
     test_set: Optional[PoseSet] = None,
     resume: bool = False,
     device="cuda",
+    group: Optional[DataGroup] = None,
 ) -> Dict[str, object]:
-    """Full training run on `device`; returns {renderer, occ_state, metrics}.
+    """Full training run on `device`, or over the ranks of `group` (each on
+    its own device, all in lockstep); returns {renderer, occ_state,
+    metrics}.
 
     Writes, as the JAX `train` does: `metrics_train.json` (one record per
     step), `metrics_eval.json` / `eval_timeline.json` / `metrics_test.json`
     when evaluating, `throughput.json`, `ckpt_{step}.pkl` (every
     `checkpoint_every` steps and at the end; params, Adam state and
-    occupancy state in the JAX layout) and the rendered PNGs.  With `resume`
-    it continues from the latest checkpoint in cfg.output."""
-    if cfg.shard_tables or cfg.shard_bwd:
-        raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
+    occupancy state in the JAX layout, and the meta {"shard_tables",
+    "n_devices"}) and the rendered PNGs; over a group only rank 0 writes,
+    and the others wait for it at a barrier.  With `resume` it continues
+    from the latest checkpoint in cfg.output; a checkpoint written with
+    `shard_tables` holds its optimizer state in the layout of its group
+    size, so resuming it needs the same size and setting (the JAX check).
+
+    Over a group every rank keeps its 1/N of the pool (padded by repeating
+    its head), samples its 1/N of each step's rays from a batch stream
+    folded with its rank, sweeps its x-slab of the occupancy grid from the
+    shared occupancy stream, and renders its 1/N of each serving chunk."""
+    grouped = group is not None and group.grouped
+    if grouped:
+        device = group.device
+    n_dev = group.world if grouped else 1
+    rank = group.rank if grouped else 0
+    lead = rank == 0
     output = Path(cfg.output)
     output.mkdir(parents=True, exist_ok=True)
     steps = cfg.total_steps
@@ -661,50 +933,71 @@ def train(
         np.asarray(train_rays.bg_color) if train_rays.bg_color is not None else None,
         device=device,
     )
-    optimizer = make_optimizer(cfg, renderer)
-    pool_o, pool_d, pool_rgb = (a.to(device) for a in train_rays.arrays())
+    optimizer = make_optimizer(cfg, renderer, group if grouped else None)
+    if grouped:
+        pool_o, pool_d, pool_rgb = shard_rays(group, *train_rays.arrays())
+    else:
+        pool_o, pool_d, pool_rgb = (a.to(device) for a in train_rays.arrays())
     occ_state = renderer.occupancy.init_state(device)
     start_step = 0
-    ckpt_meta = {"shard_tables": False, "n_devices": 1}
+    # the sharded optimizer state is laid out per group size
+    ckpt_meta = {"shard_tables": bool(cfg.shard_tables), "n_devices": n_dev}
 
     if resume:
         ck = latest_checkpoint(output)
         if ck is not None:
             start_step, state = load_checkpoint(ck)
             saved = state.get("meta")
-            if saved is not None and saved.get("shard_tables"):
+            if saved is not None and (
+                saved.get("shard_tables") != ckpt_meta["shard_tables"]
+                or (saved.get("shard_tables") and saved.get("n_devices") != ckpt_meta["n_devices"])
+            ):
                 raise ValueError(
-                    f"checkpoint {ck} was written with {saved}; its sharded optimizer "
-                    "layout needs the same device count and --shard_tables setting")
+                    f"checkpoint {ck} was written with {saved} but this run uses {ckpt_meta}; "
+                    "shard_tables checkpoints hold an optimizer layout of their device count: "
+                    "resume with the same device count and --shard_tables setting")
             load_params(renderer, state["params"])
             optimizer.load_state(state["opt_state"])
             occ_state = occ_state_to_torch(state["occ_state"], device)
-            print(f"Resumed from {ck} at step {start_step}")
+            if lead:
+                print(f"Resumed from {ck} at step {start_step}")
 
     n_params = sum(p.numel() for p in optimizer.params)
-    print(f"Using {cfg.method} with {n_params} parameters on {device}.")
+    if lead:
+        print(f"Using {cfg.method} with {n_params} parameters on {device}"
+              + (f" and {n_dev - 1} more rank(s) ({group.backend})." if n_dev > 1 else "."))
 
+    step_group = group if grouped else None
     steps_by_key: Dict[Tuple[int, str], Callable] = {}
 
     def get_step(bucket: int, march: str) -> Callable:
         if (bucket, march) not in steps_by_key:
             steps_by_key[bucket, march] = make_train_step(
-                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march)
+                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march, group=step_group)
         return steps_by_key[bucket, march]
 
     policy = MarchPolicy(renderer.supports_skip_march, cfg.march, renderer.skip_steps)
     skip_grid = renderer.skip_grid(occ_state) if policy.can_skip else None
-    occ_update = make_occupancy_update(renderer)
-    render_chunk_fn = make_render_chunk(renderer)
+    occ_update = make_occupancy_update(
+        renderer, step_group if grouped and cfg.occupancy_res % n_dev == 0 else None)
+    chunk_group, packed_group = _serving_groups(cfg, step_group)
+    render_chunk_fn = make_render_chunk(renderer, chunk_group)
     packed_chunk_fn = None
     if cfg.eval_render == "packed":
         packed_chunk_fn = make_render_chunk_packed(
             renderer, cfg.batch_size * cfg.eval_samples_per_ray,
-            march="skip" if policy.can_skip else "dense")
+            march="skip" if policy.can_skip else "dense", group=packed_group)
 
     def eval_grid_args() -> Tuple:
         # the skip grid current at eval time (rebuilt at occupancy updates)
         return (skip_grid,) if packed_chunk_fn is not None and policy.can_skip else ()
+
+    def checkpoint(step: int) -> None:
+        state = _state(renderer, optimizer, occ_state, ckpt_meta)  # every rank: gathers moments
+        if lead:
+            save_checkpoint(output, step, state)
+        if grouped:
+            group.barrier()
 
     train_metrics: List[TrainMetrics] = []
     eval_acc: List[EvalMetrics] = []
@@ -730,7 +1023,7 @@ def train(
     occ_frac = renderer.occupancy.occupancy(occ_state)
     prof = None
     for step_i in range(start_step, steps):
-        if cfg.profile_start is not None:
+        if cfg.profile_start is not None and lead:
             if step_i == cfg.profile_start:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if torch.device(device).type == "cuda":
@@ -754,23 +1047,24 @@ def train(
         march = policy.pick(estimator.avg_samples_per_ray)
         grid_args = (skip_grid,) if march == "skip" else ()
         m = get_step(bucket, march)(occ_state, *grid_args, pool_o, pool_d, pool_rgb,
-                                    _generator(device, cfg.seed, step_i, 0))
+                                    _generator(device, cfg.seed, step_i, 0, rank))
         pending.append((m["loss"], occ_frac, m["fill"], m["rays_used"]))
         rays_candidate += bucket * cfg.batch_size
         estimator.observe(m["fill"], m["rays_used"])
         if march == "skip":
             tripped = policy.observe(m["complete_frac"])
-            if tripped is not None:
+            if tripped is not None and lead:
                 print(f"step {step_i}: {1 - tripped:.1%} of rays exhausted the skip-march round "
                       f"budget ({renderer.skip_steps}); dense marching until the next occupancy update")
 
         if len(pending) >= 64 or step_i == steps - 1:
             flush_pending()
-            print(f"step {step_i + 1}/{steps}: loss {train_metrics[-1].loss:.5f}, "
-                  f"occupancy {train_metrics[-1].occupancy:.4f}, bucket {bucket}, march {march}")
+            if lead:
+                print(f"step {step_i + 1}/{steps}: loss {train_metrics[-1].loss:.5f}, "
+                      f"occupancy {train_metrics[-1].occupancy:.4f}, bucket {bucket}, march {march}")
 
         if cfg.checkpoint_every and (step_i + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(output, step_i + 1, _state(renderer, optimizer, occ_state, ckpt_meta))
+            checkpoint(step_i + 1)
 
         if (cfg.eval_every is not None and cfg.eval_n is not None and eval_set is not None
                 and step_i > 0 and step_i % cfg.eval_every == 0):
@@ -779,7 +1073,7 @@ def train(
             rendered = infer(
                 renderer, occ_state, eval_set, indices, output, f"eval_{step_i}",
                 chunk=cfg.batch_size, render_chunk_fn=render_chunk_fn, packed_fn=packed_chunk_fn,
-                grid_args=eval_grid_args(),
+                grid_args=eval_grid_args(), write=lead,
             )
             round_metrics = evaluate(eval_set, rendered, indices)
             eval_acc.extend(round_metrics)
@@ -798,9 +1092,10 @@ def train(
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t_start
-    # the headline rate counts only rays that reached the loss
-    rays_per_sec = rays_used / max(elapsed, 1e-9)
-    cand_rays_per_sec = rays_candidate / max(elapsed, 1e-9)
+    # the headline rate counts only rays that reached the loss; over a group
+    # the counts are the group's, so each chip's share divides them by N
+    rays_per_sec = rays_used / max(elapsed, 1e-9) / n_dev
+    cand_rays_per_sec = rays_candidate / max(elapsed, 1e-9) / n_dev
 
     test_metrics: Optional[List[EvalMetrics]] = None
     if test_set is not None:
@@ -808,26 +1103,29 @@ def train(
         rendered = infer(
             renderer, occ_state, test_set, indices, output, "test_full",
             chunk=cfg.batch_size, render_chunk_fn=render_chunk_fn, packed_fn=packed_chunk_fn,
-            grid_args=eval_grid_args(),
+            grid_args=eval_grid_args(), write=lead,
         )
         if test_set.rgbs is not None:
             test_metrics = evaluate(test_set, rendered, indices)
 
-    save_checkpoint(output, steps, _state(renderer, optimizer, occ_state, ckpt_meta))
-    _write_json(output / "metrics_train.json", [asdict(x) for x in train_metrics])
-    if eval_acc:
-        _write_json(output / "metrics_eval.json", [asdict(x) for x in eval_acc])
-    if eval_timeline:
-        _write_json(output / "eval_timeline.json", eval_timeline)
-    if test_metrics:
-        _write_json(output / "metrics_test.json", [asdict(x) for x in test_metrics])
-    _write_json(output / "throughput.json", {
-        "rays_per_sec_per_chip": rays_per_sec,
-        "candidate_rays_per_sec_per_chip": cand_rays_per_sec,
-        "elapsed_s": elapsed,
-        "steps": steps - start_step,
-        "n_devices": 1,
-    })
+    checkpoint(steps)
+    if lead:
+        _write_json(output / "metrics_train.json", [asdict(x) for x in train_metrics])
+        if eval_acc:
+            _write_json(output / "metrics_eval.json", [asdict(x) for x in eval_acc])
+        if eval_timeline:
+            _write_json(output / "eval_timeline.json", eval_timeline)
+        if test_metrics:
+            _write_json(output / "metrics_test.json", [asdict(x) for x in test_metrics])
+        _write_json(output / "throughput.json", {
+            "rays_per_sec_per_chip": rays_per_sec,
+            "candidate_rays_per_sec_per_chip": cand_rays_per_sec,
+            "elapsed_s": elapsed,
+            "steps": steps - start_step,
+            "n_devices": n_dev,
+        })
+    if grouped:
+        group.barrier()
     return {
         "renderer": renderer,
         "occ_state": occ_state,
