@@ -36,7 +36,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    over the full-width Cobafa field's seven grids and the quad cell-pack
    build over the K-Planes field's nine planes, each in bf16 and f32,
    bit-equal to its plain version and to the yardstick `copy_` (the oct
-   build also at 3, 5 and 6 channels on grids that are not cubic); and the
+   build also at 3, 5 and 6 channels on grids that are not cubic), and the
+   quad build in float8_e4m3fn byte-equal to its plain version (JAX's
+   float8 rule) on the nine planes seeded with the rule's boundaries
+   (+-464, +-480, +-inf, NaN, -0.0, subnormals) and on small tables whose
+   channel counts take its 4-value chunks, its `copy_` yardstick timed
+   only (torch's cast saturates); and the
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
    jitter, k_idx and complete equal to its plain version's (and the skip
@@ -127,14 +132,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (each gradient leaf 1e-5 of its max), 4 `train()` steps through the
    group (the same launches per step), then `render_only` from their
    checkpoint over the group, packed and dense, against `render_only`
-   alone (max abs 1e-5).
+   alone (max abs 1e-5);
+12. the port's four tools through their `main(argv)`, at full width:
+   (a) `tools/bench_infer_torch.py` at its defaults (K-Planes, 8192-ray
+   chunks x 400 samples, cap 64 per ray, the 128^3 shell): dense,
+   packed on the dense march and on the skip march, each path's kernels
+   launched in its own chunks (2; 1 and 7; the skip march) and its `ok`
+   share in (0, 1]; (b) `tools/profile_step_torch.py` at bucket 16, dense
+   and `--march skip`: every stage, kernel 1 once per packed weights call;
+   (c) `tools/quality_run_torch.py --method kplanes` at the JAX tool's
+   defaults for QUALITY_STEPS steps: the skip march launched inside
+   `train()` and taken by some of its steps, the loss down
+   QUALITY_LOSS_DROP times, a finite test PSNR over QUALITY_PSNR_FLOOR;
+   (d) the same with `--gather-dtype float8` for FP8_STEPS steps: every
+   quad build float8, nine per field call, a finite falling loss; (e)
+   `tools/render_turntable_torch.py` from (c)'s checkpoint, four 200x200
+   frames: s/frame and the skip-serving fallback share on a trained scene.
 
-Each of phases 3-11 sets every kernel's launch count to 0 just before it
+Each of phases 3-12 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after (phase 11(a) in each
-rank's process, around `train()`); the comparisons with the plain
-versions and phase 11's deterministic and ungrouped steps are not
-counted.  The last two lines are a JSON
-record of the kernels (launches summed over phases 3-11, and by phase) and
+rank's process, around `train()`; phase 12 around each tool); the
+comparisons with the plain versions and phase 11's deterministic and
+ungrouped steps are not counted.  The last two lines are a JSON
+record of the kernels (launches summed over phases 3-12, and by phase;
+the float8 quad build in a row of its own) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
 """
@@ -142,11 +163,12 @@ It needs no jax, no Pillow and no network.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
-import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -205,14 +227,6 @@ F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 # sigma * delta * mask, the scan's add, exp(-(c - s)), 1 - exp(-s), the
 # product and the threshold; the backward's two scans and closed form
 WEIGHTS_FWD_FLOPS, WEIGHTS_BWD_FLOPS = 10, 14
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def median_ms(fn, runs: int = 20) -> float:
@@ -699,6 +713,12 @@ def check_oct_build(dev):
                           **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
 
 
+# JAX's float8_e4m3fn boundaries (tests/test_torch_gather_dtype.py): NaN
+# above 464 and at +-inf, 464 itself to 448, signed zero, subnormals
+FP8_BOUNDARY = (464.0, -464.0, 464.0001, -464.0001, 480.0, -480.0, float("inf"), float("-inf"), float("nan"),
+                -0.0, 2.0**-10, 2.0**-9 * 1.5, 447.0, 448.0)
+
+
 def quad_yardstick(table: torch.Tensor, out_dtype) -> torch.Tensor:
     """The quad table by one PyTorch call: a `copy_` of the table's 2x2
     windows (unfold; corners dx, dy with dy fastest) into the output viewed
@@ -741,9 +761,45 @@ def check_quad_build(dev):
     big = tables[-1]  # a 513^2 plane alone, bf16
     print(f"kernel quad build bf16 {tuple(big.shape)}: call {median_ms(lambda: octbuild.build_quad(big)):.4f} ms, "
           f"yardstick {median_ms(lambda: quad_yardstick(big, torch.bfloat16)):.4f} ms")
-    # the field builds bf16 tables (models/kplanes.py); f32 rides along
+    # float8_e4m3fn (gather_dtype="float8"): the same planes with JAX's
+    # float8 boundaries seeded in, held as bytes against the plain version
+    # (the JAX rule written out in torch ops); the copy_ yardstick casts by
+    # torch's saturating rule, so it is timed, not compared
+    fp8 = torch.float8_e4m3fn
+    seeded = []
+    for t in tables:
+        t = t.clone()
+        vals = torch.tensor(FP8_BOUNDARY, device=dev).repeat(64)
+        t.view(-1)[(torch.arange(vals.numel(), device=dev) * 7919) % t.numel()] = vals
+        seeded.append(t)
+    n_nan = 0
+    for t in seeded:
+        out = octbuild.build_quad(t, fp8).view(torch.uint8)
+        if not torch.equal(out, octbuild.build_quad_plain(t, fp8).view(torch.uint8)):
+            raise AssertionError(f"quad build (float8) of {tuple(t.shape)} is not byte-equal to plain")
+        n_nan += int(((out & 0x7F) == 0x7F).sum())
+        del out
+    if n_nan == 0:
+        raise AssertionError("the seeded float8 boundaries gave no NaN code")
+    for shape in ((9, 17, 3), (17, 9, 6), (6, 7, 12)):  # 4-value chunks where F % 4 != 0
+        t = torch.randn(shape, device=dev, generator=gen) * 300.0
+        if not torch.equal(octbuild.build_quad(t, fp8).view(torch.uint8),
+                           octbuild.build_quad_plain(t, fp8).view(torch.uint8)):
+            raise AssertionError(f"quad build (float8) of {shape} is not byte-equal to plain")
+    print(f"kernel quad build float8 [{roster}], tables seeded with {len(FP8_BOUNDARY)} boundary values x 64: "
+          f"byte-equal to the plain build ({n_nan} NaN codes)")
+    out_bytes = sum((t.shape[0] - 1) * (t.shape[1] - 1) * 4 * t.shape[2] for t in tables)
+    entry["fp8"] = dict(max_abs_err=0.0, **time_pair(
+        "kernel quad build float8, the 9-plane roster",
+        lambda: [octbuild.build_quad(t, fp8) for t in seeded],
+        lambda: [octbuild.build_quad_plain(t, fp8) for t in seeded],
+        bound(nbytes(*seeded) + out_bytes),
+        lambda: [quad_yardstick(t, fp8) for t in seeded],
+    ))
+    # the field builds bf16 tables by default (models/kplanes.py); f32 rides along
     return {"quad_build": {**entry["bf16"],
-                           **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}}}
+                           **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}},
+            "quad_build_fp8": entry["fp8"]}
 
 
 def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march_args, round_flops: int,
@@ -862,36 +918,22 @@ def write_nerfstudio_scene(root, n_frames: int = 9, res: int = 800):
     return root
 
 
-def counters() -> dict:
-    """Every kernel wrapper, by the key of the kernels record."""
-    from tinynerf_tpu_torch.core import skipmarch
-    from tinynerf_tpu_torch.ops import bitonic, octbuild, segscan, table_grad, weights_dense
-
-    return {
-        "segscan": segscan.compute_weights_packed,
-        "weights_dense": weights_dense.compute_weights_dense,
-        "segscan_bwd": segscan.weights_packed_bwd,
-        "weights_dense_bwd": weights_dense.weights_dense_bwd,
-        "sort": bitonic.sort_i32,
-        "accumulate": table_grad.windowed_accumulate,
-        "oct_build": octbuild.build_oct,
-        "quad_build": octbuild.build_quad,
-        "skip_march": skipmarch.skip_march,
-        "skip_march_unbounded": skipmarch.skip_march_unbounded,
-    }
-
-
 def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0 (`ops/cuda_lib.py`'s
+    counters, by the keys of the kernels record)."""
+    from tinynerf_tpu_torch.ops import cuda_lib
+
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
+    cuda_lib.zero_launch_counts()
 
 
 def read_counts(label: str, required) -> dict:
     """The launches since `zero_counts`; raise if a kernel of `required`
     was not launched."""
+    from tinynerf_tpu_torch.ops import cuda_lib
+
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in counters().items()}
+    counts = cuda_lib.launch_counts()
     print(f"{label} launches: {counts}")
     for name in required:
         if counts[name] <= 0:
@@ -1392,6 +1434,7 @@ def dp_worker(rank: int, rdv: str, tmp: str) -> None:
     peak memory and rank 0's comparisons to tmp/rank{rank}.json."""
     import torch.distributed as dist
 
+    from tinynerf_tpu_torch.ops import cuda_lib
     from tinynerf_tpu_torch.parallel import wrap_default_group
     from tinynerf_tpu_torch.train import TrainConfig, lr_schedule, train
 
@@ -1418,7 +1461,7 @@ def dp_worker(rank: int, rdv: str, tmp: str) -> None:
         zero_counts()
         out_train = train(tcfg, pool, device="cuda:0", group=group)
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters().items()}
+        launches = cuda_lib.launch_counts()
         losses = [m.loss for m in out_train["train_metrics"]]
         res.update(train_ms=out_train["elapsed_s"] / DP_TRAIN_STEPS * 1e3, losses=losses,
                    rays_per_sec_per_chip=out_train["rays_per_sec_per_chip"],
@@ -1574,6 +1617,7 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
     ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
+    ("quad_build_fp8", "octbuild.build_quad (float8_e4m3fn out)", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
     ("skip_march", "skipmarch.skip_march", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:357"),
     ("skip_march_unbounded", "skipmarch.skip_march_unbounded", "skipmarch.cu",
      "tinynerf_tpu/core/skipmarch.py:209"),
@@ -1604,11 +1648,119 @@ def run_phases(card: str, ns_root) -> dict:
     return launches
 
 
+# phase 12, the port's four tools through their main(argv), as a user runs
+# them.  (c) trains K-Planes with the JAX tool's defaults (spheres, 12 views
+# at 100, batch 1024 x 128, f32) for QUALITY_STEPS steps: the occupancy
+# grid decays from all-occupied by 0.01^(1/16) per update (every 64 steps),
+# so it first culls at step 1024, and `MarchPolicy` can switch train() to
+# the skip march only after that (the first card run switched at step 1089
+# and reached 23.67 dB: PERF.md §6, PR 9); its test PSNR must reach
+# QUALITY_PSNR_FLOOR dB, that run's less about 1.7 dB, and its loss fall at
+# least QUALITY_LOSS_DROP times; (d) the same with float8 gathers for
+# FP8_STEPS steps
+QUALITY_STEPS, FP8_STEPS = 1280, 64
+QUALITY_PSNR_FLOOR, QUALITY_LOSS_DROP = 22.0, 10.0
+TURNTABLE_FRAMES, TURNTABLE_RES = 4, 200
+
+
+def _import_tool(name: str):
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+def run_tools(card: str) -> dict:
+    """Phase 12: bench_infer, profile_step (dense, skip), quality_run (the
+    default bf16 gathers, then float8) and render_turntable from
+    quality_run's checkpoint.  Returns label -> kernel -> launches."""
+    launches = {}
+
+    def counted(label: str, required, fn):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        launches[label] = read_counts(f"phase {label}", required)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    # (a) serving throughput at the JAX tool's full-width defaults, each
+    # path's kernels launched in its own timed chunks
+    bench = counted("12a_bench_infer", ("weights_dense", "segscan", "quad_build", "skip_march"),
+                    lambda: _import_tool("bench_infer_torch").main([]))
+    for path, need in (("dense", ("weights_dense",)), ("packed_dense", ("segscan", "quad_build")),
+                       ("packed_skip", ("skip_march",))):
+        if not all(bench[path]["launches"][k] > 0 for k in need):
+            raise AssertionError(f"bench_infer {path} did not launch {need}: {bench[path]['launches']}")
+        if path != "dense" and not 0.0 < bench[path]["ok_share"] <= 1.0:
+            raise AssertionError(f"bench_infer {path}: ok share {bench[path]['ok_share']}")
+    print(f"12a bench_infer rays/s: " + ", ".join(f"{p} {bench[p]['rays_per_s']:.0f}"
+                                                  for p in ("dense", "packed_dense", "packed_skip"))
+          + f"; speedup {bench['speedup']:.2f}x ({card})")
+
+    # (b) the stage table at bucket 16, dense then skip
+    for march in ("dense", "skip"):
+        prof = counted(f"12b_profile_step_{march}", ("segscan", "quad_build"),
+                       lambda: _import_tool("profile_step_torch").main(["--march", march]))
+        weights = prof["stages"]["packed weights fwd (segscan)"]["launches_per_call"]
+        if weights.get("segscan") != 1:
+            raise AssertionError(f"profile_step: kernel 1 launched {weights} per packed weights call")
+        if march == "skip" and not prof["stages"]["skip-march scan (K=64)"]["launches_per_call"].get("skip_march"):
+            raise AssertionError("profile_step: the skip march stage launched no skip march")
+
+    # (c) a trained scene: the skip march launched inside train(), the loss
+    # falling, a finite test PSNR over the floor
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--method", "kplanes", "--steps", str(QUALITY_STEPS)]
+        q = counted("12c_quality_run", TRAINING_KERNELS["kplanes"] + ("skip_march",),
+                    lambda: _import_tool("quality_run_torch").main(base + ["--output", f"{tmp}/q"]))
+        drop = q["first_loss"] / q["last_loss"]
+        print(f"12c quality_run: loss {q['first_loss']:.5f} -> {q['last_loss']:.5f} ({drop:.1f}x), test PSNR "
+              f"{q['psnr']:.2f} dB, SSIM {q['ssim']:.3f}, {q['march_steps']['skip']} of {QUALITY_STEPS} steps "
+              f"on the skip march (first: step {q['first_skip_step']}), {q['rays_per_sec_per_chip']:.0f} "
+              f"rays/s, {q['elapsed_s']:.1f} s ({card})")
+        if not q["march_steps"]["skip"] > 0:
+            raise AssertionError("quality_run: train() never took the skip march")
+        if not (np.isfinite(q["psnr"]) and q["psnr"] >= QUALITY_PSNR_FLOOR and drop >= QUALITY_LOSS_DROP):
+            raise AssertionError(f"quality_run: PSNR {q['psnr']} (floor {QUALITY_PSNR_FLOOR}) or loss drop "
+                                 f"{drop:.2f}x (at least {QUALITY_LOSS_DROP}) missed")
+
+        # (d) float8 gathers: every quad build of the field in float8
+        q8 = counted("12d_quality_run_fp8", ("quad_build_fp8", "segscan", "sort", "accumulate"),
+                     lambda: _import_tool("quality_run_torch").main(
+                         ["--method", "kplanes", "--steps", str(FP8_STEPS), "--gather-dtype", "float8",
+                          "--output", f"{tmp}/q8"]))
+        c = launches["12d_quality_run_fp8"]
+        if not (c["quad_build_fp8"] == c["quad_build"] and c["quad_build_fp8"] % 9 == 0):
+            raise AssertionError(f"quality_run float8: {c['quad_build_fp8']} float8 quad builds of "
+                                 f"{c['quad_build']}, not nine per field call")
+        if not (np.isfinite(q8["losses"]).all() and q8["last_loss"] < q8["first_loss"]):
+            raise AssertionError(f"quality_run float8: loss {q8['first_loss']} -> {q8['last_loss']}")
+        print(f"12d quality_run float8: loss {q8['first_loss']:.5f} -> {q8['last_loss']:.5f}, test PSNR "
+              f"{q8['psnr']:.2f} dB, {c['quad_build_fp8']} float8 quad builds")
+
+        # (e) the turntable from (c)'s checkpoint, on the skip march
+        tt = counted("12e_render_turntable", ("segscan", "quad_build", "skip_march"),
+                     lambda: _import_tool("render_turntable_torch").main(
+                         ["--ckpt", f"{tmp}/q/exp/ckpt_{QUALITY_STEPS}.pkl", "--method", "kplanes",
+                          "--out", f"{tmp}/frames", "--n_frames", str(TURNTABLE_FRAMES),
+                          "--res", str(TURNTABLE_RES)]))
+        if not all(np.isfinite(img).all() and img.shape == (TURNTABLE_RES, TURNTABLE_RES, 3)
+                   for img in tt["images"]):
+            raise AssertionError("render_turntable: a frame is not finite or of the wrong shape")
+        print(f"12e render_turntable: {tt['seconds_per_frame']:.4f} s/frame ({tt['seconds']}), fallback "
+              f"{tt['fallback_rays']} of {tt['rays']} rays ({tt['fallback_share']:.4%}), incomplete "
+              f"{tt['incomplete_rays']} ({card})")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
+    from tinynerf_tpu_torch.utils.device import card_line
+
     t_start = time.perf_counter()
-    card = card_line()
+    card = card_line(torch.device("cuda"))
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1639,11 +1791,17 @@ def main() -> None:
         t0 = time.perf_counter()
         launches.update(run_data_parallel(card))
         print(f"phase 11 (data parallel): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches.update(run_tools(card))
+        print(f"phase 12 (tools): {time.perf_counter() - t0:.1f} s")
 
+    # the quad build's counter counts every launch; its float8 launches
+    # have a row of their own
+    own = lambda c, key: c[key] - c["quad_build_fp8"] if key == "quad_build" else c[key]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"tinynerf_tpu_torch/csrc/{source}", "replaces": replaces,
-         "launches": sum(c[key] for c in launches.values()),
-         "launches_by_phase": {ph: c[key] for ph, c in launches.items()}, **kern[key]}
+         "launches": sum(own(c, key) for c in launches.values()),
+         "launches_by_phase": {ph: own(c, key) for ph, c in launches.items()}, **kern[key]}
         for key, name, source, replaces in KERNELS
     ]}
     for k in record["kernels"]:

@@ -1,5 +1,6 @@
-"""The port stands alone: every module of `tinynerf_tpu_torch`, and
-`chip_smoke.py`, imports with jax, optax and the JAX package unimportable;
+"""The port stands alone: every module of `tinynerf_tpu_torch`,
+`chip_smoke.py` and the port's tools (`tools/*_torch.py`) import with jax,
+optax and the JAX package unimportable, and importing a tool runs nothing;
 the port's own native PNG loader (`tinynerf_tpu_torch/native`, built
 into `build/`, never beside its source) decodes a generated scene exactly
 as the JAX package's parser and the Pillow fallback do, PNGs of several
@@ -34,6 +35,12 @@ names = ["chip_smoke", "tinynerf_tpu_torch.__main__"] + [
     m.name for m in pkgutil.walk_packages(tinynerf_tpu_torch.__path__, "tinynerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import importlib.util, pathlib
+tools = sorted(pathlib.Path("tools").glob("*_torch.py"))
+for path in tools:  # imported as modules, so their main() does not run
+    spec = importlib.util.spec_from_file_location(f"tool_{path.stem}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.stem)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "tinynerf_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -45,7 +52,8 @@ def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 39  # every module and the nine tools were walked
+    assert proc.stdout.count("\n") == 1  # no tool printed: none ran its main
 
 
 @pytest.fixture(scope="module")

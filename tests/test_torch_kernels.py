@@ -546,20 +546,26 @@ def test_trilinear_lookup_oct_on_card_matches_cpu(cuda_device):
 
 
 # the K-Planes planes at full width (make_model("kplanes")), then odd and
-# small channel counts (a bf16 row of 4F values is 8F bytes) and r = 2
-QUAD_SHAPES = [(129, 129, 32), (257, 257, 32), (513, 513, 32), (9, 17, 3), (17, 9, 6), (5, 6, 1), (2, 2, 2)]
+# small channel counts (a bf16 row of 4F values is 8F bytes; a float8 row
+# takes 16-byte chunks only where F is a multiple of 4) and r = 2
+QUAD_SHAPES = [(129, 129, 32), (257, 257, 32), (513, 513, 32), (9, 17, 3), (17, 9, 6), (5, 6, 1), (2, 2, 2),
+               (9, 9, 4), (6, 7, 12)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn])
 def test_quad_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
+    """Bit-equal as bytes (a float8 NaN is not equal to itself), float8
+    also over values beyond its range (JAX's NaN rule) and subnormals."""
     rng = np.random.default_rng(18)
     for shape in QUAD_SHAPES:
-        table = T(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+        table = rng.normal(size=shape) * 2.0 ** rng.integers(-12, 10, shape)
+        table = T(table.astype(np.float32)).to(cuda_device)
         before = octbuild.build_quad.launches
         out = octbuild.build_quad(table, out_dtype)
         assert octbuild.build_quad.launches == before + 1
-        assert torch.equal(out, octbuild.build_quad_plain(table, out_dtype)), shape
+        plain = octbuild.build_quad_plain(table, out_dtype)
+        assert torch.equal(out.view(torch.uint8), plain.view(torch.uint8)), shape
 
 
 @pytest.mark.cuda

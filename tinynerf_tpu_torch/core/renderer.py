@@ -69,6 +69,27 @@ class RenderOutput(NamedTuple):
     n_complete: torch.Tensor
 
 
+def compact(maskb: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The packed path's compaction of the valid samples `maskb` [R, S]:
+    the first `cap` in ray-major order, padded with index R * S
+    (jnp.nonzero(size=cap)'s fill), without a host sync: each valid
+    sample's rank is a cumsum, and ranks below `cap` scatter their flat
+    index into the buffer (slot `cap` takes the rest and is dropped).
+    Returns (is_pad [cap], the flat index with pads at 0 [cap], the ray of
+    each sample with pads at R [cap])."""
+    n_rays, n_samples = maskb.shape
+    total = n_rays * n_samples
+    flat = maskb.reshape(-1)
+    rank = torch.cumsum(flat, dim=0) - 1
+    slot = torch.where(flat & (rank < cap), rank, cap)
+    valid_idx = torch.full((cap + 1,), total, dtype=torch.long, device=maskb.device)
+    valid_idx.scatter_(0, slot, torch.arange(total, device=maskb.device))
+    valid_idx = valid_idx[:cap]
+    is_pad = valid_idx >= total
+    safe_idx = torch.where(is_pad, 0, valid_idx)
+    return is_pad, safe_idx, torch.where(is_pad, n_rays, safe_idx // n_samples)
+
+
 class NerfRenderer(nn.Module):
     def __init__(
         self,
@@ -255,22 +276,8 @@ class NerfRenderer(nn.Module):
         total = n_rays * n_samples
         dev = rays_o.device
         maskb = maskf > 0.0
-
-        # --- compaction: the first `cap` valid samples in ray-major order,
-        # padded with index `total` (jnp.nonzero(size=cap)'s fill), without
-        # a host sync: each valid sample's rank is a cumsum, and ranks below
-        # `cap` scatter their flat index into the buffer (slot `cap` takes
-        # the rest and is dropped)
-        flat = maskb.reshape(-1)
-        rank = torch.cumsum(flat, dim=0) - 1
-        slot = torch.where(flat & (rank < cap), rank, cap)
-        valid_idx = torch.full((cap + 1,), total, dtype=torch.long, device=dev)
-        valid_idx.scatter_(0, slot, torch.arange(total, device=dev))
-        valid_idx = valid_idx[:cap]
-        is_pad = valid_idx >= total
-        safe_idx = torch.where(is_pad, 0, valid_idx)
-        seg_ids = torch.where(is_pad, n_rays, safe_idx // n_samples)
-
+        # --- compaction: the first `cap` valid samples in ray-major order
+        is_pad, safe_idx, seg_ids = compact(maskb, cap)
         cpos_cap = cpos.reshape(total, 3)[safe_idx]
         ray_of = torch.where(is_pad, 0, seg_ids)
 

@@ -1,4 +1,5 @@
-// Cell-packed table builds, in bf16 or f32:
+// Cell-packed table builds, in bf16 or f32 (the quad build also in
+// float8_e4m3fn):
 //   oct:  [r0, r1, r2, F] f32 -> [(r0-1)(r1-1)(r2-1), 8F]  (Cobafa's grids)
 //   quad: [r0, r1, F] f32     -> [(r0-1)(r1-1), 4F]         (K-Planes' planes)
 //
@@ -64,6 +65,20 @@
 // cells and any F works (a 16-byte bf16 chunk would need an even F here: a
 // bf16 quad row is 8F bytes).  Stores are coalesced; the four corner reads
 // of neighbouring cells overlap and come from L1/L2.
+//
+// The quad build's float8_e4m3fn output (the K-Planes field's
+// gather_dtype="float8", the JAX Pallas kernel's out_dtype=float8_e4m3fn) is
+// the same copy with 1-byte values, 4F bytes a row (128 bytes at F = 32).
+// Where F is a multiple of 4 a row is F / 4 whole 16-byte chunks, and one
+// thread writes a chunk of 16 values (which may span two corners); else a
+// thread writes 4 values, 4 bytes.  (The 4-byte chunk alone was slower than
+// the bf16 build's 8-byte one on the nine planes: PERF.md has both times.)
+// It reads f32 and writes a quarter of the f32 output's bytes, so at the
+// field's nine planes its bound is 132.8 MB read and 132.1 MB written,
+// ~0.079 ms at 3.35 TB/s.  The cast is JAX's rule (to_bits(float, uint8_t)
+// below, bit-equal to ops/octbuild.py:to_float8_e4m3fn), not
+// __nv_cvt_float_to_fp8: JAX rounds |x| > 464 and +-inf to NaN and 464 to
+// 448, which neither of that intrinsic's saturation modes gives.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +95,26 @@ __device__ __forceinline__ uint16_t to_bits(float v, uint16_t) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 __device__ __forceinline__ uint32_t to_bits(float v, uint32_t) { return __float_as_uint(v); }
+
+// f32 -> float8_e4m3fn (1 sign, 4 exponent bits of bias 7, 3 mantissa bits;
+// 0x7F is NaN) as JAX casts: nearest even, as if the code above 448 were
+// 480, and that code is NaN.  Normals: the f32 bits' low 20 mantissa bits
+// rounded away (a carry moves the exponent), the exponent rebiased from 127
+// to 7; subnormals (|x| < 2^-6) count steps of 2^-9, rounded to even.
+__device__ __forceinline__ uint8_t to_bits(float v, uint8_t) {
+  const uint32_t bits = __float_as_uint(v);
+  const uint32_t mag = bits & 0x7FFFFFFFu;
+  const float a = __uint_as_float(mag);
+  uint32_t code;
+  if (!(a <= 464.0f)) {  // |x| > 464, inf and NaN
+    code = 0x7Fu;
+  } else if (a < 0x1p-6f) {
+    code = static_cast<uint32_t>(__float2int_rn(a * 512.0f));  // exact product; 0 .. 8
+  } else {
+    code = ((mag + 0x7FFFFu + ((mag >> 20) & 1u)) >> 20) - (120u << 3);
+  }
+  return static_cast<uint8_t>(code | ((bits >> 24) & 0x80u));
+}
 
 // ---------------------------------------------------------------- oct build
 
@@ -272,13 +307,14 @@ cudaError_t build_oct(const float* table, int r0, int r1, int r2, int f, int ban
 
 // --------------------------------------------------------------- quad build
 
-// One chunk = 4 output values; Store is uint2 (4 x bf16) or uint4 (4 x f32).
+// One chunk = sizeof(Store) / sizeof(Bits) output values: Store is uint4 (16
+// x fp8 or 4 x f32), uint32_t (4 x fp8) or uint2 (4 x bf16).
 template <typename Bits, typename Store>
 __global__ void quad_build_kernel(const float* __restrict__ table, int r1, int f, unsigned m1,
                                   unsigned chunks_per_row, unsigned n_chunks,
                                   Store* __restrict__ out) {
-  constexpr int kPerChunk = 4;
-  static_assert(sizeof(Store) == kPerChunk * sizeof(Bits), "a chunk is 4 values");
+  constexpr int kPerChunk = sizeof(Store) / sizeof(Bits);
+  static_assert(kPerChunk == 4 || kPerChunk == 16, "a chunk is 4 or 16 values");
   const long long sx = static_cast<long long>(r1) * f;
   // n_chunks < 2^31 (checked by the entry point), so q + stride never wraps
   for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < n_chunks;
@@ -331,20 +367,29 @@ int tn_build_oct(const void* table, int r0, int r1, int r2, int f, int out_bf16,
                                    : build_oct<uint32_t>(t, r0, r1, r2, f, band, threads, o, s));
 }
 
-// table: [r0, r1, f] f32, contiguous; out: [(r0-1)(r1-1), 4f] of bf16
-// (out_bf16 != 0) or f32, contiguous and 8-byte (bf16) or 16-byte (f32)
-// aligned.
-int tn_build_quad(const void* table, int r0, int r1, int f, int out_bf16, void* out, void* stream) {
-  if (r0 < 2 || r1 < 2 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
+// table: [r0, r1, f] f32, contiguous; out: [(r0-1)(r1-1), 4f] of
+// float8_e4m3fn (out_bytes 1), bf16 (2) or f32 (4), contiguous and aligned to
+// 16 bytes.
+int tn_build_quad(const void* table, int r0, int r1, int f, int out_bytes, void* out, void* stream) {
+  if (r0 < 2 || r1 < 2 || f < 1 || (out_bytes != 1 && out_bytes != 2 && out_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int m1 = r1 - 1;
-  const long long n_chunks = static_cast<long long>(r0 - 1) * m1 * f;  // f chunks of 4 per row
+  const bool wide = out_bytes == 1 && f % 4 == 0;  // fp8 rows of whole 16-value chunks
+  const int chunks_per_row = wide ? f / 4 : f;       // else f chunks of 4 per row
+  const long long n_chunks = static_cast<long long>(r0 - 1) * m1 * chunks_per_row;
   if (n_chunks > INT_MAX || static_cast<long long>(r0) * r1 * f > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   long long blocks = (n_chunks + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   auto s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
-  if (out_bf16) {
+  if (wide) {
+    quad_build_kernel<uint8_t, uint4><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        t, r1, f, m1, chunks_per_row, static_cast<unsigned>(n_chunks), static_cast<uint4*>(out));
+  } else if (out_bytes == 1) {
+    quad_build_kernel<uint8_t, uint32_t><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint32_t*>(out));
+  } else if (out_bytes == 2) {
     quad_build_kernel<uint16_t, uint2><<<static_cast<int>(blocks), kThreads, 0, s>>>(
         t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint2*>(out));
   } else {

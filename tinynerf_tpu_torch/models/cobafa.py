@@ -6,9 +6,12 @@ with the lookup the JAX package runs on its accelerator (`lookup_mode=
 coordinates `sawtooth(x, f_l)`, each scaled by channel l of a trilinearly
 interpolated coefficient grid `[R, R, R, L]`; the per-level features go
 into the field MLP's split first layer (5 hidden layers of `mlp_hidden_dim`,
-He init) without a concat.  Grids are initialized U(0.5, 1.5).  Every lookup
-is `ops/interp.py:trilinear_lookup_oct` (the oct table built by the CUDA
-kernel on the card), with corners rounded to bf16 as the JAX default does.
+He init) without a concat.  Grids are initialized U(lo, hi) (`init_range`,
+U(0.5, 1.5) by default).  Every lookup is `ops/interp.py:
+trilinear_lookup_oct` (the oct table built by the CUDA kernel on the card),
+with corners rounded to bf16 as the JAX default does (`gather_dtype=
+"bfloat16"`); any other `gather_dtype`, "float8" included, is f32 there
+(`tinynerf_tpu/models/cobafa.py`), and so here.
 
 Dropout(p = 0.01) runs at train time only, when the caller passes the
 step's seed words: keep where the stateless hash of `ops/hashrng.py` gives
@@ -61,6 +64,8 @@ class CobafaFeatureField(nn.Module):
         freqs: Tuple[float, ...] = (2.0, 3.2, 4.4, 5.6, 6.8, 8.0),
         channels: Tuple[int, ...] = (8, 8, 8, 4, 4, 4),
         mlp_hidden_dim: int = 128,
+        init_range: Tuple[float, float] = (0.5, 1.5),
+        gather_dtype: str = "bfloat16",
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
@@ -70,8 +75,11 @@ class CobafaFeatureField(nn.Module):
         self.basis_res, self.coef_res = tuple(basis_res), coef_res
         self.freqs, self.channels = tuple(freqs), tuple(channels)
         self.mlp_hidden_dim = mlp_hidden_dim
+        self.init_range = tuple(init_range)
+        self.gather_dtype = gather_dtype
+        lo, hi = self.init_range
         grid = lambda *shape: nn.Parameter(
-            torch.empty(shape).uniform_(0.5, 1.5, generator=generator).to(device))
+            torch.empty(shape).uniform_(lo, hi, generator=generator).to(device))
         self.basis = nn.ParameterList([grid(r, r, r, c) for r, c in zip(self.basis_res, self.channels)])
         self.coef = grid(coef_res, coef_res, coef_res, len(self.basis_res))
         self.mlp = MLP(sum(self.channels), mlp_hidden_dim, 5, generator=generator, device=device, init="he")
@@ -84,10 +92,11 @@ class CobafaFeatureField(nn.Module):
         """x: [..., 3] in [-1, 1] -> ([..., feature_dim],): the MLP's output
         as the decoders' single piece.  `dropout_seed` (two uint32 words)
         turns on train-time dropout; None is eval (the identity)."""
-        coefs = trilinear_lookup_oct(self.coef, x, GATHER_DTYPE)  # [..., L]
+        gd = GATHER_DTYPE if self.gather_dtype == "bfloat16" else torch.float32
+        coefs = trilinear_lookup_oct(self.coef, x, gd)  # [..., L]
         feats, col = [], 0
         for i, (f, basis) in enumerate(zip(self.freqs, self.basis)):
-            y = trilinear_lookup_oct(basis, sawtooth(x, f), GATHER_DTYPE) * coefs[..., i : i + 1]
+            y = trilinear_lookup_oct(basis, sawtooth(x, f), gd) * coefs[..., i : i + 1]
             if dropout_seed is not None:
                 y = dropout(y, dropout_seed, col)
             feats.append(y)

@@ -2,12 +2,14 @@
 
 Counterpart of `KPlanesFeatureField` in `tinynerf_tpu/models/kplanes.py`
 with its default lookup (fused, per-scale forward): n_scales x 3
-axis-aligned planes (xy, xz, yz), feature-last `[r, r, F]`, init U(0, 1);
+axis-aligned planes (xy, xz, yz), feature-last `[r, r, F]`, init U(lo, hi)
+(`init_range`, U(0, 1) by default);
 per scale the feature is the PRODUCT of the three bilinear lookups, in
 projection order.  Each lookup builds its plane's cell-packed quad table
-in `gather_dtype` (`ops/octbuild.py:build_quad`, a CUDA kernel on the card:
-nine builds per field call) and gathers one 4F row per sample, lerped in
-f32.  All lookups run under one autograd Function
+in `gather_dtype` ("bfloat16", the default, "float8" for float8_e4m3fn or
+"float32"; `ops/octbuild.py:build_quad`, a CUDA kernel on the card: nine
+builds per field call) and gathers one 4F row per sample, lerped in f32.
+All lookups run under one autograd Function
 (`ops/interp.py:multiscale_lookup_multiproj`), whose backward takes every
 table gradient on the finest grid through the sorted-window pipeline (on a
 CUDA device) or a scatter (on the CPU); with `shard_bwd_group` set (the
@@ -36,6 +38,9 @@ DIMENSION_PAIRS: Tuple[Tuple[int, int], ...] = ((0, 1), (0, 2), (1, 2))
 
 # the JAX field's default gather_dtype: tables round to bf16 before the lerp
 GATHER_DTYPE = torch.bfloat16
+# the field's gather_dtype names, as `tinynerf_tpu/models/kplanes.py` maps
+# them (any other name is f32 there; here it raises)
+GATHER_DTYPES = {"bfloat16": GATHER_DTYPE, "float8": torch.float8_e4m3fn, "float32": torch.float32}
 
 
 class KPlanesFeatureField(nn.Module):
@@ -47,19 +52,26 @@ class KPlanesFeatureField(nn.Module):
         self,
         feature_dim_per_plane: int = 32,
         resolutions: Tuple[int, ...] = (129, 257, 513),
+        init_range: Tuple[float, float] = (0.0, 1.0),
+        gather_dtype: str = "bfloat16",
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
         super().__init__()
+        if gather_dtype not in GATHER_DTYPES:
+            raise ValueError(f"gather_dtype must be one of {sorted(GATHER_DTYPES)}, got {gather_dtype!r}")
         self.feature_dim_per_plane = feature_dim_per_plane
         self.resolutions = tuple(resolutions)
+        self.init_range = tuple(init_range)
+        self.gather_dtype = gather_dtype
+        lo, hi = self.init_range
         # planes[s][p]: scale s, projection p (DIMENSION_PAIRS order)
         self.planes = nn.ModuleList()
         for res in self.resolutions:
             scale = nn.ParameterList()
             for _ in DIMENSION_PAIRS:
                 t = torch.empty(res, res, feature_dim_per_plane)
-                t.uniform_(0.0, 1.0, generator=generator)
+                t.uniform_(lo, hi, generator=generator)
                 scale.append(nn.Parameter(t.to(device)))
             self.planes.append(scale)
         # a `parallel.DataGroup` while a data-parallel step splits the
@@ -81,7 +93,7 @@ class KPlanesFeatureField(nn.Module):
         per_proj = multiscale_lookup_multiproj(
             [[self.planes[s][p] for s in range(n_scales)] for p in range(len(DIMENSION_PAIRS))],
             [x[..., [i, j]] for (i, j) in DIMENSION_PAIRS],
-            GATHER_DTYPE,
+            GATHER_DTYPES[self.gather_dtype],
             bwd_impl=self.bwd_impl,
             shard_group=self.shard_bwd_group,
         )

@@ -22,6 +22,7 @@ def make_model(
     field_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
     device=None,
+    **field_kw,
 ) -> Tuple[Union[VanillaFeatureField, KPlanesFeatureField, CobafaFeatureField], OpacityDecoder, ColorDecoder]:
     """Returns (feature_field, sigma_decoder, rgb_decoder), initialized from
     `generator` on `device`.
@@ -32,18 +33,22 @@ def make_model(
     max(9, round(129 * s) | 1) and the nesting (b, 2b-1, 4b-3) the fused
     multiscale lookup requires; 1.0 gives the reference's (129, 257, 513).  Cobafa: basis grids max(8, int(r * s))
     for r in linspace(32, 128, 6) and a coefficient grid max(8, int(64 * s)),
-    with the channels, frequencies and MLP width unchanged."""
+    with the channels, frequencies and MLP width unchanged.
+
+    `field_kw` go to the field's constructor as they are (the JAX tools
+    `dataclasses.replace` the field with them): K-Planes and Cobafa take
+    `init_range` and `gather_dtype`; the vanilla field takes none."""
     s = float(field_scale)
     if method == "vanilla":
         field = VanillaFeatureField(
             n_freqs=10, hidden_features=max(32, int(round(256 * s))), hidden_layers=8,
-            generator=generator, device=device,
+            generator=generator, device=device, **field_kw,
         )
     elif method == "kplanes":
         b = max(9, int(round(129 * s)) | 1)
         field = KPlanesFeatureField(
             feature_dim_per_plane=32, resolutions=(b, 2 * b - 1, 4 * b - 3),
-            generator=generator, device=device,
+            generator=generator, device=device, **field_kw,
         )
     elif method == "cobafa":
         field = CobafaFeatureField(
@@ -52,7 +57,7 @@ def make_model(
             freqs=tuple(float(f) for f in np.linspace(2.0, 8.0, 6)),
             channels=(8, 8, 8, 4, 4, 4),
             mlp_hidden_dim=128,
-            generator=generator, device=device,
+            generator=generator, device=device, **field_kw,
         )
     else:
         raise NotImplementedError(f"Unknown method {method!r}.")

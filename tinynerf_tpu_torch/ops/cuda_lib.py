@@ -167,3 +167,40 @@ def check_cuda_inputs(name: str, dtype: torch.dtype, shape, *tensors) -> None:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch count, by name: (wrapper, attribute).
+    Each wrapper adds one where it launches its kernel and nowhere else;
+    the quad build counts its float8 launches apart as well."""
+    from ..core import skipmarch
+    from . import bitonic, octbuild, segscan, table_grad, weights_dense
+
+    return {
+        "segscan": (segscan.compute_weights_packed, "launches"),
+        "weights_dense": (weights_dense.compute_weights_dense, "launches"),
+        "segscan_bwd": (segscan.weights_packed_bwd, "launches"),
+        "weights_dense_bwd": (weights_dense.weights_dense_bwd, "launches"),
+        "sort": (bitonic.sort_i32, "launches"),
+        "accumulate": (table_grad.windowed_accumulate, "launches"),
+        "oct_build": (octbuild.build_oct, "launches"),
+        "quad_build": (octbuild.build_quad, "launches"),
+        "quad_build_fp8": (octbuild.build_quad, "fp8_launches"),
+        "skip_march": (skipmarch.skip_march, "launches"),
+        "skip_march_unbounded": (skipmarch.skip_march_unbounded, "launches"),
+    }
+
+
+def launch_counts() -> dict:
+    """The launch count of every kernel, by name (`launch_counters`)."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+
+
+def zero_launch_counts() -> None:
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def launches_since(before: dict) -> dict:
+    """The launches of each kernel since `before = launch_counts()`."""
+    return {name: n - before[name] for name, n in launch_counts().items()}

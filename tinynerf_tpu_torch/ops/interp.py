@@ -68,8 +68,10 @@ def _quad_lookup_fwd_value(
 ) -> torch.Tensor:
     """Bilinear lookup of `table` [r0, r1, F] at coords [..., 2] -> f32 [..., F].
 
-    The quad table of `gather_dtype` (corners rounded once), one 4F row
-    gathered per sample, the four corners weighted and summed in f32."""
+    The quad table of `gather_dtype` (bf16, f32 or float8_e4m3fn; corners
+    rounded once), one 4F row gathered per sample in that type (a float8
+    row is 4F bytes: the gather moves a quarter of f32's bytes) and widened
+    to f32, the four corners weighted and summed in f32."""
     r0, r1, f = table.shape
     quad = build_quad(table, gather_dtype)
     cell, w = _cell_2d(coords, r0, r1)

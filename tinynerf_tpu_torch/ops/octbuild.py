@@ -11,11 +11,19 @@ Counterpart of `tinynerf_tpu/ops/octbuild.py`:
     `[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]`, row (i, j) holding the cell's
     four corner rows in `CORNERS_2D` order (K-Planes' planes).
 
-Both cast to `out_dtype` (bf16 or f32).  On CUDA tensors they launch
-`csrc/octbuild.cu`; on CPU tensors they run the plain versions,
-`build_oct_plain` / `build_quad_plain` (the slice-stack forms of
+Both cast to `out_dtype` (bf16 or f32; the quad build also to
+float8_e4m3fn, the K-Planes field's `gather_dtype="float8"`).  On CUDA
+tensors they launch `csrc/octbuild.cu`; on CPU tensors they run the plain
+versions, `build_oct_plain` / `build_quad_plain` (the slice-stack forms of
 `build_oct_ref` / `build_quad_ref`).  Kernel and plain version are
 bit-equal: a build only moves values and rounds each once.
+
+The float8 rounding is JAX's (`jnp.astype(jnp.float8_e4m3fn)`), written out
+in `to_float8_e4m3fn`: nearest even as if the format had a code above 448,
+and that code is NaN, so |x| > 464 and +-inf give NaN of x's sign while 464
+itself gives 448.  torch's own cast saturates those to +-448, and CUDA's
+`__nv_cvt_float_to_fp8` either saturates or not by a flag, so neither the
+plain version nor the kernel relies on a library cast.
 """
 
 from __future__ import annotations
@@ -31,19 +39,43 @@ CORNERS_3D = tuple((dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 
 CORNERS_2D = tuple((dx, dy) for dx in (0, 1) for dy in (0, 1))
 
 OUT_DTYPES = (torch.bfloat16, torch.float32)
+# the quad build also emits float8 (the JAX oct build is never asked for it:
+# the Cobafa field maps "float8" to f32)
+QUAD_OUT_DTYPES = OUT_DTYPES + (torch.float8_e4m3fn,)
 
 # the oct kernel's block shape (csrc/octbuild.cu): a block of OCT_THREADS
 # threads stages the table lines of up to OCT_BAND cells of j for one i
 OCT_BAND, OCT_THREADS = 2, 256
 
 
-def _shape(name: str, table: torch.Tensor, out_dtype, n_axes: int) -> tuple:
+def _shape(name: str, table: torch.Tensor, out_dtype, n_axes: int, out_dtypes=OUT_DTYPES) -> tuple:
     if table.dim() != n_axes + 1 or min(table.shape[:n_axes]) < 2:
         dims = ", ".join(f"r{i}" for i in range(n_axes))
         raise ValueError(f"{name}: expected [{dims}, F] with every r >= 2, got {tuple(table.shape)}")
-    if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"{name}: out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
+    if out_dtype not in out_dtypes:
+        raise TypeError(f"{name}: out_dtype must be one of {out_dtypes}, got {out_dtype}")
     return tuple(table.shape)
+
+
+def to_float8_e4m3fn(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> float8_e4m3fn by JAX's rule, bit for bit (the device function
+    `to_fp8` of csrc/octbuild.cu is the same arithmetic): round to nearest
+    even; normals by rounding the f32 bits' low 20 mantissa bits away,
+    subnormals (|x| < 2^-6, steps of 2^-9) as round(|x| * 2^9); |x| > 464,
+    +-inf and NaN become NaN (0x7F) with x's sign bit."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    a = mag.view(torch.float32)
+    normal = (mag + (0x7FFFF + ((mag >> 20) & 1))) >> 20  # the exponent and 3 mantissa bits, rounded
+    code = torch.where(a < 2.0**-6, torch.round(a * 2.0**9).to(torch.int32), normal - (120 << 3))
+    code = torch.where(a > 464.0, 0x7F, code)  # false for NaN, which the next line takes
+    code = torch.where(torch.isnan(a), 0x7F, code)
+    code = code | ((bits >> 24) & 0x80)
+    return code.to(torch.uint8).view(torch.float8_e4m3fn)
+
+
+def _cast(t: torch.Tensor, out_dtype) -> torch.Tensor:
+    return to_float8_e4m3fn(t) if out_dtype == torch.float8_e4m3fn else t.to(out_dtype)
 
 
 def build_oct_plain(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -79,27 +111,32 @@ build_oct.launches = 0
 
 def build_quad_plain(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The plain version: the four shifted slices stacked corner-major."""
-    r0, r1, f = _shape("build_quad", table, out_dtype, 2)
-    t = table.to(out_dtype)
+    r0, r1, f = _shape("build_quad", table, out_dtype, 2, QUAD_OUT_DTYPES)
+    t = _cast(table, out_dtype)
     q = torch.stack([t[dx : dx + r0 - 1, dy : dy + r1 - 1] for dx, dy in CORNERS_2D], dim=-2)
     return q.reshape((r0 - 1) * (r1 - 1), 4 * f)  # [r0-1, r1-1, 4, F] flattened
 
 
 def build_quad(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """`[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]` of `out_dtype`: the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    """`[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]` of `out_dtype` (bf16, f32
+    or float8_e4m3fn): the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
     if cuda_lib.runs_plain("build_quad", table):
         return build_quad_plain(table, out_dtype)
-    r0, r1, f = _shape("build_quad", table, out_dtype, 2)
+    r0, r1, f = _shape("build_quad", table, out_dtype, 2, QUAD_OUT_DTYPES)
     cuda_lib.check_cuda_inputs("build_quad", torch.float32, table.shape, table)
     out = torch.empty((r0 - 1) * (r1 - 1), 4 * f, dtype=out_dtype, device=table.device)
     if f:
         cuda_lib.library().call(
             "tn_build_quad", table.data_ptr(), r0, r1, f,
-            int(out_dtype == torch.bfloat16), out.data_ptr(), cuda_lib.stream_of(table),
+            out.element_size(), out.data_ptr(), cuda_lib.stream_of(table),
         )
         build_quad.launches += 1
+        if out_dtype == torch.float8_e4m3fn:
+            build_quad.fp8_launches += 1
     return out
 
 
+# every launch, and apart the launches with float8 output
 build_quad.launches = 0
+build_quad.fp8_launches = 0

@@ -902,7 +902,7 @@ def train(
 ) -> Dict[str, object]:
     """Full training run on `device`, or over the ranks of `group` (each on
     its own device, all in lockstep); returns {renderer, occ_state,
-    metrics}.
+    metrics, the steps each march took and the first skip-march step}.
 
     Writes, as the JAX `train` does: `metrics_train.json` (one record per
     step), `metrics_eval.json` / `eval_timeline.json` / `metrics_test.json`
@@ -1005,6 +1005,9 @@ def train(
     pending: List[Tuple] = []  # (loss, occupancy, fill, rays_used) device scalars
     estimator = BucketEstimator(cfg)
     eval_ptr = 0
+    # the steps each march took, and the first that took the skip march
+    march_steps = {"dense": 0, "skip": 0}
+    first_skip_step: Optional[int] = None
     rays_candidate = 0.0
     rays_used = 0.0
     t_start = time.perf_counter()
@@ -1045,6 +1048,9 @@ def train(
 
         bucket = estimator.bucket()
         march = policy.pick(estimator.avg_samples_per_ray)
+        march_steps[march] += 1
+        if march == "skip" and first_skip_step is None:
+            first_skip_step = step_i
         grid_args = (skip_grid,) if march == "skip" else ()
         m = get_step(bucket, march)(occ_state, *grid_args, pool_o, pool_d, pool_rgb,
                                     _generator(device, cfg.seed, step_i, 0, rank))
@@ -1135,6 +1141,8 @@ def train(
         "test_metrics": test_metrics,
         "rays_per_sec_per_chip": rays_per_sec,
         "elapsed_s": elapsed,
+        "march_steps": march_steps,
+        "first_skip_step": first_skip_step,
     }
 
 

@@ -32,7 +32,6 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -47,6 +46,7 @@ from tinynerf_tpu_torch.train import (
     MarchPolicy, TrainConfig, build_renderer, make_optimizer, make_train_step, pick_bucket,
 )
 from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data
+from tinynerf_tpu_torch.utils.device import card_line
 
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
@@ -116,10 +116,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_torch: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line(torch.device("cuda"))
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     cfg = TrainConfig(method=args.method, scene_type=args.scene_type, march=args.march)
