@@ -40,8 +40,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    quad build in float8_e4m3fn byte-equal to its plain version (JAX's
    float8 rule) on the nine planes seeded with the rule's boundaries
    (+-464, +-480, +-inf, NaN, -0.0, subnormals) and on small tables whose
-   channel counts take its 4-value chunks, its `copy_` yardstick timed
-   only (torch's cast saturates); and the
+   channel counts take its generic path, its `copy_` yardstick timed
+   only (torch's cast saturates); all three outputs also on a plane 4
+   bytes off a 16-byte boundary (the generic path), and each output's
+   share of its bound printed; and the
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
    jitter, k_idx and complete equal to its plain version's (and the skip
@@ -729,10 +731,23 @@ def quad_yardstick(table: torch.Tensor, out_dtype) -> torch.Tensor:
     return out
 
 
+def _bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _share(label: str, t: dict) -> None:
+    """The share of the bound that a roster's device time reaches."""
+    share = f"{t['bound_ms'] / t['device_ms']:.1%}" if t["device_ms"] else "not measured"
+    print(f"{label}: device {_ms(t['device_ms'])} against its bound {t['bound_ms']:.4f} ms: {share}; "
+          f"plain {_ms(t['plain_device_ms'])}, copy_ yardstick {_ms(t['library_device_ms'])} (device)")
+
+
 def check_quad_build(dev):
     """Kernel 7 over the full-width K-Planes field's nine planes (the
-    shapes every field call builds): bit-equal to the plain build and to
-    the yardstick in bf16 (the field's) and f32, timed as one roster."""
+    shapes every field call builds): bit-equal (as bytes) to the plain
+    build, and to the yardstick in bf16 (the field's) and f32, timed as one
+    roster in all three outputs; a plane viewed 4 bytes off a 16-byte
+    boundary (the generic path) bit-equal as well."""
     from tinynerf_tpu_torch.models import make_model
     from tinynerf_tpu_torch.ops import octbuild
 
@@ -744,8 +759,8 @@ def check_quad_build(dev):
     for out_dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for t in tables:
             out = octbuild.build_quad(t, out_dtype)
-            if not (torch.equal(out, octbuild.build_quad_plain(t, out_dtype))
-                    and torch.equal(out, quad_yardstick(t, out_dtype))):
+            if not (_bytes_equal(out, octbuild.build_quad_plain(t, out_dtype))
+                    and _bytes_equal(out, quad_yardstick(t, out_dtype))):
                 raise AssertionError(f"quad build ({label}) of {tuple(t.shape)} is not bit-equal to plain")
             del out
         print(f"kernel quad build {label} [{roster}]: bit-equal to the plain build and the copy_ yardstick")
@@ -781,13 +796,25 @@ def check_quad_build(dev):
         del out
     if n_nan == 0:
         raise AssertionError("the seeded float8 boundaries gave no NaN code")
-    for shape in ((9, 17, 3), (17, 9, 6), (6, 7, 12)):  # 4-value chunks where F % 4 != 0
+    for shape in ((9, 17, 3), (17, 9, 6), (6, 7, 12)):  # F != 32: the generic path
         t = torch.randn(shape, device=dev, generator=gen) * 300.0
         if not torch.equal(octbuild.build_quad(t, fp8).view(torch.uint8),
                            octbuild.build_quad_plain(t, fp8).view(torch.uint8)):
             raise AssertionError(f"quad build (float8) of {shape} is not byte-equal to plain")
     print(f"kernel quad build float8 [{roster}], tables seeded with {len(FP8_BOUNDARY)} boundary values x 64: "
           f"byte-equal to the plain build ({n_nan} NaN codes)")
+    # a 257^2 plane read from a buffer's second value: off 16 bytes, the
+    # generic path (float8 on the seeded plane)
+    r0, r1, f = tables[4].shape
+    off = torch.empty(1 + tables[4].numel(), device=dev)[1:].view(r0, r1, f)
+    if octbuild.quad_vector_loads(off):
+        raise AssertionError("a table 4 bytes off a 16-byte boundary was given the vector path")
+    for out_dtype, src in ((torch.bfloat16, tables[4]), (torch.float32, tables[4]), (fp8, seeded[4])):
+        off.copy_(src)
+        if not _bytes_equal(octbuild.build_quad(off, out_dtype), octbuild.build_quad_plain(off, out_dtype)):
+            raise AssertionError(f"quad build ({out_dtype}) of a table off 16 bytes is not bit-equal to plain")
+    print(f"kernel quad build bf16, f32, float8 of a {r0}^2x{f} plane 4 bytes off 16 (the generic path): "
+          f"bit-equal to the plain build")
     out_bytes = sum((t.shape[0] - 1) * (t.shape[1] - 1) * 4 * t.shape[2] for t in tables)
     entry["fp8"] = dict(max_abs_err=0.0, **time_pair(
         "kernel quad build float8, the 9-plane roster",
@@ -796,6 +823,8 @@ def check_quad_build(dev):
         bound(nbytes(*seeded) + out_bytes),
         lambda: [quad_yardstick(t, fp8) for t in seeded],
     ))
+    for label in ("bf16", "f32", "fp8"):
+        _share(f"kernel quad build {label}, the 9-plane roster", entry[label])
     # the field builds bf16 tables by default (models/kplanes.py); f32 rides along
     return {"quad_build": {**entry["bf16"],
                            **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}},
@@ -811,8 +840,21 @@ def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march
     gives the arguments before the jitter words; each timing's bound counts
     the rays read, k_idx and complete written, and per active round one
     grid value and `round_flops` f32 operations (the work these inputs
-    need).  Returns the serving record with the bucket's beside it."""
+    need), and each records its longest chain of dependent gathers (the
+    fewest rounds in which every ray completes, or all of them if a ray
+    never does; the march is a prefix of itself with more rounds).
+    Returns the serving record with the bucket's beside it."""
     perm = torch.randperm(pool.n_rays, device=pool.rays_o.device, generator=gen)
+
+    def longest_chain(head, j) -> int:
+        lo, hi = 1, n_steps
+        if not bool(kernel(*head, j, hi)[1].all()):
+            return n_steps
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if bool(kernel(*head, j, mid)[1].all()) else (mid + 1, hi)
+        return lo
+
     out = {}
     for part, n_rays, jitter in (("serving", batch, None), ("training", SKIP_BUCKET * batch, seed)):
         o, d = pool.rays_o[perm[:n_rays]].contiguous(), pool.rays_d[perm[:n_rays]].contiguous()
@@ -835,6 +877,7 @@ def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march
             f"kernel {label} {part} [{n_rays} x {n_steps}]", lambda: kernel(*args(jitter)),
             lambda: plain(*args(jitter)), bound(n_bytes, round_flops * timed_rounds))
         out[part]["active_rounds"] = timed_rounds
+        out[part]["longest_rounds"] = longest_chain(head, jitter)
     # the serving chunk is the main record (313 launches per 800x800 view);
     # the training bucket rides along
     return {"max_abs_err": 0.0, **out["serving"], **{f"train_bucket_{k}": v for k, v in out["training"].items()}}

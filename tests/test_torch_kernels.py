@@ -546,14 +546,36 @@ def test_trilinear_lookup_oct_on_card_matches_cpu(cuda_device):
 
 
 # the K-Planes planes at full width (make_model("kplanes")), then odd and
-# small channel counts (a bf16 row of 4F values is 8F bytes; a float8 row
-# takes 16-byte chunks only where F is a multiple of 4) and r = 2
+# small channel counts (a bf16 row of 4F values is 8F bytes; any F but 32
+# takes the generic path), r = 2, and F = 32 (the vector path's width) on
+# planes that are not square and whose cells are no multiple of the block's
 QUAD_SHAPES = [(129, 129, 32), (257, 257, 32), (513, 513, 32), (9, 17, 3), (17, 9, 6), (5, 6, 1), (2, 2, 2),
-               (9, 9, 4), (6, 7, 12)]
+               (9, 9, 4), (6, 7, 12), (33, 70, 32), (70, 9, 32), (2, 300, 32)]
+QUAD_OUT = [torch.bfloat16, torch.float32, torch.float8_e4m3fn]
+
+
+def _bytes_equal(out: torch.Tensor, ref: torch.Tensor) -> bool:
+    return torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+def _poison_next_quad(like: torch.Tensor) -> None:
+    """`_poison_next_empty` for the quad build's output: every byte 0xFF
+    (NaN in bf16, f32 and float8), so that an unwritten chunk shows."""
+    torch.empty_like(like).view(torch.uint8).fill_(0xFF)
+
+
+def _quad_case(table, out_dtype):
+    plain = octbuild.build_quad_plain(table, out_dtype)
+    _poison_next_quad(plain)
+    before = octbuild.build_quad.launches
+    out = octbuild.build_quad(table, out_dtype)
+    torch.cuda.synchronize()
+    assert octbuild.build_quad.launches == before + 1
+    return out, plain
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn])
+@pytest.mark.parametrize("out_dtype", QUAD_OUT)
 def test_quad_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
     """Bit-equal as bytes (a float8 NaN is not equal to itself), float8
     also over values beyond its range (JAX's NaN rule) and subnormals."""
@@ -561,11 +583,48 @@ def test_quad_build_kernel_bit_equal_to_plain(cuda_device, out_dtype):
     for shape in QUAD_SHAPES:
         table = rng.normal(size=shape) * 2.0 ** rng.integers(-12, 10, shape)
         table = T(table.astype(np.float32)).to(cuda_device)
-        before = octbuild.build_quad.launches
-        out = octbuild.build_quad(table, out_dtype)
-        assert octbuild.build_quad.launches == before + 1
-        plain = octbuild.build_quad_plain(table, out_dtype)
-        assert torch.equal(out.view(torch.uint8), plain.view(torch.uint8)), shape
+        out, plain = _quad_case(table, out_dtype)
+        assert _bytes_equal(out, plain), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", QUAD_OUT)
+def test_quad_build_kernel_tables_off_16_bytes(cuda_device, out_dtype):
+    """Contiguous views with a storage offset: `t[1:]` of an odd-F table
+    (r1 F = 15 values: 60 bytes in) and a flat F = 32 buffer viewed from
+    its second value (4 bytes in) take the generic path, and equal the
+    plain build; the entry point refuses the vector path for the latter."""
+    rng = np.random.default_rng(19)
+    odd = T(rng.normal(size=(8, 5, 3)).astype(np.float32)).to(cuda_device)[1:]
+    flat = T(rng.normal(size=1 + 9 * 13 * 32).astype(np.float32)).to(cuda_device)
+    f32 = flat[1:].view(9, 13, 32)
+    for table in (odd, f32):
+        assert table.data_ptr() % 16 != 0 and not octbuild.quad_vector_loads(table)
+        out, plain = _quad_case(table, out_dtype)
+        assert _bytes_equal(out, plain), tuple(table.shape)
+    out = torch.empty(8 * 12, 128, dtype=out_dtype, device=cuda_device)
+    with pytest.raises(RuntimeError, match="tn_build_quad"):
+        cuda_lib.library().call("tn_build_quad", f32.data_ptr(), 9, 13, 32, out.element_size(), 1,
+                                octbuild.QUAD_BAND, octbuild.QUAD_LINES, octbuild.QUAD_THREADS,
+                                out.data_ptr(), cuda_lib.stream_of(f32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(17, 33, 32), (9, 9, 12), (5, 40, 3)], ids=lambda s: "x".join(map(str, s)))
+def test_quad_build_kernel_float8_boundaries_at_every_chunk_position(cuda_device, shape):
+    """JAX's float8 boundaries (+-448, +-464, +-464.0001, +-inf, NaN, 2^-10)
+    at every position of a 16-value output chunk: table value k is boundary
+    (k // 16 + k % 16) mod 13; at F = 32 (the vector path) a row's chunks
+    start at multiples of 16 values of a corner pair, so position k % 16 of
+    a chunk meets every value; F = 12 and 3 (the generic path) mix them
+    otherwise."""
+    b = np.array([448, -448, 464, -464, 464.0001, -464.0001, np.inf, -np.inf, np.nan, -np.nan,
+                  2**-10, -(2**-10), 0.5], np.float32)
+    k = np.arange(int(np.prod(shape)))
+    table = T(b[(k // 16 + k % 16) % b.size].reshape(shape)).to(cuda_device)
+    out, plain = _quad_case(table, torch.float8_e4m3fn)
+    assert _bytes_equal(out, plain)
+    assert int(((plain.view(torch.uint8) & 0x7F) == 0x7F).sum()) > 0  # the NaN codes are there
 
 
 @pytest.mark.cuda

@@ -54,31 +54,46 @@
 // The quad build replaces tinynerf_tpu/ops/octbuild.py:_quad_kernel, the
 // Pallas TPU kernel behind build_quad_pallas: row (i, j) holds the four
 // corner rows table[i+dx, j+dy, :] in corner order (dx, dy) with dy fastest,
-// each value rounded once as above, bit-equal to ops/octbuild.py:
-// build_quad_plain.  Memory bounds it as well: each value is read once and
-// written four times.  The K-Planes field builds nine planes per call (129,
-// 257 and 513^2 x 32, three projections): 132.8 MB read and 264.2 MB of bf16
-// written, ~0.119 ms at 3.35 TB/s.  Design: the TPU kernel stores four
-// lane-offset slices of two table rows per grid step; here one thread
-// writes one chunk of 4 output values (8 bytes in bf16, 16 in f32).  A row
-// of 4F values is always F whole chunks, so a chunk never straddles two
-// cells and any F works (a 16-byte bf16 chunk would need an even F here: a
-// bf16 quad row is 8F bytes).  Stores are coalesced; the four corner reads
-// of neighbouring cells overlap and come from L1/L2.
+// each value rounded once to bf16, f32 or float8_e4m3fn (the K-Planes
+// field's gather_dtype), bit-equal to ops/octbuild.py:build_quad_plain.
+// Memory bounds it: each value is read once and written four times.  The
+// K-Planes field builds nine planes per call (129, 257 and 513^2 x 32, three
+// projections): 132.8 MB read and 264.2 MB of bf16 written (528.4 MB of f32,
+// 132.1 MB of float8), ~0.119 ms (0.197, 0.079) at 3.35 TB/s.
 //
-// The quad build's float8_e4m3fn output (the K-Planes field's
-// gather_dtype="float8", the JAX Pallas kernel's out_dtype=float8_e4m3fn) is
-// the same copy with 1-byte values, 4F bytes a row (128 bytes at F = 32).
-// Where F is a multiple of 4 a row is F / 4 whole 16-byte chunks, and one
-// thread writes a chunk of 16 values (which may span two corners); else a
-// thread writes 4 values, 4 bytes.  (The 4-byte chunk alone was slower than
-// the bf16 build's 8-byte one on the nine planes: PERF.md has both times.)
-// It reads f32 and writes a quarter of the f32 output's bytes, so at the
-// field's nine planes its bound is 132.8 MB read and 132.1 MB written,
-// ~0.079 ms at 3.35 TB/s.  The cast is JAX's rule (to_bits(float, uint8_t)
-// below, bit-equal to ops/octbuild.py:to_float8_e4m3fn), not
-// __nv_cvt_float_to_fp8: JAX rounds |x| > 464 and +-inf to NaN and 464 to
-// 448, which neither of that intrinsic's saturation modes gives.
+// Design.  The TPU kernel stores four lane-offset slices of two table rows
+// per grid step.  Here the layout does the work: the corner pair dx of row
+// (i, j) is one contiguous run of 2F table values, table[i+dx, j : j+2, :],
+// so the rows of cells (i, j0 .. j0+band-1) are read from lines i and i+1
+// from cell j0 on, and written as one contiguous run of the output.
+//   * vector path (F = 32 and the table on a 16-byte boundary, which the
+//     wrapper checks and the entry point enforces): a block takes
+//     `lines` cells of i (blockIdx.y) by `band` cells of j (blockIdx.x), so
+//     no division finds a row.  It stages its lines + 1 table lines' runs
+//     of (band + 1) F values in shared memory by coalesced float4 loads,
+//     rounding each value once on the way in (bf16 two at a time, float8 by
+//     JAX's rule below: a cast per staged value, about 1.3 per table value
+//     at the default shape, where reading straight from global memory cast
+//     each value four times), then copies whole 16-byte chunks (8 bf16, 4
+//     f32 or 16 float8 values) to the output, each one 16-byte read of one
+//     corner pair's run.  It is written for F = 32, every K-Planes plane
+//     (a compile-time constant: the row and chunk splits are shifts);
+//   * generic path (any other F, or a table off a 16-byte boundary such as
+//     a view with a storage offset): value by value, a thread writing 4
+//     values (4, 8 or 16 bytes); a row of 4F values is F such chunks.
+// Measured on the nine planes (device ms, NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 2 and tools/profile_weights_oct_torch.py, PERF.md):
+// bf16 0.1505, f32 0.2418, float8 0.1163, 79%, 82% and 68% of the bytes'
+// bound, 89%, 92% and 79% of the card's own contiguous copy of as many
+// bytes; the first design (a thread per 4-value chunk, a scalar load per
+// value) took 0.2158, 0.2607 and 0.2425.  Reading the runs straight from
+// global memory with float4 loads (tools/quadbuild_probe_torch.cu) gave
+// bf16 and f32 times within 3% of these but float8 0.135: its cast, four
+// per table value there, held it.
+// The float8 cast is JAX's rule (to_bits(float, uint8_t) below, bit-equal to
+// ops/octbuild.py:to_float8_e4m3fn), not __nv_cvt_float_to_fp8: JAX rounds
+// |x| > 464 and +-inf to NaN and 464 to 448, which neither of that
+// intrinsic's saturation modes gives.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +104,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 32;  // the quad build strides beyond this
 
 __device__ __forceinline__ uint16_t to_bits(float v, uint16_t) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -100,18 +114,19 @@ __device__ __forceinline__ uint32_t to_bits(float v, uint32_t) { return __float_
 // 0x7F is NaN) as JAX casts: nearest even, as if the code above 448 were
 // 480, and that code is NaN.  Normals: the f32 bits' low 20 mantissa bits
 // rounded away (a carry moves the exponent), the exponent rebiased from 127
-// to 7; subnormals (|x| < 2^-6) count steps of 2^-9, rounded to even.
+// to 7; subnormals (|x| < 2^-6) count steps of 2^-9, rounded to even by the
+// f32 add of 2^23 (exact product, one rounding to an integer: no conversion
+// unit).  The tests repeat this arithmetic in numpy (tests/test_torch_quad.py).
 __device__ __forceinline__ uint8_t to_bits(float v, uint8_t) {
   const uint32_t bits = __float_as_uint(v);
   const uint32_t mag = bits & 0x7FFFFFFFu;
-  const float a = __uint_as_float(mag);
   uint32_t code;
-  if (!(a <= 464.0f)) {  // |x| > 464, inf and NaN
+  if (mag > 0x43E80000u) {  // |x| > 464 (0x43E80000), +-inf and NaN
     code = 0x7Fu;
-  } else if (a < 0x1p-6f) {
-    code = static_cast<uint32_t>(__float2int_rn(a * 512.0f));  // exact product; 0 .. 8
+  } else if (mag < 0x3C800000u) {  // |x| < 2^-6: 0 .. 8 steps of 2^-9
+    code = __float_as_uint(__fmaf_rn(__uint_as_float(mag), 512.0f, 0x1p23f)) - 0x4B000000u;
   } else {
-    code = ((mag + 0x7FFFFu + ((mag >> 20) & 1u)) >> 20) - (120u << 3);
+    code = (mag + 0x7FFFFu + ((mag >> 20) & 1u) - (960u << 20)) >> 20;  // 960 = (127 - 7) << 3
   }
   return static_cast<uint8_t>(code | ((bits >> 24) & 0x80u));
 }
@@ -307,40 +322,146 @@ cudaError_t build_oct(const float* table, int r0, int r1, int r2, int f, int ban
 
 // --------------------------------------------------------------- quad build
 
-// One chunk = sizeof(Store) / sizeof(Bits) output values: Store is uint4 (16
-// x fp8 or 4 x f32), uint32_t (4 x fp8) or uint2 (4 x bf16).
+constexpr int kQuadMaxThreads = 512;
+constexpr unsigned kQuadF = 32;  // the vector path's channel count
+
+struct QuadGeom {
+  unsigned r1, f;        // the table's j extent and channels
+  unsigned m0, m1;       // cells along i and j
+  unsigned band, lines;  // cells of j and of i that one block takes
+  unsigned run4;         // float4 of a staged run: (band + 1) f / 4
+  unsigned stride;       // values from one staged run to the next, padded
+  uint64_t magic_run4;   // x / run4 == fast_div(x, magic_run4) in range
+};
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __float22bfloat162_rn(make_float2(lo, hi));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(p.x)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(p.y)) << 16;
+}
+__device__ __forceinline__ uint32_t fp8x4(float4 v) {
+  return static_cast<uint32_t>(to_bits(v.x, uint8_t{})) |
+         static_cast<uint32_t>(to_bits(v.y, uint8_t{})) << 8 |
+         static_cast<uint32_t>(to_bits(v.z, uint8_t{})) << 16 |
+         static_cast<uint32_t>(to_bits(v.w, uint8_t{})) << 24;
+}
+
+// 4 values rounded once and stored together: float8 by to_bits, bf16 two at
+// a time (__float22bfloat162_rn: the same nearest-even bits as
+// __float2bfloat16_rn), f32 as they are.
+__device__ __forceinline__ void put4(uint8_t* dst, float4 v) {
+  *reinterpret_cast<uint32_t*>(dst) = fp8x4(v);
+}
+__device__ __forceinline__ void put4(uint16_t* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(bf16x2(v.x, v.y), bf16x2(v.z, v.w));
+}
+__device__ __forceinline__ void put4(uint32_t* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
+
+// The vector path, F = 32 channels (every K-Planes plane).  Bits: uint8_t
+// (float8), uint16_t (bf16) or uint32_t (f32) output.  The table starts on
+// a 16-byte boundary, so every 4 values of a line are one aligned float4.
+// One block writes the rows of cells (i0 .. i0 + lines - 1, j0 .. j0 +
+// band - 1): it stages lines i0 .. i0 + lines of the table from cell j0 on
+// (contiguous runs of (band + 1) F values) in shared memory, each value
+// rounded once, then copies whole 16-byte chunks from there, each one
+// 16-byte read of one corner pair's run (2F values are a whole number of
+// chunks); each (i, j) row's chunks are one contiguous run of the output.
+template <typename Bits>
+__global__ void __launch_bounds__(kQuadMaxThreads)
+    quad_build_kernel(const float* __restrict__ table, const QuadGeom g, uint4* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  constexpr unsigned F = kQuadF;
+  constexpr unsigned kPer = 16 / sizeof(Bits);      // values of a chunk
+  constexpr unsigned cpr = F * sizeof(Bits) / 4;    // chunks in a row of 4F values
+  static_assert((2 * F) % kPer == 0, "a chunk lies in one corner pair's run");
+  Bits* runs = reinterpret_cast<Bits*>(smem);
+  const unsigned j0 = blockIdx.x * g.band, nj = min(g.band, g.m1 - j0);
+  const unsigned i0 = blockIdx.y * g.lines, ni = min(g.lines, g.m0 - i0);
+  const unsigned n4 = (nj + 1) * F / 4;  // float4 of this block's runs
+  const float4* src =
+      reinterpret_cast<const float4*>(table + (static_cast<size_t>(i0) * g.r1 + j0) * F);
+  const size_t pitch4 = static_cast<size_t>(g.r1) * F / 4;  // float4 of a table line
+  for (unsigned x = threadIdx.x; x < (ni + 1) * g.run4; x += blockDim.x) {
+    const unsigned l = fast_div(x, g.magic_run4), at = x - l * g.run4;
+    if (at < n4) put4(runs + l * g.stride + at * 4, __ldg(src + l * pitch4 + at));
+  }
+  __syncthreads();
+  for (unsigned li = 0; li < ni; ++li) {
+    const Bits* s0 = runs + li * g.stride;  // line i0 + li (dx = 0); + stride: dx = 1
+    uint4* dst = out + (static_cast<size_t>(i0 + li) * g.m1 + j0) * cpr;
+    for (unsigned q = threadIdx.x; q < nj * cpr; q += blockDim.x) {
+      // row (i0 + li, j0 + r) from its value e on: corner pair dx = e / 2F,
+      // the run table[i + dx, j : j + 2, :] of 2F values
+      const unsigned r = q / cpr, e = (q - r * cpr) * kPer;
+      const bool dx = e >= 2 * F;
+      dst[q] = *reinterpret_cast<const uint4*>(s0 + dx * g.stride + r * F + (dx ? e - 2 * F : e));
+    }
+  }
+}
+
+// The generic path: any f, any alignment of the table, value by value.  One
+// block writes the rows of cells (i = blockIdx.y, j0 .. j0 + band - 1); one
+// thread writes a chunk of 4 output values (Store: uint32_t for float8,
+// uint2 for bf16, uint4 for f32); a row of 4f values is f such chunks.
 template <typename Bits, typename Store>
-__global__ void quad_build_kernel(const float* __restrict__ table, int r1, int f, unsigned m1,
-                                  unsigned chunks_per_row, unsigned n_chunks,
-                                  Store* __restrict__ out) {
-  constexpr int kPerChunk = sizeof(Store) / sizeof(Bits);
-  static_assert(kPerChunk == 4 || kPerChunk == 16, "a chunk is 4 or 16 values");
-  const long long sx = static_cast<long long>(r1) * f;
-  // n_chunks < 2^31 (checked by the entry point), so q + stride never wraps
-  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < n_chunks;
-       q += gridDim.x * blockDim.x) {
-    const unsigned row = q / chunks_per_row;
-    const int start = static_cast<int>(q - row * chunks_per_row) * kPerChunk;  // within the 4F row
-    const unsigned j = row % m1;
-    const unsigned i = row / m1;
-    const float* base = table + i * sx + static_cast<long long>(j) * f;
-    int c = start / f;  // corner of the chunk's first value
-    int ch = start - c * f;  // its channel
+__global__ void __launch_bounds__(kQuadMaxThreads)
+    quad_build_any_kernel(const float* __restrict__ table, const QuadGeom g,
+                          Store* __restrict__ out) {
+  static_assert(sizeof(Store) == 4 * sizeof(Bits), "a chunk is 4 values");
+  const unsigned f = g.f;
+  const unsigned j0 = blockIdx.x * g.band, nj = min(g.band, g.m1 - j0);
+  const float* line0 = table + (static_cast<size_t>(blockIdx.y) * g.r1 + j0) * f;
+  const size_t sx = static_cast<size_t>(g.r1) * f;
+  Store* run = out + (static_cast<size_t>(blockIdx.y) * g.m1 + j0) * f;
+  for (unsigned q = threadIdx.x; q < nj * f; q += blockDim.x) {
+    const unsigned r = q / f, start = (q - r * f) * 4;  // the block's row, the chunk's first value
+    unsigned corner = start / f;                          // 2 dx + dy
+    unsigned ch = start - corner * f;
     union {
       Store v;
-      Bits e[kPerChunk];
+      Bits e[4];
     } pack;
 #pragma unroll
-    for (int e = 0; e < kPerChunk; ++e) {
-      const int dx = c >> 1, dy = c & 1;
-      pack.e[e] = to_bits(__ldg(base + dx * sx + dy * f + ch), Bits{});
+    for (int e = 0; e < 4; ++e) {
+      pack.e[e] = to_bits(__ldg(line0 + (corner >> 1) * sx + (r + (corner & 1)) * f + ch), Bits{});
       if (++ch == f) {
         ch = 0;
-        ++c;
+        ++corner;
       }
     }
-    out[q] = pack.v;
+    run[q] = pack.v;
   }
+}
+
+// vec: the table takes 16-byte loads (on 16 bytes, f % 4 == 0); with f = 32
+// the vector path, else the generic one.
+template <typename Bits>
+cudaError_t build_quad(const float* table, QuadGeom g, int threads, bool vec, void* out,
+                       cudaStream_t stream) {
+  if (!(vec && g.f == kQuadF)) {
+    using Store = typename Unit<4 * sizeof(Bits)>::type;
+    const dim3 grid((g.m1 + g.band - 1) / g.band, g.m0);
+    quad_build_any_kernel<Bits, Store><<<grid, threads, 0, stream>>>(table, g, static_cast<Store*>(out));
+    return cudaGetLastError();
+  }
+  g.run4 = (g.band + 1) * kQuadF / 4;
+  // runs 64 bytes apart in the banks (mod 128): a float8 row's two corner
+  // pairs then read different banks
+  unsigned bytes = g.run4 * 4 * sizeof(Bits);
+  bytes += (64 + 128 - bytes % 128) % 128;
+  g.stride = bytes / sizeof(Bits);
+  const size_t smem = static_cast<size_t>(g.lines + 1) * bytes;
+  if (smem > kSmemMax || static_cast<uint64_t>(g.lines + 1) * g.run4 * g.run4 >= (1ull << 32))
+    return cudaErrorInvalidValue;  // a block too large for shared memory, or for fast_div
+  g.magic_run4 = (1ull << 32) / g.run4 + 1;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        quad_build_kernel<Bits>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((g.m1 + g.band - 1) / g.band, (g.m0 + g.lines - 1) / g.lines);
+  quad_build_kernel<Bits><<<grid, threads, smem, stream>>>(table, g, static_cast<uint4*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -369,34 +490,35 @@ int tn_build_oct(const void* table, int r0, int r1, int r2, int f, int out_bf16,
 
 // table: [r0, r1, f] f32, contiguous; out: [(r0-1)(r1-1), 4f] of
 // float8_e4m3fn (out_bytes 1), bf16 (2) or f32 (4), contiguous and aligned to
-// 16 bytes.
-int tn_build_quad(const void* table, int r0, int r1, int f, int out_bytes, void* out, void* stream) {
-  if (r0 < 2 || r1 < 2 || f < 1 || (out_bytes != 1 && out_bytes != 2 && out_bytes != 4))
+// 16 bytes.  vec != 0 says the table takes 16-byte loads: f % 4 == 0 and the
+// table on a 16-byte boundary (refused otherwise: nothing reads misaligned);
+// with f = 32 that is the vector path, else, and for vec == 0, the generic
+// path.  A block of `threads` threads (32 .. 512) writes the rows of up to
+// `lines` cells of i (the vector path; the generic path one) by `band`
+// cells of j.
+int tn_build_quad(const void* table, int r0, int r1, int f, int out_bytes, int vec, int band,
+                  int lines, int threads, void* out, void* stream) {
+  if (r0 < 2 || r1 < 2 || f < 1 || (out_bytes != 1 && out_bytes != 2 && out_bytes != 4) ||
+      band < 1 || lines < 1 || threads < 32 || threads > kQuadMaxThreads || threads % 32 != 0 ||
+      r0 - 1 > 65535)  // blocks along i: blockIdx.y
     return static_cast<int>(cudaErrorInvalidValue);
-  const int m1 = r1 - 1;
-  const bool wide = out_bytes == 1 && f % 4 == 0;  // fp8 rows of whole 16-value chunks
-  const int chunks_per_row = wide ? f / 4 : f;       // else f chunks of 4 per row
-  const long long n_chunks = static_cast<long long>(r0 - 1) * m1 * chunks_per_row;
-  if (n_chunks > INT_MAX || static_cast<long long>(r0) * r1 * f > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = (n_chunks + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (static_cast<long long>(r1) * f * 4 > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if ((vec && (f % 4 != 0 || reinterpret_cast<uintptr_t>(table) % 16 != 0)) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  QuadGeom g = {};
+  g.r1 = r1, g.f = f, g.m0 = r0 - 1, g.m1 = r1 - 1;
+  g.band = band < r1 - 1 ? band : r1 - 1;
+  g.lines = lines < r0 - 1 ? lines : r0 - 1;
   auto s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
-  if (wide) {
-    quad_build_kernel<uint8_t, uint4><<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        t, r1, f, m1, chunks_per_row, static_cast<unsigned>(n_chunks), static_cast<uint4*>(out));
-  } else if (out_bytes == 1) {
-    quad_build_kernel<uint8_t, uint32_t><<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint32_t*>(out));
-  } else if (out_bytes == 2) {
-    quad_build_kernel<uint16_t, uint2><<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint2*>(out));
-  } else {
-    quad_build_kernel<uint32_t, uint4><<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        t, r1, f, m1, f, static_cast<unsigned>(n_chunks), static_cast<uint4*>(out));
+  cudaError_t err;
+  switch (out_bytes) {
+    case 1: err = build_quad<uint8_t>(t, g, threads, vec != 0, out, s); break;
+    case 2: err = build_quad<uint16_t>(t, g, threads, vec != 0, out, s); break;
+    default: err = build_quad<uint32_t>(t, g, threads, vec != 0, out, s); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "tn_sort_i32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tn_windowed_accumulate": (_P, _P, _P) + (_I,) * 16 + (_P, _P),
     "tn_build_oct": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    "tn_build_quad": (_P, _I, _I, _I, _I, _P, _P),
+    "tn_build_quad": (_P,) + (_I,) * 8 + (_P, _P),
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
     "tn_skip_march_unbounded": (_P, _P, _P, _P, _I, _I, _I, _I) + (_F,) * 7 + (_P, _P, _P),

@@ -46,6 +46,9 @@ QUAD_OUT_DTYPES = OUT_DTYPES + (torch.float8_e4m3fn,)
 # the oct kernel's block shape (csrc/octbuild.cu): a block of OCT_THREADS
 # threads stages the table lines of up to OCT_BAND cells of j for one i
 OCT_BAND, OCT_THREADS = 2, 256
+# the quad kernel's: a block of QUAD_THREADS threads stages the table lines
+# of up to QUAD_LINES cells of i by QUAD_BAND cells of j and writes their rows
+QUAD_BAND, QUAD_LINES, QUAD_THREADS = 16, 4, 256
 
 
 def _shape(name: str, table: torch.Tensor, out_dtype, n_axes: int, out_dtypes=OUT_DTYPES) -> tuple:
@@ -59,7 +62,7 @@ def _shape(name: str, table: torch.Tensor, out_dtype, n_axes: int, out_dtypes=OU
 
 def to_float8_e4m3fn(x: torch.Tensor) -> torch.Tensor:
     """f32 -> float8_e4m3fn by JAX's rule, bit for bit (the device function
-    `to_fp8` of csrc/octbuild.cu is the same arithmetic): round to nearest
+    `to_bits(float, uint8_t)` of csrc/octbuild.cu gives the same bytes): round to nearest
     even; normals by rounding the f32 bits' low 20 mantissa bits away,
     subnormals (|x| < 2^-6, steps of 2^-9) as round(|x| * 2^9); |x| > 464,
     +-inf and NaN become NaN (0x7F) with x's sign bit."""
@@ -117,10 +120,20 @@ def build_quad_plain(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Ten
     return q.reshape((r0 - 1) * (r1 - 1), 4 * f)  # [r0-1, r1-1, 4, F] flattened
 
 
+def quad_vector_loads(table: torch.Tensor) -> bool:
+    """Whether the quad kernel may read `table` ([r0, r1, F] f32, contiguous)
+    by 16-byte loads: F a multiple of 4 and the first value on a 16-byte
+    boundary, so that every 4 values of a line are one aligned float4.  A view
+    with a storage offset may start off it (`t[1:]` of an odd F, `buf[1:]`);
+    it then takes the generic path, value by value."""
+    return table.shape[-1] % 4 == 0 and table.data_ptr() % 16 == 0
+
+
 def build_quad(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """`[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]` of `out_dtype` (bf16, f32
-    or float8_e4m3fn): the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    or float8_e4m3fn): the kernel on a CUDA tensor (its vector path where
+    F = 32 and `quad_vector_loads`, else its generic path), the plain
+    version on a CPU tensor."""
     if cuda_lib.runs_plain("build_quad", table):
         return build_quad_plain(table, out_dtype)
     r0, r1, f = _shape("build_quad", table, out_dtype, 2, QUAD_OUT_DTYPES)
@@ -128,8 +141,9 @@ def build_quad(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     out = torch.empty((r0 - 1) * (r1 - 1), 4 * f, dtype=out_dtype, device=table.device)
     if f:
         cuda_lib.library().call(
-            "tn_build_quad", table.data_ptr(), r0, r1, f,
-            out.element_size(), out.data_ptr(), cuda_lib.stream_of(table),
+            "tn_build_quad", table.data_ptr(), r0, r1, f, out.element_size(),
+            int(quad_vector_loads(table)), QUAD_BAND, QUAD_LINES, QUAD_THREADS, out.data_ptr(),
+            cuda_lib.stream_of(table),
         )
         build_quad.launches += 1
         if out_dtype == torch.float8_e4m3fn:

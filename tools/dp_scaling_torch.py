@@ -36,6 +36,7 @@ import torch
 import chip_smoke
 from tinynerf_tpu_torch.parallel import make_group
 from tinynerf_tpu_torch.train import TrainConfig, lr_schedule, train
+from tinynerf_tpu_torch.utils.device import card_line
 
 
 def main() -> None:
@@ -48,7 +49,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     group = make_group()  # NCCL over cuda:LOCAL_RANK; without a group, one card
     rec = {"world": group.world, "rank": group.rank, "device": torch.cuda.get_device_name(group.device),
-           "card": chip_smoke.card_line(), "steps": {}, "train": {}}
+           "card": card_line(group.device), "steps": {}, "train": {}}
     with tempfile.TemporaryDirectory() as tmp:
         cfg, pool, batch, renderer = chip_smoke._dp_world(tmp)
         if group.grouped:

@@ -2,14 +2,15 @@
 """Device and call time of the packed weights kernels (forward, backward)
 and of the oct and quad cell-pack builds on one GPU (tinynerf_tpu_torch).
 
-    python3 tools/profile_weights_oct_torch.py [--root DIR] [--runs 20] [--oct-probe] [--sweep]
+    python3 tools/profile_weights_oct_torch.py [--root DIR] [--runs 20] [--builds-only] [--oct-probe] [--sweep]
 
 The packed weights run on `chip_smoke.py`'s buffers: the serving chunk
 [131,072] (2048 rays, 15% of them not empty), the early training step
 [819,200] (4,096 rays filling 0.937), the converged one (131,072 rays,
 most of 0-8 samples) and one ray of 32 samples (the card's shortest launch
 of the kernel).  The builds run on the Cobafa field's seven grids and the
-K-Planes field's nine planes, bf16 and f32.  Every kernel is first held
+K-Planes field's nine planes, bf16 and f32 (the quad build also
+float8_e4m3fn).  Every kernel is first held
 against its plain version, then timed per call (median of --runs, CUDA
 events: what a caller waits) and on the device (profiler, by kernel name,
 in two windows: one that lost kernel records shows as a disagreement); the
@@ -19,11 +20,18 @@ wrapper costs the host when nothing waits for the device).
 --root DIR imports the package from another checkout (its `chip_smoke.py`
 is not used), so that two commits can be timed in turns within one job:
 the entry points called here have kept their signatures.
---oct-probe builds tools/octbuild_probe_torch.cu (the gather design of the
-oct build with its loads or its stores taken out) and times it on the same
-grids.  --sweep times the oct build over its block shapes
-(`octbuild.OCT_BAND`, `OCT_THREADS`), the default taken again in between.
-Needs a CUDA device.
+--builds-only leaves the weights out.  --oct-probe builds
+tools/octbuild_probe_torch.cu (the gather design of the oct build with its
+loads or its stores taken out) and times it on the same grids;
+--quad-probe builds tools/quadbuild_probe_torch.cu (the quad build's vector
+design with its loads, stores or cast taken out, and a design that stages
+the table runs in shared memory) and times it on the same planes in the
+three output types.  --sweep
+times the oct build over its block shapes (`octbuild.OCT_BAND`,
+`OCT_THREADS`) and the quad build over its own (`QUAD_BAND`,
+`QUAD_THREADS`) in its three output types, the default taken again in
+between; each setting is held bit-equal (as bytes) to the plain build
+first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -111,20 +119,42 @@ def rosters(dev):
     return oct_tables, quad_tables
 
 
+QUAD_DTYPES = ((torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.float8_e4m3fn, "float8"))
+
+
+def _bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def builds_section(dev, runs: int, oct_tables, quad_tables) -> None:
     from tinynerf_tpu_torch.ops import octbuild
 
     print("cell-pack builds (kernels 6 and 7):")
     for out_dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for build, plain, tables in ((octbuild.build_oct, octbuild.build_oct_plain, oct_tables),
-                                     (octbuild.build_quad, octbuild.build_quad_plain, quad_tables)):
-            for t in tables:
-                if not torch.equal(build(t, out_dtype), plain(t, out_dtype)):
-                    raise AssertionError(f"{build.__name__} {label} of {tuple(t.shape)} is not bit-equal to plain")
+        for t in oct_tables:
+            if not _bytes_equal(octbuild.build_oct(t, out_dtype), octbuild.build_oct_plain(t, out_dtype)):
+                raise AssertionError(f"build_oct {label} of {tuple(t.shape)} is not bit-equal to plain")
         timed(f"oct roster {label}", lambda: [octbuild.build_oct(t, out_dtype) for t in oct_tables], runs)
+    for out_dtype, label in QUAD_DTYPES:
+        for t in quad_tables:
+            if not _bytes_equal(octbuild.build_quad(t, out_dtype), octbuild.build_quad_plain(t, out_dtype)):
+                raise AssertionError(f"build_quad {label} of {tuple(t.shape)} is not bit-equal to plain")
         timed(f"quad roster {label}", lambda: [octbuild.build_quad(t, out_dtype) for t in quad_tables], runs)
     for t in oct_tables:
         timed(f"oct bf16 {tuple(t.shape)}", lambda: octbuild.build_oct(t), runs)
+    # the card's own copy rate on the roster's bytes: a contiguous copy_ that
+    # reads and writes half of them each
+    in_bytes = sum(t.numel() * 4 for t in quad_tables)
+    out_values = sum((t.shape[0] - 1) * (t.shape[1] - 1) * 4 * t.shape[2] for t in quad_tables)
+    for out_dtype, label in QUAD_DTYPES:
+        n = in_bytes + out_values * torch.empty((), dtype=out_dtype).element_size()
+        src, dst = (torch.empty(n // 2, dtype=torch.uint8, device=dev) for _ in range(2))
+        by_name = smoke.device_ms_by_kernel(lambda: dst.copy_(src), runs)
+        ms = sum(by_name.values()) if by_name else None
+        rate = f"{n / ms / 1e9:.3f} TB/s" if ms else "not measured"
+        print(f"  contiguous copy_ of the quad {label} roster's {n / 1e6:.1f} MB (half read, half written): "
+              f"device {smoke._ms(ms)}, {rate}", flush=True)
+        del src, dst
 
 
 def sweep_section(runs: int, oct_tables) -> None:
@@ -149,6 +179,32 @@ def sweep_section(runs: int, oct_tables) -> None:
         setting(band, threads)
     setting(*base)
     octbuild.OCT_BAND, octbuild.OCT_THREADS = base
+
+
+def quad_sweep_section(runs: int, quad_tables) -> None:
+    from tinynerf_tpu_torch.ops import octbuild
+
+    base = (octbuild.QUAD_BAND, octbuild.QUAD_LINES, octbuild.QUAD_THREADS)
+    refs = {dt: [octbuild.build_quad_plain(t, dt) for t in quad_tables] for dt, _ in QUAD_DTYPES}
+
+    def setting(band, lines, threads):
+        octbuild.QUAD_BAND, octbuild.QUAD_LINES, octbuild.QUAD_THREADS = band, lines, threads
+        for dt, label in QUAD_DTYPES:
+            for t, ref in zip(quad_tables, refs[dt]):
+                torch.empty_like(ref).view(torch.uint8).fill_(0xFF)  # NaN where the kernel writes nothing
+                if not _bytes_equal(octbuild.build_quad(t, dt), ref):
+                    raise AssertionError(f"quad {band}, {lines}, {threads}: {tuple(t.shape)} {label} differs")
+            timed(f"quad band {band}, lines {lines}, {threads} threads, roster {label}",
+                  lambda: [octbuild.build_quad(t, dt) for t in quad_tables], runs)
+
+    print(f"quad build sweep (band, lines, threads; default {base}):")
+    setting(*base)
+    for shape in ((16, 1, 256), (16, 2, 256), (16, 8, 256), (8, 4, 256), (32, 1, 256), (32, 2, 256),
+                  (32, 4, 256), (32, 8, 256), (64, 2, 256), (8, 8, 256), (16, 4, 128), (32, 4, 128),
+                  (16, 4, 512), (32, 4, 512), (64, 4, 512)):
+        setting(*shape)
+    setting(*base)
+    octbuild.QUAD_BAND, octbuild.QUAD_LINES, octbuild.QUAD_THREADS = base
 
 
 def probe_section(dev, runs: int, oct_tables) -> None:
@@ -181,11 +237,67 @@ def probe_section(dev, runs: int, oct_tables) -> None:
             timed(f"roster {label}, {names[probe]}", lambda: run(probe), runs)
 
 
+def _ptxas_pairs(log: str, key: str) -> list:
+    """ptxas's resource lines of the kernels whose name holds `key`."""
+    lines, ours = [], False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            ours = key in line
+        if ours and ("Compiling entry" in line or "registers" in line):
+            lines.append(line.strip()[:160])
+    return lines
+
+
+def quad_probe_section(dev, runs: int, quad_tables) -> None:
+    """The quad build's direct design with its loads, its stores or its
+    cast taken out, beside the library's staged kernel, on the nine planes."""
+    from tinynerf_tpu_torch.ops import cuda_lib, octbuild
+
+    out = cuda_lib.BUILD_DIR / "libquad_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", str(HERE / "quadbuild_probe_torch.cu"),
+                          "-o", str(out)], check=True, capture_output=True, text=True)
+    for line in _ptxas_pairs(log.stdout + log.stderr, "quad_"):
+        print(f"  ptxas: {line}")
+    fn = ctypes.CDLL(str(out)).tn_probe_quad
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, i, i, i, i, i, i, i, p, p, p], i
+    band, threads = 32, 256  # the direct design's best shape (PERF.md)
+    n_sums = max(-(-(t.shape[1] - 1) // band) * (t.shape[0] - 1) for t in quad_tables) * threads
+    sums = torch.empty(n_sums, dtype=torch.int32, device=dev)
+    names = {0: "as it was", 1: "loads replaced by values made from the address",
+             2: "stores replaced by a checksum", 3: "neither loads nor stores", 4: "cast replaced by high bytes"}
+    print(f"quad build, the direct design (probe; band {band}, {threads} threads) beside the library's, F = 32:")
+    for out_dtype, label in QUAD_DTYPES:
+        outs = [torch.empty((t.shape[0] - 1) * (t.shape[1] - 1), 4 * t.shape[2], dtype=out_dtype, device=dev)
+                for t in quad_tables]
+
+        def run(probe):
+            for t, o in zip(quad_tables, outs):
+                rc = fn(t.data_ptr(), *t.shape, o.element_size(), probe, band, threads, o.data_ptr(),
+                        sums.data_ptr(), cuda_lib.stream_of(t))
+                if rc != 0:
+                    raise RuntimeError(f"tn_probe_quad failed with CUDA error {rc}")
+
+        for o in outs:
+            o.view(torch.uint8).fill_(0xFF)
+        run(0)
+        for t, o in zip(quad_tables, outs):
+            if not _bytes_equal(o, octbuild.build_quad_plain(t, out_dtype)):
+                raise AssertionError(f"quad probe (direct design) {label} of {tuple(t.shape)} differs")
+        timed(f"roster {label}, the library's kernel",
+              lambda: [octbuild.build_quad(t, out_dtype) for t in quad_tables], runs)
+        for probe in (0, 1, 2, 3, 4, 0):
+            timed(f"roster {label}, direct design, {names[probe]}", lambda: run(probe), runs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=HERE.parent, help="the checkout whose package is timed")
     ap.add_argument("--runs", type=int, default=20)
+    ap.add_argument("--builds-only", action="store_true")
     ap.add_argument("--oct-probe", action="store_true")
+    ap.add_argument("--quad-probe", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -194,23 +306,25 @@ def main() -> None:
     global smoke
     smoke = _load_smoke()
     from tinynerf_tpu_torch.ops import cuda_lib
+    from tinynerf_tpu_torch.utils.device import card_line
 
-    card = smoke.card_line()
+    card = card_line(torch.device("cuda"))
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; package from {args.root}")
-    ours = False
-    for line in cuda_lib.library().log.splitlines():
-        if "Compiling entry" in line:
-            ours = "segscan" in line or "weights_packed" in line or "oct_build" in line
-        if ours and ("Compiling entry" in line or "registers" in line):
-            print(f"  ptxas: {line.strip()[:200]}")
+    for key in ("segscan", "weights_packed", "oct_build", "quad_build"):
+        for line in _ptxas_pairs(cuda_lib.library().log, key):
+            print(f"  ptxas: {line}")
     dev = torch.device("cuda")
-    weights_section(dev, args.runs)
+    if not args.builds_only:
+        weights_section(dev, args.runs)
     oct_tables, quad_tables = rosters(dev)
     builds_section(dev, args.runs, oct_tables, quad_tables)
     if args.oct_probe:
         probe_section(dev, args.runs, oct_tables)
+    if args.quad_probe:
+        quad_probe_section(dev, args.runs, quad_tables)
     if args.sweep:
         sweep_section(max(5, args.runs // 2), oct_tables)
+        quad_sweep_section(max(5, args.runs // 2), quad_tables)
     print(f"card: {card}")
 
 
