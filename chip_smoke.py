@@ -51,7 +51,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    of the shell occupancy, rays drawn over the nerfstudio capture's
    training views (a 2048-ray serving chunk and a 131,072-ray bucket, 96
    rounds, with and without jitter), k_idx and complete equal to its plain
-   version's, timed the same way;
+   version's, timed the same way; and the sums that make a step repeat
+   itself, each bit-equal over three calls on the same inputs: the per-ray
+   sum (`segment_sum`) at the serving chunk's buffer and the early K-Planes
+   step's, against its plain `index_add` and the renderer's former two
+   `index_add` calls; the key-value radix sort at Cobafa's largest grid's
+   window ids; Cobafa's oct gradient over the seven full-width grids
+   (819,200 samples, a converged step's pad tail) against its plain version
+   and the `index_add_` it replaced; and the training-shaped accumulation;
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
    of 2048 rays, 64 packed samples per ray, 64 skip-march rounds): a
@@ -89,15 +96,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    finite, falling loss, the oct build and the packed weights and their
    backward launched inside `train()`; the dense and skip steps at bucket
    64; then one full-width dense chunk's gradients through the oct-build
-   kernel must match those through the plain build, every leaf to 1e-5 of
-   its max;
+   kernel must match those through the plain build, every leaf bit-equal;
 7. the vanilla serving slice at full width (TrainConfig(method="vanilla"):
    posenc(10) into 10 layers of 256, He init), as phase 5 on one view;
 8. the vanilla training slice at full width, as phase 4 (64 steps, the
    dense and skip steps at bucket 64), then one deterministic step (2048
    rays, f32 compute) with remat_field against one without, from the same
-   parameters: losses to 1e-6 relative, every gradient leaf to 1e-5 of its
-   max;
+   parameters: the losses and every gradient leaf bit-equal;
 9. the K-Planes serving slice on the unbounded marcher (the disparity grid
    over the test poses' scene scale, the Mip-360 contraction, the
    isotropic skip grid and the unbounded skip march, 96 rounds) of a
@@ -130,8 +135,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launched once per step and 7 nine times per step on both ranks; (b) one
    NCCL rank in this process: the grouped step against the ungrouped one
    with the training default bf16 table-gradient payload (loss 1e-6
-   relative, gradients and parameters as in (a)) and with the f32 payload
-   (each gradient leaf 1e-5 of its max), 4 `train()` steps through the
+   relative, gradients and parameters as in (a), and each gradient leaf
+   1e-5 of its max) and with the f32 payload (each gradient leaf 1e-5 of
+   its max), 4 `train()` steps through the
    group (the same launches per step), then `render_only` from their
    checkpoint over the group, packed and dense, against `render_only`
    alone (max abs 1e-5);
@@ -149,14 +155,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (d) the same with `--gather-dtype float8` for FP8_STEPS steps: every
    quad build float8, nine per field call, a finite falling loss; (e)
    `tools/render_turntable_torch.py` from (c)'s checkpoint, four 200x200
-   frames: s/frame and the skip-serving fallback share on a trained scene.
+   frames: s/frame and the skip-serving fallback share on a trained scene;
+   (f) `tools/profile_field_torch.py` for K-Planes and for Cobafa (a
+   converged step's pad tail) at the 819,200 cap: every piece timed, most
+   on the device too, kernels 4-7 launched, Cobafa's sorted oct gradient
+   within 1e-5 of the `index_add_` it replaced; (g) `tools/analyze_runs_torch.py`
+   at the JAX tool's geometry: the run counts;
+13. determinism at full width, K-Planes and Cobafa: one deterministic step
+   twice from one saved state (loss, every gradient, parameter and Adam
+   moment bit-equal), and one 800x800 view served twice (packed on the skip
+   march behind the shell occupancy, the dense fallback), bit-equal.
 
-Each of phases 3-12 sets every kernel's launch count to 0 just before it
+Each of phases 3-13 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after (phase 11(a) in each
 rank's process, around `train()`; phase 12 around each tool); the
 comparisons with the plain versions and phase 11's deterministic and
 ungrouped steps are not counted.  The last two lines are a JSON
-record of the kernels (launches summed over phases 3-12, and by phase;
+record of the kernels (launches summed over phases 3-13, and by phase;
 the float8 quad build in a row of its own) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
@@ -189,8 +204,9 @@ PACKED_DENSE_MEAN_ABS = 1e-4
 # the same small view at f32 compute, kernels on the card vs plain on the CPU
 SMALL_VIEW_ATOL = 1e-4
 # weight gradients, kernel vs plain: f32 sums of up to 400 terms in another
-# order; and the table-gradient accumulation, f32 sums over a cell's samples
-# in another (atomic) order: both relative to the largest magnitude
+# order; and the table-gradient accumulation and the per-ray sum, f32 sums
+# over a cell's or a ray's samples in another order: both relative to the
+# largest magnitude
 GRAD_RTOL_OF_MAX = 1e-5
 # one full-width dense chunk at f32 compute, through the kernels vs through
 # the plain dense weights: d loss / d sigma (kernel 3's own output) to
@@ -203,9 +219,10 @@ GRAD_RTOL_OF_MAX = 1e-5
 CHUNK_GRAD_RTOL_OF_MAX = 1e-4
 CHUNK_TABLE_GRAD_RTOL_OF_MAX = 2.0 ** -8
 # Cobafa's dense chunk, oct-build kernel vs plain build: the build is
-# bit-equal, so the forward is; the grids' gradients are f32 index_add_ sums
-# whose atomic order changes from run to run
-COBAFA_CHUNK_GRAD_RTOL_OF_MAX = 1e-5
+# bit-equal, so the forward is, and every sum of the backward has a fixed
+# order (the grids' gradients through the window sort and the
+# accumulation): every leaf bit-equal
+COBAFA_CHUNK_GRAD_RTOL_OF_MAX = 0.0
 TRAIN_STEPS = 64
 # the skip and dense steps behind the shell occupancy: the same sample set
 # and positions bit for bit, so only the f32 sums' order (atomics) differs
@@ -219,9 +236,8 @@ SKIP_ROUND_FLOPS = 48
 # (radius, n_eff, m0, F(m0), 1/L), the advance through x_of_t 8
 UNBOUNDED_ROUND_FLOPS = 96
 # the vanilla step with remat_field against the one without, f32 compute:
-# the same arithmetic, the packed reduction's atomics summing in another
-# order
-REMAT_LOSS_RTOL, REMAT_GRAD_RTOL_OF_MAX = 1e-6, 1e-5
+# the same arithmetic, every sum in a fixed order: bit-equal
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL_OF_MAX = 0.0, 0.0
 # the card's published peaks (H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -602,7 +618,8 @@ def check_training_kernels(dev, results: dict) -> dict:
     for payload, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         rows = table_grad.pack_payload(gq, wq, cell, w_window, payload)
         rows = rows.reshape(3 * n, -1)[gidx].reshape(3, n, -1)
-        out = table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window)
+        out = _repeats(f"kernel windowed_accumulate {label} payload",
+                       lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window))
         ref = table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window)
         err, abs_err = _rel_err(out, ref), float((out - ref).abs().max())
         print(f"kernel windowed_accumulate {label} payload: max|kernel-plain| / max|plain| = "
@@ -619,8 +636,8 @@ def check_training_kernels(dev, results: dict) -> dict:
             bound(nbytes(rows, offsets) + out_bytes, flops), library,
         )
         # the accumulation kernel apart from the wrapper's other launches
-        # (the scan of the work list; the item table and the split windows'
-        # zero fill)
+        # (the scan of the work list, the item table, and the combine of the
+        # split windows' later chunks)
         by_name = device_ms_by_kernel(
             lambda: table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window))
         main = sum(ms for name, ms in by_name.items() if "windowed_accumulate" in name)
@@ -653,6 +670,137 @@ def check_training_kernels(dev, results: dict) -> dict:
         "max_abs_err": max(entry["f32"]["max_abs_err"], entry["bf16"]["max_abs_err"]),
         **{f"f32_payload_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"},
     }
+    return results
+
+
+# the fixed-order sums: runs of each call that must give the same bits
+REPEATS = 3
+# f32 operations per sample of the per-ray sum (4 channels: scan add and carry)
+SEGMENT_SUM_FLOPS = 8
+# the pad tail's share of a converged Cobafa step's packed buffer (fill
+# 0.4, PERF.md section 5): pads at one point with a zero cotangent
+COBAFA_PAD_SHARE = 0.6
+
+
+def _repeats(label: str, fn) -> torch.Tensor:
+    """fn() REPEATS times: raise unless every output is bit-equal to the first."""
+    outs = [fn() for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError(f"{label}: {REPEATS} calls on the same inputs differ")
+    print(f"{label}: {REPEATS} calls bit-equal")
+    return outs[0]
+
+
+def check_fixed_order_kernels(dev, results: dict) -> dict:
+    """The sums that make a step repeat itself: the per-ray sum (segment_sum)
+    at the serving chunk's buffer and the early K-Planes step's, against its
+    plain version (one `index_add`) and the renderer's old two `index_add`
+    calls; the key-value radix sort at Cobafa's largest grid; Cobafa's oct
+    gradient over the seven full-width grids (window sort, accumulation in
+    the register kernel's flat layout), against its plain version and the
+    `index_add_` of [n, 8F] rows it replaced.  Each bit-equal over REPEATS
+    calls; adds to `results`."""
+    from tinynerf_tpu_torch.models import make_model
+    from tinynerf_tpu_torch.ops import bitonic, interp, segscan, table_grad
+
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    entry = {}
+    for key, label, problem, n_rays in (
+            ("serving", "serving chunk, 2,048 rays", packed_problem(rng), 2048),
+            ("train_early", "early training step, 4,096 rays", training_packed_problem(rng, 4096, fill=0.937), 4096)):
+        seg = t(problem[3])
+        n = seg.numel()
+        x = t(rng.uniform(0.0, 1.0, (n, 4)).astype(np.float32))
+        out = _repeats(f"kernel segment_sum {label} [{n}]", lambda: segscan.segment_sum(x, seg, n_rays))
+        ref = segscan.segment_sum_plain(x, seg, n_rays)
+        err = _rel_err(out, ref)
+        print(f"kernel segment_sum {label}: max|kernel-plain| / max|plain| = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
+        if not err <= GRAD_RTOL_OF_MAX:
+            raise AssertionError(f"segment_sum ({label}) disagrees with its plain version: {err}")
+        seg_long = seg.long()
+        rgb, w = x[:, :3].contiguous(), x[:, 3].contiguous()
+
+        def two_index_adds():  # the renderer's per-ray sum before this kernel
+            a = torch.zeros(n_rays + 1, 3, device=dev).index_add(0, seg_long, rgb)
+            o = torch.zeros(n_rays + 1, device=dev).index_add(0, seg_long, w)
+            return a[:n_rays], o[:n_rays]
+
+        entry[key] = dict(max_abs_err=float((out - ref).abs().max()), **time_pair(
+            f"kernel segment_sum {label} [{n}, 4] -> [{n_rays}, 4]",
+            lambda: segscan.segment_sum(x, seg, n_rays), lambda: segscan.segment_sum_plain(x, seg, n_rays),
+            bound(nbytes(x, seg) + 16 * n_rays, SEGMENT_SUM_FLOPS * n), two_index_adds))
+    results["segment_sum"] = {**entry["train_early"], **{f"serving_{k}": v for k, v in entry["serving"].items()}}
+
+    # Cobafa's seven grids at full width, one converged step's samples
+    field = make_model("cobafa", device="meta")[0]
+    grids = [tuple(p.shape) for p in (field.coef, *field.basis)]
+    n = 819_200
+    n_pad = int(COBAFA_PAD_SHARE * n)
+    xs = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    xs[n - n_pad:] = xs[0]
+    x = t(xs)
+    cases = []
+    for shape in grids:
+        r0, r1, r2, f = shape
+        cell, w = interp._cell_3d(x, r0, r1, r2)
+        g = t(rng.normal(size=(n, f)).astype(np.float32))
+        g[n - n_pad:] = 0.0
+        cases.append((cell, w, g, (r0 - 1) * (r1 - 1) * (r2 - 1)))
+
+    # kernel 4's key-value form, at the largest grid's window ids (64 cells a window)
+    cell, _, _, n_cells = max(cases, key=lambda c: c[3])
+    window = (cell.to(torch.int32) >> 6)[None].contiguous()
+    vals = torch.arange(n, dtype=torch.int32, device=dev)[None].contiguous()
+    bits = bitonic._bits(-(-n_cells // 64))
+    k, v = _repeats(f"kernel sort_pairs [1, {n}] ({bits} key bits)",
+                    lambda: torch.stack(bitonic.sort_pairs_i32(window, vals, 0, bits))).unbind(0)
+    k_ref, v_ref = bitonic.sort_pairs_i32_plain(window, vals, 0, bits)
+    if not (torch.equal(k, k_ref) and torch.equal(v, v_ref)):
+        raise AssertionError("sort_pairs_i32 differs from its plain version")
+    print(f"kernel sort_pairs [1, {n}] window ids of {n_cells} cells, {bits} bits, the sample index as the "
+          f"value: bit-equal to its plain version")
+    results["sort_pairs"] = dict(max_abs_err=0.0, **time_pair(
+        f"kernel sort_pairs [1, {n}] by {bits} bits", lambda: bitonic.sort_pairs_i32(window, vals, 0, bits),
+        lambda: bitonic.sort_pairs_i32_plain(window, vals, 0, bits), bound(4 * nbytes(window)),
+        lambda: torch.sort(window, dim=-1, stable=True)))
+
+    # Cobafa's oct gradient: the seven grids' cell tables
+    def sorted_grads():
+        return [interp.oct_table_grad(g, w, c, nc) for c, w, g, nc in cases]
+
+    def plain_grads():  # sort plain, then windowed_accumulate_plain
+        grads = []
+        for c, w, g, nc in cases:
+            w_window = table_grad.default_window(dev, nc, n, 8 * g.shape[1], packed_keys=False)
+            nc_pad = -(-nc // w_window) * w_window
+            perm, offsets = table_grad.sort_by_window_pairs(c[None], nc_pad, w_window)
+            rows = table_grad.pack_payload(g[None], w[None], c[None], w_window, torch.float32, row_align=4)
+            rows = rows[0, perm[0].long()][None]
+            grads.append(table_grad.windowed_accumulate_plain(rows, offsets, g.shape[1], 8, nc_pad, w_window)[0, :nc])
+        return grads
+
+    def index_add_grads():  # the backward's scatter before this change
+        return [torch.zeros(nc, 8 * g.shape[1], device=dev).index_add_(
+            0, c, (g[:, None, :] * w[:, :, None]).reshape(n, 8 * g.shape[1])) for c, w, g, nc in cases]
+
+    outs = _repeats("kernel oct gradient, 7 grids", lambda: torch.cat([o.reshape(-1) for o in sorted_grads()]))
+    err = 0.0
+    for ref in (plain_grads(), index_add_grads()):
+        ref = torch.cat([o.reshape(-1) for o in ref])
+        err = max(err, _rel_err(outs, ref))
+    print(f"kernel oct gradient [{n} samples, {n_pad} pads] -> the 7 grids' cell tables: max|kernel-plain| and "
+          f"|kernel-index_add_| / max = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
+    if not err <= GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"Cobafa's oct gradient disagrees: {err}")
+    out_bytes = sum(4 * nc * 8 * g.shape[1] for _, _, g, nc in cases)
+    in_bytes = sum(nbytes(c, w, g) for c, w, g, _ in cases)
+    flops = sum(2.0 * 8 * g.shape[1] * (n - n_pad) for _, _, g, _ in cases)
+    timed = time_pair(f"Cobafa oct gradient (sort, pack, gather, accumulate), 7 grids x {n} samples",
+                      sorted_grads, plain_grads, bound(in_bytes + out_bytes, flops), index_add_grads)
+    results["accumulate"].update({f"cobafa_oct_{k}": v for k, v in timed.items()})
+    results["accumulate"]["cobafa_oct_max_abs_err"] = err
     return results
 
 
@@ -998,18 +1146,20 @@ def _field_label(field) -> str:
 # Cobafa, none for the vanilla MLP) and the marcher's skip march
 FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_build",)}
 SKIP_KERNEL = {"aabb": "skip_march", "unbounded": "skip_march_unbounded"}
-TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd"),
-                    "kplanes": ("segscan", "segscan_bwd", "sort", "accumulate", "quad_build"),
-                    "cobafa": ("segscan", "segscan_bwd", "oct_build")}
+TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd", "segment_sum"),
+                    "kplanes": ("segscan", "segscan_bwd", "segment_sum", "sort", "accumulate", "quad_build"),
+                    "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "accumulate",
+                               "oct_build")}
 
 
 def serving_kernels(method: str, scene_type: str) -> tuple:
-    return ("segscan", "weights_dense", SKIP_KERNEL[scene_type]) + FIELD_KERNELS[method]
+    return ("segscan", "segment_sum", "weights_dense", SKIP_KERNEL[scene_type]) + FIELD_KERNELS[method]
 
 
 def march_kernels(method: str, scene_type: str, march: str) -> tuple:
     """A packed `infer` on the dense or the skip march."""
-    return ("segscan",) + FIELD_KERNELS[method] + ((SKIP_KERNEL[scene_type],) if march == "skip" else ())
+    return (("segscan", "segment_sum") + FIELD_KERNELS[method]
+            + ((SKIP_KERNEL[scene_type],) if march == "skip" else ()))
 
 
 def skip_step_kernels(method: str, scene_type: str) -> tuple:
@@ -1365,10 +1515,11 @@ def run_slice(tmp: str, card: str, method: str, scene_type: str = "aabb", pose_s
 # against the ungrouped one on the same global batch (f32 compute).  Two
 # gloo ranks: tests/test_zero.py:234-256's limits (loss 1e-5 relative;
 # gradients and updated parameters rtol 1e-4, atol 1e-6); one NCCL rank:
-# the loss 1e-6 relative, and the gradients and parameters at those limits
-# with the training default bf16 table-gradient payload, each gradient leaf
-# at 1e-5 of its max with the f32 payload (a bf16 rounding of a sample's
-# cotangent may go either way between two runs of one step).  Adam's
+# the loss 1e-6 relative and each gradient leaf at 1e-5 of its max, with
+# the training default bf16 table-gradient payload and with the f32 one,
+# and with the bf16 payload the gradients and parameters at the limits
+# above as well (the step repeats itself bit for bit, so a bf16 rounding of
+# a sample's cotangent no longer goes either way between two runs).  Adam's
 # first step moves a parameter by lr * a / (|a| + eps), a the gradient with
 # its weight decay term: about lr times the sign of a however small a is,
 # and in proportion to a where |a| nears eps = 1e-15.  Where the two steps'
@@ -1384,8 +1535,9 @@ DP_VARIANTS = {"replicated": {}, "shard_tables": dict(shard_tables=True),
                "shard_tables + shard_bwd": dict(shard_tables=True, shard_bwd=True)}
 DP_TRAIN_STEPS, NCCL_TRAIN_STEPS = 16, 4
 # the launches of each rank's K-Planes train() step at least: kernels 1
-# (forward and backward), 4 and 5 once, 7 once per plane (9)
-DP_STEP_LAUNCHES = {"segscan": 1, "segscan_bwd": 1, "sort": 1, "accumulate": 1, "quad_build": 9}
+# (forward and backward), the per-ray sum, 4 and 5 once, 7 once per plane (9)
+DP_STEP_LAUNCHES = {"segscan": 1, "segscan_bwd": 1, "segment_sum": 1, "sort": 1, "accumulate": 1,
+                    "quad_build": 9}
 # sharded serving (render_only over one NCCL rank) against render_only alone
 DP_SERVE_ATOL = 1e-5
 
@@ -1583,6 +1735,7 @@ def run_data_parallel(card: str) -> dict:
             ours = _dp_step(renderer, cfg, batch, start, group)
             cmp = _dp_compare(ours, ref, lr, eps)
             cmp["ms"], cmp["ref_ms"] = ours["ms"], ref["ms"]
+            bf16_errs = [_rel_err(a, b) for a, b in zip(ours["grads"], ref["grads"])]
             del ours, ref
             # the f32 payload, which carries the last bits a bf16 rounding drops
             renderer.field.bwd_impl = "sorted"
@@ -1598,11 +1751,13 @@ def run_data_parallel(card: str) -> dict:
                   f"({cmp['grads_over']} elements over); updated parameters, the limits plus Adam's map of the "
                   f"gradients' difference: worst excess {cmp['param_excess']:.3e} ({cmp['params_over']} over); "
                   f"{cmp['params_adam']} of them over the limits alone, by at most {cmp['params_adam_max_lr']:.6f} "
-                  f"lr; {cmp['ms']:.1f} ms against {cmp['ref_ms']:.1f} ungrouped (one cold step each)")
+                  f"lr; gradients max|diff| / max {max(bf16_errs):.3e} (tol {NCCL_GRAD_RTOL_OF_MAX:g}); "
+                  f"{cmp['ms']:.1f} ms against {cmp['ref_ms']:.1f} ungrouped (one cold step each)")
             print(f"phase 11(b) 1 NCCL rank vs the ungrouped step [2048 rays x 400, f32, f32 table-gradient "
                   f"payload]: loss relative difference {loss_rel:.3e} (tol {NCCL_LOSS_RTOL:g}), gradients "
                   f"max|diff| / max {errs[worst]:.3e} at {ref['paths'][worst]} (tol {NCCL_GRAD_RTOL_OF_MAX:g})")
-            if not (cmp["loss_rel"] <= NCCL_LOSS_RTOL and cmp["grads_over"] == 0 and cmp["params_over"] == 0):
+            if not (cmp["loss_rel"] <= NCCL_LOSS_RTOL and cmp["grads_over"] == 0 and cmp["params_over"] == 0
+                    and max(bf16_errs) <= NCCL_GRAD_RTOL_OF_MAX):
                 raise AssertionError("phase 11(b): the NCCL-grouped step disagrees with the ungrouped step "
                                      "(bf16 payload)")
             if not (loss_rel <= NCCL_LOSS_RTOL and errs[worst] <= NCCL_GRAD_RTOL_OF_MAX):
@@ -1654,9 +1809,11 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("weights_dense", "weights_dense.compute_weights_dense", "weights_dense.cu",
      "tinynerf_tpu/ops/weights_pallas.py:60"),
     ("segscan_bwd", "segscan.weights_packed_bwd", "segscan.cu", "tinynerf_tpu/ops/segscan.py:48"),
+    ("segment_sum", "segscan.segment_sum", "segscan.cu", "tinynerf_tpu/core/renderer.py:381"),
     ("weights_dense_bwd", "weights_dense.weights_dense_bwd", "weights_dense.cu",
      "tinynerf_tpu/ops/weights_pallas.py:70"),
     ("sort", "bitonic.sort_i32", "radix_sort.cu", "tinynerf_tpu/ops/bitonic.py:73"),
+    ("sort_pairs", "bitonic.sort_pairs_i32", "radix_sort.cu", "tinynerf_tpu/ops/interp.py:478"),
     ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
     ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
@@ -1691,6 +1848,89 @@ def run_phases(card: str, ns_root) -> dict:
     return launches
 
 
+# phase 13, determinism at full width: one deterministic step twice from
+# one saved state, and one served 800x800 view twice, bit for bit
+DETERMINISM_METHODS = ("kplanes", "cobafa")
+
+
+def run_determinism(tmp: str, card: str) -> dict:
+    """Phase 13: for K-Planes and Cobafa at the TrainConfig defaults (2048
+    rays drawn over four generated 800x800 views, 400 samples, bf16
+    compute, the all-occupied grid): one deterministic step (after a first
+    one, so that Adam's moments are not zero) twice from the same saved
+    state: the loss, every gradient, every parameter and moment bit-equal;
+    then one 800x800 view served twice (`infer`, packed on the skip march
+    behind the shell occupancy, the dense fallback): the images bit-equal.
+    Returns label -> kernel -> launches (counts zeroed before each path)."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.train import (
+        InferStats, TrainConfig, build_renderer, infer, make_optimizer, make_render_chunk,
+        make_render_chunk_packed, make_train_step,
+    )
+    from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_data, make_spheres_pose_set
+
+    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    poses = make_spheres_pose_set(n_views=1, res=800, seed=0)
+    launches = {}
+    for method in DETERMINISM_METHODS:
+        cfg = TrainConfig(method=method, seed=0)
+        renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda")
+        opt = make_optimizer(cfg, renderer)
+        gen = torch.Generator("cuda").manual_seed(9)
+        rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:cfg.batch_size]
+        batch = tuple(a[rays].contiguous() for a in pool.arrays())
+        occ = renderer.occupancy.init_state("cuda")
+        step = make_train_step(renderer, opt, cfg, cfg.batch_size, deterministic=True)
+        zero_counts()
+        step(occ, *batch)
+        state = [*opt.params, *opt.mu, *opt.nu]
+        start, count = [s.detach().clone() for s in state], opt.count
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for s, s0 in zip(state, start):
+                    s.copy_(s0)
+            opt.count = count
+            m = step(occ, *batch)
+            run = {"loss": m["loss"].clone()}
+            run.update({f"grad {path}": g.clone() for path, g in tree_leaves_with_path(m["grads"])})
+            run.update({f"{kind} {path}": s.detach().clone() for kind, tensors in
+                        (("param", opt.params), ("mu", opt.mu), ("nu", opt.nu)) for path, s in zip(opt.paths, tensors)})
+            runs.append(run)
+        launches[f"13_{method}_step"] = read_counts(f"phase 13 {method} steps", TRAINING_KERNELS[method])
+        differ = [k for k, v in runs[0].items() if not torch.equal(v, runs[1][k])]
+        n_zero = sum(float(v.abs().max()) == 0.0 for k, v in runs[0].items() if k.startswith("grad "))
+        print(f"phase 13 {method} deterministic step [{cfg.batch_size} rays x {cfg.n_samples}], twice from one "
+              f"state: loss {float(runs[0]['loss']):.9f}, {len(runs[0])} tensors (loss, gradients, parameters, "
+              f"moments), {len(differ)} not bit-equal {differ[:6]}; {n_zero} zero gradient leaves [{card}]")
+        if differ or not np.isfinite(float(runs[0]["loss"])):
+            raise AssertionError(f"phase 13: the {method} step does not repeat itself bit for bit: {differ[:12]}")
+        del runs, start, opt, step
+
+        shell = make_shell_occupancy(renderer.occupancy, device="cuda")
+        cap = cfg.batch_size * cfg.eval_samples_per_ray
+        zero_counts()
+        images = []
+        for _ in range(2):
+            st = InferStats()
+            infer(renderer, shell, poses, [0], tmp, f"det_{method}", chunk=cfg.batch_size,
+                  render_chunk_fn=make_render_chunk(renderer),
+                  packed_fn=make_render_chunk_packed(renderer, cap, march="skip"), stats=st,
+                  grid_args=(renderer.skip_grid(shell),), write=False)
+            images.append(st.images[0])
+        launches[f"13_{method}_serve"] = read_counts(f"phase 13 {method} served views",
+                                                     march_kernels(method, "aabb", "skip"))
+        same = images[0].shape == (800, 800, 3) and np.array_equal(images[0], images[1])
+        print(f"phase 13 {method} 800x800 view served twice (packed on the skip march, dense fallback "
+              f"{st.fallback_rays} rays): bit-equal {same}, max abs {np.abs(images[0] - images[1]).max():.3e} [{card}]")
+        if not (same and np.isfinite(images[0]).all()):
+            raise AssertionError(f"phase 13: the served {method} view does not repeat itself bit for bit")
+        del renderer
+        torch.cuda.empty_cache()
+    return launches
+
+
 # phase 12, the port's four tools through their main(argv), as a user runs
 # them.  (c) trains K-Planes with the JAX tool's defaults (spheres, 12 views
 # at 100, batch 1024 x 128, f32) for QUALITY_STEPS steps: the occupancy
@@ -1702,6 +1942,7 @@ def run_phases(card: str, ns_root) -> dict:
 # least QUALITY_LOSS_DROP times; (d) the same with float8 gathers for
 # FP8_STEPS steps
 QUALITY_STEPS, FP8_STEPS = 1280, 64
+PROFILE_FIELD_N = 3  # (f): calls per piece, and as many under the profiler
 QUALITY_PSNR_FLOOR, QUALITY_LOSS_DROP = 22.0, 10.0
 TURNTABLE_FRAMES, TURNTABLE_RES = 4, 200
 
@@ -1794,6 +2035,37 @@ def run_tools(card: str) -> dict:
         print(f"12e render_turntable: {tt['seconds_per_frame']:.4f} s/frame ({tt['seconds']}), fallback "
               f"{tt['fallback_rays']} of {tt['rays']} rays ({tt['fallback_share']:.4%}), incomplete "
               f"{tt['incomplete_rays']} ({card})")
+
+    # (f) the field's pieces at the training cap, both fields (Cobafa with a
+    # converged step's pad tail): kernels 4-7 launched, every piece timed
+    for method, required, extra in (("kplanes", ("quad_build", "sort", "accumulate"), []),
+                                    ("cobafa", ("oct_build", "sort_pairs", "accumulate"),
+                                     ["--pad", str(COBAFA_PAD_SHARE)])):
+        prof = counted(f"12f_profile_field_{method}", required, lambda: _import_tool("profile_field_torch").main(
+            ["--method", method, "--n", str(PROFILE_FIELD_N), *extra]))
+        # every piece timed with CUDA events; the profiler has returned
+        # windows without a kernel (PERF.md section 6), so device time is
+        # required of most pieces, not of each
+        untimed = [k for k, v in prof["pieces"].items() if not v["ms"] > 0]
+        unmeasured = [k for k, v in prof["pieces"].items() if not v["device_ms"]]
+        if untimed or 2 * len(unmeasured) > len(prof["pieces"]):
+            raise AssertionError(f"profile_field {method}: pieces not timed {untimed}, or not on the device "
+                                 f"{unmeasured}")
+        if method == "cobafa" and not prof["bwd_sorted_vs_index_add"] <= GRAD_RTOL_OF_MAX:
+            raise AssertionError(f"profile_field: the sorted oct gradient is {prof['bwd_sorted_vs_index_add']} "
+                                 f"from index_add_'s")
+        print(f"12f profile_field {method}: {len(prof['pieces'])} pieces, device time not measured for "
+              f"{unmeasured}; " + ", ".join(
+            f"{k} {_ms(v['device_ms'])}" for k, v in prof["pieces"].items() if k.startswith(("bwd", "field")))
+            + f" ms device ({card})")
+
+    # (g) same-cell runs in the packed stream at the benchmark's geometry
+    runs = counted("12g_analyze_runs", (), lambda: _import_tool("analyze_runs_torch").main([]))
+    if not (runs["samples"] > 0 and len(runs["rows"]) == 11
+            and all(0 < r["runs"] <= r["samples"] for r in runs["rows"])):
+        raise AssertionError(f"analyze_runs: bad counts {runs}")
+    print(f"12g analyze_runs: {runs['samples']} samples of {runs['rays']} rays; runs/samples " + ", ".join(
+        f"{r['name']} {r['res']} {r['runs']}" for r in runs["rows"]) + f" ({card})")
     return launches
 
 
@@ -1826,6 +2098,7 @@ def main() -> None:
         print(f"nerfstudio capture of 9 generated 800x800 views written in {time.perf_counter() - t0:.1f} s")
         kern = check_kernels(dev)
         check_training_kernels(dev, kern)
+        check_fixed_order_kernels(dev, kern)
         kern.update(check_oct_build(dev))
         kern.update(check_quad_build(dev))
         kern.update(check_skip_march(dev))
@@ -1837,6 +2110,10 @@ def main() -> None:
         t0 = time.perf_counter()
         launches.update(run_tools(card))
         print(f"phase 12 (tools): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(run_determinism(tmp, card))
+        print(f"phase 13 (determinism): {time.perf_counter() - t0:.1f} s")
 
     # the quad build's counter counts every launch; its float8 launches
     # have a row of their own

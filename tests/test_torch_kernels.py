@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
-backwards, the radix sort, the windowed table-gradient accumulation, the
-oct and quad cell-pack builds and both skip marches (AABB and unbounded).
+backwards, the per-ray segment sum, the radix sort (keys, and key-value
+pairs), the windowed table-gradient accumulation and Cobafa's oct
+gradient through it, the oct and quad cell-pack builds and both skip
+marches (AABB and unbounded); and that a training step and a served chunk
+repeat themselves bit for bit.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -15,8 +18,8 @@ test_torch_ops.py and test_torch_train_ops.py.  Tolerances: weights atol
 1e-5, cumsums rtol 1e-5 / atol 1e-4 (f32 scans in another summation
 order); weight gradients 1e-5 of their largest magnitude (f32 sums of up
 to 400 terms in another order); sorts bit-equal (the keys are the same
-multiset); accumulated table gradients 1e-5 of their largest magnitude
-(f32 sums in another order, the atomics' order changing run to run); the
+multiset); accumulated table gradients and per-ray sums 1e-5 of their
+largest magnitude (f32 sums in another order); the
 oct and quad builds bit-equal (a relayout that rounds each value once, to
 nearest even in both); the skip marches' k_idx and complete equal (each
 kernel repeats its plain version's f32 operations, each rounded once).
@@ -498,6 +501,126 @@ def test_windowed_accumulate_kernel_layouts(cuda_device, payload, nc, f, w_windo
     torch.testing.assert_close(k, plain, atol=_grad_tol(plain), rtol=0)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [torch.float32, torch.bfloat16])
+def test_windowed_accumulate_split_windows_repeat_bit_for_bit(cuda_device, payload):
+    """Training-shaped cells (a hot window of many chunks, a pad tail of
+    zero cotangents in one cell, whose chunks flag nothing): the register
+    kernel's output, with its split windows' later chunks added in item
+    order, bit-equal over DET_RUNS calls, and within the kernel's tolerance
+    of its plain version."""
+    rng = np.random.default_rng(31)
+    p, n, f, nc, n_cells, w_window = 2, 200_000, 96, 4, 64 * 1024, 64
+    cell = rng.integers(0, n_cells, (p, n))
+    cell[:, : 30_000] = 7 * w_window + rng.integers(0, w_window, 30_000)  # a hot window
+    cell[:, -60_000:] = 11 * w_window + 3  # the pad tail: one cell
+    g = rng.normal(size=(p, n, f)).astype(np.float32)
+    g[:, -60_000:] = 0.0
+    cell, g = T(cell.astype(np.int32)).to(cuda_device), T(g).to(cuda_device)
+    w4 = torch.rand(p, n, nc, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(3))
+    perm, offsets = table_grad.sort_by_window(cell, n_cells, w_window)
+    gidx = (perm.long() + (torch.arange(p, device=cuda_device) * n)[:, None]).reshape(-1)
+    rows = table_grad.pack_payload(g, w4, cell, w_window, payload).reshape(p * n, -1)[gidx].reshape(p, n, -1)
+    counts = offsets[:, 1:] - offsets[:, :-1]
+    assert int((counts > table_grad.ACCUM_CHUNK).sum()) >= 2 * p
+    outs = [table_grad.windowed_accumulate(rows, offsets, f, nc, n_cells, w_window) for _ in range(DET_RUNS)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    plain = table_grad.windowed_accumulate_plain(rows, offsets, f, nc, n_cells, w_window)
+    torch.testing.assert_close(outs[0], plain, atol=_grad_tol(plain), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "tile_edges", "one_ray_fills_the_buffer", "training", "three_columns"])
+def test_segment_sum_kernel_matches_plain(cuda_device, case):
+    """The per-ray sum: kernel vs plain `index_add` on packed buffers (runs
+    around tile edges, a run longer than many tiles, the pad tail's id
+    dropped, empty rays 0), 1e-5 of the largest sum (f32 sums in another
+    order); DET_RUNS calls bit-equal; its gradient (a gather) equal."""
+    rng = np.random.default_rng(37)
+    if case == "small":
+        _, _, _, seg, n_rays = _packed(1)
+    elif case == "tile_edges":
+        _, _, _, seg, _, n_rays = _ragged(2, [SCAN_TILE - 1, 2, SCAN_TILE, 1, 0, 3 * SCAN_TILE + 5, 7], 900)
+    elif case == "one_ray_fills_the_buffer":
+        seg, n_rays = np.zeros(50_000, np.int32), 1
+    else:
+        counts = rng.integers(0, 401, 4096)
+        counts = (counts * (0.937 * 819_200 / counts.sum())).astype(np.int64)
+        seg = np.full(819_200, 4096, np.int32)
+        seg[: counts.sum()] = np.repeat(np.arange(4096), counts)
+        n_rays = 4096
+    c = 3 if case == "three_columns" else 4
+    if case == "three_columns":
+        _, _, _, seg, n_rays = _packed(5)
+    x = T(rng.uniform(0.0, 1.0, (seg.size, c)).astype(np.float32)).to(cuda_device)
+    seg_t = T(seg).to(cuda_device)
+    before = segscan.segment_sum.launches
+    outs = [segscan.segment_sum(x, seg_t, n_rays) for _ in range(DET_RUNS)]
+    torch.cuda.synchronize()
+    assert segscan.segment_sum.launches == before + DET_RUNS
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    plain = segscan.segment_sum_plain(x, seg_t, n_rays)
+    assert outs[0].shape == (n_rays, c)
+    torch.testing.assert_close(outs[0], plain, atol=_grad_tol(plain), rtol=0)
+    empty = torch.bincount(seg_t[seg_t < n_rays].long(), minlength=n_rays) == 0
+    assert bool((outs[0][empty] == 0).all())
+    xg = x.clone().requires_grad_()
+    cot = torch.randn(n_rays, c, device=cuda_device)
+    (segscan.segment_sum(xg, seg_t, n_rays) * cot).sum().backward()
+    xp = x.clone().requires_grad_()
+    (segscan.segment_sum_plain(xp, seg_t, n_rays) * cot).sum().backward()
+    assert torch.equal(xg.grad, xp.grad)
+
+
+@pytest.mark.cuda
+def test_sort_pairs_kernel_bit_equal_to_plain(cuda_device):
+    """The key-value sort against its plain version (a stable sort of the
+    digit): keys and the values that moved with them equal, for bit ranges
+    of one pass and of several, rows of every tile remainder."""
+    rng = np.random.default_rng(41)
+    for shape in ((5000,), (3, 4097), (2, 70_000), (1, 819_200)):
+        keys = T(rng.integers(0, 1 << 15, shape).astype(np.int32)).to(cuda_device)
+        vals = T(rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)).to(cuda_device)
+        for begin_bit, end_bit in ((0, 15), (0, 8), (3, 12), (0, 32)):
+            before = bitonic.sort_pairs_i32.launches
+            k, v = bitonic.sort_pairs_i32(keys, vals, begin_bit, end_bit)
+            torch.cuda.synchronize()
+            assert bitonic.sort_pairs_i32.launches == before + 1
+            k_ref, v_ref = bitonic.sort_pairs_i32_plain(keys, vals, begin_bit, end_bit)
+            assert torch.equal(k, k_ref) and torch.equal(v, v_ref), (shape, begin_bit, end_bit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,f", [(128, 4), (64, 6), (32, 8), (9, 3)])
+def test_oct_table_grad_kernels_match_scatter_and_repeat(cuda_device, res, f):
+    """Cobafa's oct gradient on the card (the window sort, by key and value
+    where the windows and samples pass 32 bits, then the register kernel's
+    flat layout): against one `index_add_` of the [n, 8F] rows, 1e-5 of the
+    largest sum; a pad tail of zero cotangents in one cell; DET_RUNS calls
+    bit-equal."""
+    rng = np.random.default_rng(43)
+    n = 300_000
+    n_cells = (res - 1) ** 3
+    cell = rng.integers(0, n_cells, n)
+    cell[-100_000:] = n_cells // 3
+    g = rng.normal(size=(n, f)).astype(np.float32)
+    g[-100_000:] = 0.0
+    w = rng.uniform(size=(n, 8)).astype(np.float32)
+    cell_t, g_t, w_t = (T(a).to(cuda_device) for a in (cell, g, w))
+    before = {k: getattr(fn, a) for k, (fn, a) in cuda_lib.launch_counters().items()}
+    outs = [interp.oct_table_grad(g_t, w_t, cell_t, n_cells) for _ in range(DET_RUNS)]
+    torch.cuda.synchronize()
+    launched = {k: getattr(fn, a) - before[k] for k, (fn, a) in cuda_lib.launch_counters().items()}
+    pairs = not table_grad.window_keys_fit(-(-n_cells // 64) * 64, 64, n)
+    assert launched["accumulate"] == DET_RUNS and launched["sort_pairs" if pairs else "sort"] == DET_RUNS
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    contrib = (g_t[:, None, :] * w_t[:, :, None]).reshape(n, 8 * f)
+    ref = torch.zeros(n_cells, 8 * f, device=cuda_device).index_add_(0, cell_t.long(), contrib)
+    assert outs[0].shape == ref.shape
+    torch.testing.assert_close(outs[0], ref, atol=_grad_tol(ref), rtol=0)
+
 # the Cobafa field's seven grids at full width (make_model("cobafa")), then
 # ragged shapes: odd channel counts (12- and 24-byte corners), r = 2
 OCT_SHAPES = [(32, 32, 32, 8), (51, 51, 51, 8), (70, 70, 70, 8), (89, 89, 89, 4), (108, 108, 108, 4),
@@ -683,3 +806,120 @@ def test_skip_march_unbounded_kernel_equals_plain(cuda_device):
                 assert torch.equal(k, k_ref), (res, seed, n_steps)
                 assert torch.equal(c, c_ref), (res, seed, n_steps)
                 assert int((k >= 0).sum()) > 0
+
+
+# ---- determinism: a training step and a served chunk repeat themselves
+# bit for bit on the card (no float atomics in an order that changes from
+# run to run); full-width fields at the TrainConfig defaults (2048 rays x
+# 400 samples, bf16 compute), K-Planes with both table-gradient payloads
+
+DET_FIELDS = {"kplanes_bf16": ("kplanes", "auto"), "kplanes_f32": ("kplanes", "sorted"),
+              "cobafa": ("cobafa", None), "vanilla": ("vanilla", None)}
+DET_RUNS = 3
+
+
+@pytest.fixture(scope="module")
+def det_pool():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.utils import make_spheres_data
+
+    pool = RayPool(make_spheres_data(n_views=2, res=200, seed=1), device="cuda")
+    order = torch.randperm(pool.n_rays, generator=torch.Generator().manual_seed(3)).to("cuda")
+    return pool, tuple(a[order].contiguous() for a in pool.arrays())
+
+
+def _det_world(name, pool):
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer, make_optimizer
+
+    method, bwd_impl = DET_FIELDS[name]
+    cfg = TrainConfig(method=method, seed=0)
+    renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda")
+    if bwd_impl is not None:
+        renderer.field.bwd_impl = bwd_impl
+    return cfg, renderer
+
+
+def _differences(runs: list) -> list:
+    """(part, max|diff| / max|first|) of every tensor that is not bit-equal
+    to the first run's."""
+    out = []
+    for run in runs[1:]:
+        for key, ref in runs[0].items():
+            if not torch.equal(run[key], ref):
+                diff = float((run[key].float() - ref.float()).abs().max())
+                out.append((key, diff / max(float(ref.float().abs().max()), 1e-30)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("march", ["dense", "skip"])
+@pytest.mark.parametrize("name", sorted(DET_FIELDS))
+def test_train_step_repeats_bit_for_bit(det_pool, name, march):
+    """`make_train_step(deterministic=True)` from one saved state (after a
+    first step, so that Adam's moments are not zero), DET_RUNS times: the
+    loss, every gradient, and every parameter and moment after the update
+    bit-equal.  Dense: the all-occupied grid, 2048 rays; skip: the shell
+    occupancy (cells to skip), 16 x 2048 rays."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    pool, arrays = det_pool
+    cfg, renderer = _det_world(name, pool)
+    opt = make_optimizer(cfg, renderer)
+    if march == "skip":
+        n_cand = 16 * cfg.batch_size
+        occ = make_shell_occupancy(renderer.occupancy, device="cuda")
+        args = (occ, renderer.skip_grid(occ))
+    else:
+        n_cand = cfg.batch_size
+        args = (renderer.occupancy.init_state("cuda"),)
+    step = make_train_step(renderer, opt, cfg, n_cand, deterministic=True, march=march)
+    step(*args, *arrays)
+    start = [t.detach().clone() for t in (*opt.params, *opt.mu, *opt.nu)]
+    count = opt.count
+    runs = []
+    for _ in range(DET_RUNS):
+        with torch.no_grad():
+            for t, t0 in zip((*opt.params, *opt.mu, *opt.nu), start):
+                t.copy_(t0)
+        opt.count = count
+        m = step(*args, *arrays)
+        torch.cuda.synchronize()
+        run = {"loss": m["loss"].clone()}
+        run.update({f"grad {path}": g.clone() for path, g in tree_leaves_with_path(m["grads"])})
+        for label, tensors in (("param", opt.params), ("mu", opt.mu), ("nu", opt.nu)):
+            run.update({f"{label} {path}": t.detach().clone() for path, t in zip(opt.paths, tensors)})
+        runs.append(run)
+    assert float(runs[0]["loss"]) > 0 and np.isfinite(float(runs[0]["loss"]))
+    assert any(float(v.abs().max()) > 0 for k, v in runs[0].items() if k.startswith("grad "))
+    diffs = _differences(runs)
+    assert not diffs, f"{name} {march}: {len(diffs)} tensors differ run to run: {diffs[:12]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("march", ["dense", "skip"])
+@pytest.mark.parametrize("name", ["kplanes_bf16", "cobafa", "vanilla"])
+def test_served_chunk_repeats_bit_for_bit(det_pool, name, march):
+    """One 2048-ray packed serving chunk (64 samples per ray, the shell
+    occupancy), rendered DET_RUNS times: colors, flags and counts bit-equal."""
+    from tinynerf_tpu_torch.train import make_render_chunk_packed
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    pool, (rays_o, rays_d, _) = det_pool
+    cfg, renderer = _det_world(name, pool)
+    occ = make_shell_occupancy(renderer.occupancy, device="cuda")
+    grid = (renderer.skip_grid(occ),) if march == "skip" else ()
+    fn = make_render_chunk_packed(renderer, cfg.batch_size * cfg.eval_samples_per_ray, march=march)
+    runs = []
+    with torch.inference_mode():
+        for _ in range(DET_RUNS):
+            rgb, ok, n_samples, n_complete = fn(occ, rays_o[:cfg.batch_size], rays_d[:cfg.batch_size], *grid)
+            torch.cuda.synchronize()
+            runs.append({"rgb": rgb.clone(), "ok": ok.clone(), "n_samples": n_samples.clone(),
+                         "n_complete": n_complete.clone()})
+    assert int(runs[0]["n_samples"]) > 0 and bool(torch.isfinite(runs[0]["rgb"]).all())
+    diffs = _differences(runs)
+    assert not diffs, f"{name} {march} serving chunk: differs run to run: {diffs}"

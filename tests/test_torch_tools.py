@@ -1,6 +1,6 @@
-"""The port's four tools (`tools/{render_turntable,bench_infer,profile_step,
-quality_run}_torch.py`) through `main(argv)` on the CPU at a tiny size,
-against the JAX package on the same inputs.
+"""The port's tools (`tools/{render_turntable,bench_infer,profile_step,
+quality_run,profile_field,analyze_runs}_torch.py`) through `main(argv)` on
+the CPU at a tiny size, against the JAX package on the same inputs.
 
   * render_turntable: the frames rendered from a JAX-written vanilla
     checkpoint against the JAX `infer` of the same orbit from the same
@@ -16,7 +16,12 @@ against the JAX package on the same inputs.
     JAX's exactly for the same rays and jitter words;
   * quality_run: the `TrainConfig` that `tools/quality_run.py` builds from
     the same flags, field by field; the JAX tool's line formats; a loss
-    that falls over a few steps.
+    that falls over a few steps;
+  * profile_field: every piece of both fields timed, and Cobafa's sorted
+    oct gradient within 1e-5 of the `index_add_` it replaced;
+  * analyze_runs: the run counts of the JAX tool's table, exactly, on the
+    points the JAX tool marched (fed to the port's packing and counting:
+    the two packages' jitter draws differ).
 """
 
 import dataclasses
@@ -44,7 +49,9 @@ from tinynerf_tpu.utils.fixtures import CAMERA_ANGLE_X, look_at_matrix
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
 
+import analyze_runs_torch  # noqa: E402
 import bench_infer_torch  # noqa: E402
+import profile_field_torch  # noqa: E402
 import profile_step_torch  # noqa: E402
 import quality_run_torch  # noqa: E402
 import render_turntable_torch  # noqa: E402
@@ -213,3 +220,85 @@ def test_quality_run_trains_and_prints_the_jax_lines(tmp_path, capsys):
     import tinynerf_tpu_torch.train.loop as loop_mod
 
     assert loop_mod.make_model is registry.make_model
+
+
+FIELD_PIECES = {
+    "kplanes": ("fwd: quad builds (x3 proj, kernel 7)", "fwd: full value (build+gather, x3)",
+                "bwd: _cell_2d x3 (recompute)", "bwd: contrib build (w x g, 1 proj)",
+                "bwd: permutation gather of the payload (x3 proj)", "bwd: windowed_accumulate (x3 proj, kernel 5)",
+                "bwd: _fine_from_quad (1 proj)", "bwd: _pullback_scales (1 proj)",
+                "field fwd+bwd (incl product rule)"),
+    "cobafa": ("oct build: coef (kernel 6)", "oct build: ALL grids", "gathers: ALL grids (same coords)",
+               "bwd: window sort + accumulate + reduce ALL grids",
+               "bwd: index_add_ + reduce ALL grids (replaced; here only)", "field fwd+bwd (dropout on)"),
+}
+
+
+@pytest.mark.parametrize("method", sorted(FIELD_PIECES))
+def test_profile_field_times_every_piece(method):
+    got = profile_field_torch.main(["--method", method, "--cap", "3000", "--n", "1", "--pad", "0.4",
+                                    "--field_scale", "0.1", "--device", "cpu"])
+    assert got["method"] == method and got["cap"] == 3000 and got["card"] == "cpu"
+    for name in FIELD_PIECES[method]:
+        piece = got["pieces"][name]
+        assert piece["ms"] > 0 and piece["device_ms"] is None and piece["launches_per_call"] == {}
+    if method == "kplanes":
+        assert sum(k.startswith("bwd: sort_by_window") for k in got["pieces"]) == 1
+        assert got["bwd_impl"] == "scatter" and got["w_window"] == 256  # the CPU's rule
+    else:
+        assert len([k for k in got["pieces"] if k.startswith("oct build: basis")]) == 6
+        assert got["bwd_sorted_vs_index_add"] <= 1e-5
+
+
+def test_analyze_runs_counts_match_jax_tool(monkeypatch, capsys):
+    """The JAX tool runs as it is; its march's output is kept, and the port
+    packs and counts those same points: every row of the table equal."""
+    import analyze_runs as jtool
+    from tinynerf_tpu.core import renderer as jrenderer_mod
+
+    kept = {}
+    march = jrenderer_mod.NerfRenderer._march
+
+    def keep_march(self, *a, **kw):
+        out = march(self, *a, **kw)
+        kept["cpos"], kept["mask"] = np.array(out[0]), np.asarray(out[2]) > 0.0
+        return out
+
+    monkeypatch.setattr(jrenderer_mod.NerfRenderer, "_march", keep_march)
+    jtool.main()
+    out = capsys.readouterr().out
+    ref = [(m[0], int(m[1]), int(m[2]), int(m[3]))
+           for m in re.findall(r"^\s*(xy|xz|yz|vox)\s+(\d+)\s+(\d+)/(\d+)", out, re.M)]
+    assert len(ref) == 11
+    from tinynerf_tpu_torch.core.renderer import compact
+
+    mask = torch.from_numpy(kept["mask"])
+    is_pad, safe_idx, seg_ids = compact(mask, mask.numel())
+    pts = torch.from_numpy(kept["cpos"]).reshape(-1, 3)[safe_idx[~is_pad]].numpy()
+    rows = analyze_runs_torch.count_runs(pts, seg_ids[~is_pad].numpy())
+    assert [(r["name"], r["res"], r["runs"], r["samples"]) for r in rows] == ref
+    assert int(kept["mask"].sum()) == rows[0]["samples"] > 0
+
+
+def test_analyze_runs_main_on_the_port_march():
+    got = analyze_runs_torch.main(["--device", "cpu", "--n_rays", "256", "--field_scale", "0.1"])
+    assert got["rays"] == 256 and got["samples"] > 0 and len(got["rows"]) == 11
+    assert [(r["name"], r["res"]) for r in got["rows"][:3]] == [("xy", 129), ("xz", 129), ("yz", 129)]
+    for r in got["rows"]:
+        assert 0 < r["runs"] <= r["samples"] == got["samples"]
+    # finer cells, more runs
+    by = {(r["name"], r["res"]): r["runs"] for r in got["rows"]}
+    assert by[("xy", 129)] <= by[("xy", 257)] <= by[("xy", 513)] and by[("vox", 64)] <= by[("vox", 128)]
+
+
+def test_quality_run_matmul_precision_flag(tmp_path, capsys):
+    """`--matmul-precision` holds for the run, is named among the RESULT
+    line's deviations, and torch's setting is restored after."""
+    before = torch.get_float32_matmul_precision()
+    got = quality_run_torch.main([
+        "--device", "cpu", "--method", "vanilla", "--res", "16", "--n_train", "1", "--steps", "2",
+        "--batch_size", "32", "--n_samples", "16", "--field_scale", "0.07", "--matmul-precision", "medium",
+        "--eval-n", "1", "--output", str(tmp_path)])
+    assert got["matmul_precision"] == "medium" and len(got["losses"]) == 2
+    assert "deviations=[matmul=medium]" in capsys.readouterr().out
+    assert torch.get_float32_matmul_precision() == before

@@ -1,6 +1,6 @@
 """The vanilla field in the port against the JAX package: the field, its
 renders (packed on both marches, and dense), checkpoints both ways, the
-deterministic train step, `remat_field` (against JAX's remat step, and
+deterministic train step and a trajectory of such steps, `remat_field` (against JAX's remat step, and
 against the port's step without it, for every field), and the command line
 with `--method vanilla`.
 
@@ -190,6 +190,39 @@ def test_vanilla_remat_step_matches_jax_and_no_remat(world, rays):
     ours = _port_step(world, rays, VANILLA_CFG, remat=True)
     _assert_step_close(ours, _jax_step(world, rays, VANILLA_CFG, remat=True))
     _assert_step_close(ours, _port_step(world, rays, VANILLA_CFG, remat=False))
+
+
+TRAJECTORY_STEPS, TRAJECTORY_RTOL = 60, 1e-2
+
+
+def test_vanilla_deterministic_trajectory_tracks_jax(world, scene):
+    """TRAJECTORY_STEPS deterministic steps of JAX's jitted step and of the
+    port's from the same parameters, on the same 64-ray batches drawn in
+    turn from the scene's rays, parameters and Adam state carried: each
+    step's loss within TRAJECTORY_RTOL relative.  (On this 16x16 scene the
+    two trajectories agree to ~2e-3 for about 60 steps and then part
+    chaotically near losses of 1e-3, as two f32 orders of one sum do: JAX's
+    jitted gradients are themselves up to 2.4e-2 of a leaf's max from its
+    op-by-op ones.)"""
+    arrays = [np.asarray(a) for a in JRayPool(jparse(scene, "train")).arrays()]
+    order = np.random.default_rng(0).permutation(arrays[0].shape[0])
+    batches = [[a[np.roll(order, -N_CAND * s)[:N_CAND]] for a in arrays] for s in range(TRAJECTORY_STEPS)]
+    jcfg = JConfig(compute_dtype="float32", **VANILLA_CFG)
+    jopt = jloop.make_optimizer(jcfg)
+    jstep = jloop.make_train_step(world["jr"], jopt, jcfg, make_mesh(jax.devices()[:1]), n_cand=N_CAND,
+                                  deterministic=True)
+    params = jax.tree_util.tree_map(jnp.array, world["params"])
+    opt_state, occ = jopt.init(params), world["jr"].occupancy.init_state()
+    tcfg = TrainConfig(compute_dtype="float32", **VANILLA_CFG)
+    r = build_renderer(tcfg, world["pset"].scene_scale, world["pset"].bg_color, device="cpu")
+    load_params(r, jax.tree_util.tree_map(np.asarray, world["params"]))
+    step = make_train_step(r, make_optimizer(tcfg, r), tcfg, n_cand=N_CAND, deterministic=True)
+    tocc = r.occupancy.init_state()
+    for s, batch in enumerate(batches):
+        params, opt_state, m = jstep(params, opt_state, occ, *(jnp.asarray(a) for a in batch),
+                                     jax.random.PRNGKey(s))
+        ours = float(step(tocc, *(T(a) for a in batch))["loss"])
+        assert ours == pytest.approx(float(m["loss"]), rel=TRAJECTORY_RTOL), s
 
 
 @pytest.mark.parametrize("method", ["vanilla", "kplanes", "cobafa"])

@@ -9,8 +9,10 @@ paths with static shapes:
   * `render_packed` compacts the first `cap` valid samples, in ray-major
     order, into a flat buffer; the field and decoders run on those `cap`
     samples only, the weights come from a segmented scan over the packed
-    rays, and rays whose samples spilled past `cap` come back flagged
-    (`ray_valid = 0`) so the caller can re-render them densely.
+    rays and each ray's color and opacity from a segment sum (in a fixed
+    order on the card, so a view repeats itself bit for bit), and rays
+    whose samples spilled past `cap` come back flagged (`ray_valid = 0`) so
+    the caller can re-render them densely.
 
 Both marchers run through both paths: the AABB one (box entry, uniform
 steps, the box mask) and the unbounded one (the disparity grid and the
@@ -51,7 +53,7 @@ from torch import nn
 
 from ..models.cobafa import CobafaFeatureField
 from ..ops.hashrng import hash_u01
-from ..ops.segscan import compute_weights_packed
+from ..ops.segscan import compute_weights_packed, segment_sum
 from ..ops.weights_dense import compute_weights_dense
 from .contraction import ContractionAABB, ContractionMip360
 from .marching import RayMarcherAABB, RayMarcherUnbounded
@@ -290,9 +292,10 @@ class NerfRenderer(nn.Module):
         # gets weight 0, as its valid = 0 gives
         valid_cap = 1.0 - is_pad.float()
         delta_cap = deltas.reshape(total)[safe_idx]
+        seg32 = seg_ids.to(torch.int32)
         w_cap = compute_weights_packed(
             sigma_cap.float().contiguous(), delta_cap.contiguous(), valid_cap,
-            seg_ids.to(torch.int32), self.early_termination, n_segments=n_rays,
+            seg32, self.early_termination, n_segments=n_rays,
         )
 
         if rgb_dir_branch == "ray":
@@ -300,12 +303,10 @@ class NerfRenderer(nn.Module):
         else:
             rgbs_cap = self.rgb_decoder(feats_cap, rays_d[ray_of], self.compute_dtype)
 
-        # --- per-ray reduction (a segment sum; pads land in row n_rays)
-        acc_rgb = torch.zeros(n_rays + 1, 3, dtype=torch.float32, device=dev).index_add(
-            0, seg_ids, w_cap[:, None] * rgbs_cap)
-        opacity = torch.zeros(n_rays + 1, dtype=torch.float32, device=dev).index_add(
-            0, seg_ids, w_cap)
-        acc_rgb, opacity = acc_rgb[:n_rays], opacity[:n_rays]
+        # --- per-ray reduction: one segment sum of (w * rgb, w), in a fixed
+        # order on the card; the pad tail (id n_rays) is dropped
+        sums = segment_sum(torch.cat([w_cap[:, None] * rgbs_cap, w_cap[:, None]], dim=1), seg32, n_rays)
+        acc_rgb, opacity = sums[:, :3], sums[:, 3]
 
         # --- rays whose samples spilled past `cap`, or whose skip march ran
         # out of rounds, are flagged; zero-sample rays render exact bg and

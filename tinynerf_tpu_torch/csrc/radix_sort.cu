@@ -35,7 +35,11 @@
 //     digit's base in the row (exclusive scan of the totals over digits)
 //     plus the tile's offset from the scan kernel.
 // Equal digits keep their input order at every level, so the sort is
-// stable.  Passes ping-pong between two buffers; the input is only read.
+// stable.  The key-value form (tn_sort_pairs_i32) moves an int32 value with
+// each key through the same ranks: Cobafa's oct gradient sorts window ids
+// as keys with the sample index as the value, because its grids' windows
+// and sample indices together need more than 32 bits (127^3 cells in
+// windows of 64: 15 bits; 819,200 samples: 20).  Passes ping-pong between two buffers; the input is only read.
 // Bit 31 is flipped in the digit, so signed keys sort as torch.sort sorts
 // them.  A chained scan with decoupled look-back would make it one launch
 // per pass; the three-launch form needs no forward-progress guarantee.
@@ -123,11 +127,15 @@ radix_scan_kernel(int* __restrict__ hist, int tiles, int* __restrict__ totals) {
   if (lane == 0) totals[run] = carry;
 }
 
+// With PAIRS, vals_in[i] moves with keys_in[i] to the same place.
+template <bool PAIRS>
 __global__ void __launch_bounds__(kThreads)
-radix_scatter_kernel(const int* __restrict__ keys_in, int* __restrict__ keys_out, int n, int tiles,
-               int shift, unsigned mask, const int* __restrict__ hist,
-               const int* __restrict__ totals) {
+radix_scatter_kernel(const int* __restrict__ keys_in, int* __restrict__ keys_out,
+                     const int* __restrict__ vals_in, int* __restrict__ vals_out, int n, int tiles,
+                     int shift, unsigned mask, const int* __restrict__ hist,
+                     const int* __restrict__ totals) {
   __shared__ int staged[kTile];
+  __shared__ int staged_vals[PAIRS ? kTile : 1];
   __shared__ int warp_count[kWarps][kBins + 1];  // bin kBins: past the row's end
   __shared__ int local_base[kBins];   // where digit d's run starts in `staged`
   __shared__ int global_base[kBins];  // row position of staged[i], less i, for digit d
@@ -141,12 +149,14 @@ radix_scatter_kernel(const int* __restrict__ keys_in, int* __restrict__ keys_out
   const long long tile_base = static_cast<long long>(tile) * kTile;
   const long long base = tile_base + warp * kWarpKeys + lane;
   const unsigned below = lanes_below();
-  int key[kKeysPerThread], rank[kKeysPerThread];
+  const int* vsrc = PAIRS ? vals_in + static_cast<long long>(row) * n : nullptr;
+  int key[kKeysPerThread], rank[kKeysPerThread], val[PAIRS ? kKeysPerThread : 1];
 #pragma unroll
   for (int r = 0; r < kKeysPerThread; ++r) {
     const long long i = base + r * 32;
     const bool valid = i < n;
     key[r] = valid ? src[i] : 0;
+    if constexpr (PAIRS) val[r] = valid ? vsrc[i] : 0;
     const int d = valid ? digit_of(key[r], shift, mask) : kBins;
     const unsigned peers = __match_any_sync(kFull, d);
     const int before = __popc(peers & below);
@@ -179,7 +189,9 @@ radix_scatter_kernel(const int* __restrict__ keys_in, int* __restrict__ keys_out
   for (int r = 0; r < kKeysPerThread; ++r) {
     if (base + r * 32 < n) {
       const int d = digit_of(key[r], shift, mask);
-      staged[local_base[d] + warp_count[warp][d] + rank[r]] = key[r];
+      const int at = local_base[d] + warp_count[warp][d] + rank[r];
+      staged[at] = key[r];
+      if constexpr (PAIRS) staged_vals[at] = val[r];
     }
   }
   __syncthreads();
@@ -187,10 +199,48 @@ radix_scatter_kernel(const int* __restrict__ keys_in, int* __restrict__ keys_out
   const long long left = n - tile_base;
   const int n_here = left < kTile ? static_cast<int>(left) : kTile;
   int* dst = keys_out + static_cast<long long>(row) * n;
+  int* vdst = PAIRS ? vals_out + static_cast<long long>(row) * n : nullptr;
   for (int i = threadIdx.x; i < n_here; i += kThreads) {
     const int k = staged[i];
-    dst[global_base[digit_of(k, shift, mask)] + i] = k;
+    const int to = global_base[digit_of(k, shift, mask)] + i;
+    dst[to] = k;
+    if constexpr (PAIRS) vdst[to] = staged_vals[i];
   }
+}
+
+// The passes of tn_sort_i32 / tn_sort_pairs_i32 (vals null: keys only).
+int sort_passes(const int* src, const int* vsrc, void* buf_a, void* buf_b, void* vbuf_a, void* vbuf_b,
+                void* scratch_v, int n_rows, int n, int begin_bit, int end_bit, cudaStream_t stream) {
+  if (n_rows <= 0 || n <= 0 || n_rows > 65535 || begin_bit < 0 || end_bit > 32 ||
+      begin_bit >= end_bit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (n + kTile - 1) / kTile;
+  int* hist = static_cast<int*>(scratch_v);
+  int* totals = hist + static_cast<long long>(n_rows) * kBins * tiles;
+  const dim3 grid(tiles, n_rows);
+  int pass = 0;
+  for (int shift = begin_bit; shift < end_bit; shift += kRadixBits, ++pass) {
+    const int bits = end_bit - shift < kRadixBits ? end_bit - shift : kRadixBits;
+    const unsigned mask = (1u << bits) - 1u;
+    int* dst = static_cast<int*>(pass % 2 == 0 ? buf_a : buf_b);
+    int* vdst = static_cast<int*>(pass % 2 == 0 ? vbuf_a : vbuf_b);
+    if (dst == nullptr || (vsrc != nullptr && vdst == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+    radix_histogram_kernel<<<grid, kThreads, 0, stream>>>(src, n, tiles, shift, mask, hist);
+    radix_scan_kernel<<<n_rows * (kBins / kWarps), kThreads, 0, stream>>>(hist, tiles, totals);
+    if (vsrc != nullptr) {
+      radix_scatter_kernel<true><<<grid, kThreads, 0, stream>>>(src, dst, vsrc, vdst, n, tiles, shift, mask,
+                                                                hist, totals);
+    } else {
+      radix_scatter_kernel<false><<<grid, kThreads, 0, stream>>>(src, dst, nullptr, nullptr, n, tiles, shift,
+                                                                 mask, hist, totals);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
+    vsrc = vdst;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -205,30 +255,19 @@ extern "C" {
 // holds n_rows * 256 * (ceil(n / 4096) + 1) int32.
 int tn_sort_i32(const void* keys_v, void* buf_a, void* buf_b, void* scratch_v, int n_rows, int n,
                 int begin_bit, int end_bit, void* stream_v) {
-  if (n_rows <= 0 || n <= 0 || n_rows > 65535 || begin_bit < 0 || end_bit > 32 ||
-      begin_bit >= end_bit) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  const int tiles = (n + kTile - 1) / kTile;
-  int* hist = static_cast<int*>(scratch_v);
-  int* totals = hist + static_cast<long long>(n_rows) * kBins * tiles;
-  const dim3 grid(tiles, n_rows);
-  const int* src = static_cast<const int*>(keys_v);
-  int pass = 0;
-  for (int shift = begin_bit; shift < end_bit; shift += kRadixBits, ++pass) {
-    const int bits = end_bit - shift < kRadixBits ? end_bit - shift : kRadixBits;
-    const unsigned mask = (1u << bits) - 1u;
-    int* dst = static_cast<int*>(pass % 2 == 0 ? buf_a : buf_b);
-    if (dst == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    radix_histogram_kernel<<<grid, kThreads, 0, stream>>>(src, n, tiles, shift, mask, hist);
-    radix_scan_kernel<<<n_rows * (kBins / kWarps), kThreads, 0, stream>>>(hist, tiles, totals);
-    radix_scatter_kernel<<<grid, kThreads, 0, stream>>>(src, dst, n, tiles, shift, mask, hist, totals);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    src = dst;
-  }
-  return 0;
+  return sort_passes(static_cast<const int*>(keys_v), nullptr, buf_a, buf_b, nullptr, nullptr, scratch_v,
+                     n_rows, n, begin_bit, end_bit, static_cast<cudaStream_t>(stream_v));
+}
+
+// The same sort of keys [n_rows, n], carrying vals [n_rows, n] int32: pass
+// by pass into (keys_a, vals_a), then (keys_b, vals_b), in turns, as above.
+int tn_sort_pairs_i32(const void* keys_v, const void* vals_v, void* keys_a, void* keys_b, void* vals_a,
+                      void* vals_b, void* scratch_v, int n_rows, int n, int begin_bit, int end_bit,
+                      void* stream_v) {
+  if (vals_v == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return sort_passes(static_cast<const int*>(keys_v), static_cast<const int*>(vals_v), keys_a, keys_b,
+                     vals_a, vals_b, scratch_v, n_rows, n, begin_bit, end_bit,
+                     static_cast<cudaStream_t>(stream_v));
 }
 
 }  // extern "C"

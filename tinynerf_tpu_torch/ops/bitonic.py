@@ -12,6 +12,10 @@ STABLY.  The module keeps its counterpart's name.  On CPU tensors
 `sort_i32` runs the plain version, a stable `torch.sort` of the digit and a
 gather.  Over the full 32 bits both give `torch.sort`'s keys bit for bit.
 
+`sort_pairs_i32` is the same sort carrying an int32 value with each key
+(one pass of the kernel moves both): the sort for buckets whose id and
+sample index do not fit one int32 together.
+
 `pack_keys` packs (bucket << idx_bits) | sample index into one int32, so a
 plain ascending sort groups the samples by bucket and yields the
 permutation at once; `packed_bits_ok` says whether the bits fit 31.
@@ -46,34 +50,71 @@ def sort_i32_plain(keys: torch.Tensor, begin_bit: int = 0, end_bit: int = 32) ->
     return torch.gather(keys, -1, order)
 
 
+def _rows(name: str, t: torch.Tensor) -> torch.Tensor:
+    """[N] or [B, N] as a contiguous [B, N]."""
+    rows = (t[None] if t.dim() == 1 else t).contiguous()
+    if rows.dim() != 2:
+        raise ValueError(f"{name}: expected [N] or [B, N], got {tuple(t.shape)}")
+    return rows
+
+
+def _radix_sort(wrapper, name: str, keys: torch.Tensor, vals, begin_bit: int, end_bit: int):
+    """One call of `csrc/radix_sort.cu` on CUDA tensors, counted on
+    `wrapper`: (sorted keys, values moved with them or None), shaped as
+    `keys`."""
+    _check_bits(begin_bit, end_bit)
+    keys2 = _rows(name, keys)
+    b, n = keys2.shape
+    both = (keys2,) if vals is None else (keys2, _rows(name, vals))
+    cuda_lib.check_cuda_inputs(name, torch.int32, (b, n), *both)
+    passes = -(-(end_bit - begin_bit) // RADIX_BITS)
+    if b == 0 or n == 0 or passes == 0:
+        return keys.clone(), None if vals is None else vals.clone()
+    # the passes write two buffers per array in turns; the inputs are only read
+    bufs = [[torch.empty_like(t) for _ in range(min(passes, 2))] for t in both]
+    second = [pair[-1].data_ptr() if passes > 1 else None for pair in bufs]
+    scratch = torch.empty(b * 256 * (-(-n // SORT_TILE) + 1), dtype=torch.int32, device=keys.device)
+    if vals is None:
+        args = ("tn_sort_i32", keys2.data_ptr(), bufs[0][0].data_ptr(), second[0])
+    else:
+        args = ("tn_sort_pairs_i32", keys2.data_ptr(), both[1].data_ptr(), bufs[0][0].data_ptr(), second[0],
+                bufs[1][0].data_ptr(), second[1])
+    cuda_lib.library().call(*args, scratch.data_ptr(), b, n, begin_bit, end_bit, cuda_lib.stream_of(keys2))
+    wrapper.launches += 1
+    outs = [pair[(passes - 1) % 2].reshape(t.shape) for pair, t in zip(bufs, (keys, vals))]
+    return outs[0], outs[1] if vals is not None else None
+
+
 def sort_i32(keys: torch.Tensor, begin_bit: int = 0, end_bit: int = 32) -> torch.Tensor:
     """keys: [N] or [B, N] int32 -> sorted ascending along the last axis,
     stably, by the key bits [begin_bit, end_bit) (bit 31 is the sign): the
     default range is the plain ascending sort."""
     if cuda_lib.runs_plain("sort_i32", keys):
         return sort_i32_plain(keys, begin_bit, end_bit)
-    _check_bits(begin_bit, end_bit)
-    squeeze = keys.dim() == 1
-    keys2 = (keys[None] if squeeze else keys).contiguous()
-    if keys2.dim() != 2:
-        raise ValueError(f"sort_i32: expected [N] or [B, N], got {tuple(keys.shape)}")
-    b, n = keys2.shape
-    cuda_lib.check_cuda_inputs("sort_i32", torch.int32, (b, n), keys2)
-    passes = -(-(end_bit - begin_bit) // RADIX_BITS)
-    if b == 0 or n == 0 or passes == 0:
-        return keys.clone()
-    # the passes write two buffers in turns; the input is only read
-    bufs = [torch.empty_like(keys2) for _ in range(min(passes, 2))]
-    scratch = torch.empty(b * 256 * (-(-n // SORT_TILE) + 1), dtype=torch.int32, device=keys.device)
-    cuda_lib.library().call(
-        "tn_sort_i32", keys2.data_ptr(), bufs[0].data_ptr(), bufs[-1].data_ptr() if passes > 1 else None,
-        scratch.data_ptr(), b, n, begin_bit, end_bit, cuda_lib.stream_of(keys2))
-    sort_i32.launches += 1
-    out = bufs[(passes - 1) % 2]
-    return out[0] if squeeze else out
+    return _radix_sort(sort_i32, "sort_i32", keys, None, begin_bit, end_bit)[0]
 
 
 sort_i32.launches = 0
+
+
+def sort_pairs_i32_plain(keys: torch.Tensor, vals: torch.Tensor, begin_bit: int = 0, end_bit: int = 32):
+    """Plain PyTorch `sort_pairs_i32`: a stable sort of the digit, then two gathers."""
+    _check_bits(begin_bit, end_bit)
+    digit = ((keys.long() + 2**31) >> begin_bit) & ((1 << (end_bit - begin_bit)) - 1)
+    order = torch.sort(digit, dim=-1, stable=True).indices
+    return torch.gather(keys, -1, order), torch.gather(vals, -1, order)
+
+
+def sort_pairs_i32(keys: torch.Tensor, vals: torch.Tensor, begin_bit: int = 0, end_bit: int = 32):
+    """keys, vals: [N] or [B, N] int32 -> (keys sorted as `sort_i32` sorts
+    them, vals moved with their keys): stable, so equal keys keep their
+    values' input order."""
+    if cuda_lib.runs_plain("sort_pairs_i32", keys, vals):
+        return sort_pairs_i32_plain(keys, vals, begin_bit, end_bit)
+    return _radix_sort(sort_pairs_i32, "sort_pairs_i32", keys, vals, begin_bit, end_bit)
+
+
+sort_pairs_i32.launches = 0
 
 
 def pack_keys(bucket: torch.Tensor, idx_bits: int) -> torch.Tensor:

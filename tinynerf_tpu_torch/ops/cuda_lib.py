@@ -37,9 +37,11 @@ _SIGNATURES = {
     "tn_weights_packed": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
     "tn_weights_dense": (_P, _P, _P, _I, _I, _F, _P, _P),
     "tn_weights_packed_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "tn_segment_sum": (_P, _P, _I, _I, _P, _P),
     "tn_weights_dense_bwd": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "tn_sort_i32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tn_windowed_accumulate": (_P, _P, _P) + (_I,) * 16 + (_P, _P),
+    "tn_sort_pairs_i32": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "tn_windowed_accumulate": (_P, _P, _P) + (_I,) * 16 + (_P, _I, _P, ctypes.c_longlong, _P, _P),
     "tn_build_oct": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "tn_build_quad": (_P,) + (_I,) * 8 + (_P, _P),
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -180,8 +182,10 @@ def launch_counters() -> dict:
         "segscan": (segscan.compute_weights_packed, "launches"),
         "weights_dense": (weights_dense.compute_weights_dense, "launches"),
         "segscan_bwd": (segscan.weights_packed_bwd, "launches"),
+        "segment_sum": (segscan.segment_sum, "launches"),
         "weights_dense_bwd": (weights_dense.weights_dense_bwd, "launches"),
         "sort": (bitonic.sort_i32, "launches"),
+        "sort_pairs": (bitonic.sort_pairs_i32, "launches"),
         "accumulate": (table_grad.windowed_accumulate, "launches"),
         "oct_build": (octbuild.build_oct, "launches"),
         "quad_build": (octbuild.build_quad, "launches"),

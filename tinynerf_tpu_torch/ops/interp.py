@@ -29,7 +29,7 @@ import torch
 
 from .bitonic import packed_bits_ok
 from .octbuild import CORNERS_3D, build_oct, build_quad
-from .table_grad import table_grad_sorted
+from .table_grad import default_window, table_grad_sorted
 
 
 def _to_index_space(c: torch.Tensor, res: int) -> torch.Tensor:
@@ -363,13 +363,41 @@ def _cell_3d(coords: torch.Tensor, r0: int, r1: int, r2: int) -> Tuple[torch.Ten
     return cell, w
 
 
+def oct_table_grad(g: torch.Tensor, w: torch.Tensor, cell: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """The corner-packed cell gradient of an oct lookup: [n_cells, 8F] f32,
+    row c the sum over the samples in cell c of concat_k(w[i, k] * g[i]).
+    g [n, F], w [n, 8] f32, cell [n].  The scatter of
+    `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd` taken as K-Planes takes
+    its own: the samples sorted by window of cells (`table_grad_sorted`: the
+    radix sort, by key and value where the windows and samples pass 32 bits),
+    then each window summed in a fixed order by the accumulation kernel, in
+    f32 rows padded to 16 bytes; on the CPU their plain versions."""
+    n, f = g.shape
+    w_window = default_window(g.device, n_cells, n, 8 * f, packed_keys=False)
+    return table_grad_sorted(g.float()[None], w[None], cell.reshape(1, n), n_cells, w_window,
+                             payload_dtype=torch.float32, row_align=4)[0]
+
+
+def oct_grad_to_grid(gq: torch.Tensor, shape) -> torch.Tensor:
+    """The corner-packed cell gradient [cells, 8F] back onto the grid
+    `shape` [r0, r1, r2, F]: its eight corner slices added at their shifts,
+    in `CORNERS_3D` order."""
+    r0, r1, r2, f = shape
+    m = (r0 - 1, r1 - 1, r2 - 1)
+    gq = gq.reshape(*m, 8 * f)
+    grad = torch.zeros(r0, r1, r2, f, dtype=torch.float32, device=gq.device)
+    for c, (dx, dy, dz) in enumerate(CORNERS_3D):
+        grad[dx : dx + m[0], dy : dy + m[1], dz : dz + m[2]] += gq[..., c * f : (c + 1) * f]
+    return grad
+
+
 class _TrilinearOct(torch.autograd.Function):
     """Forward: the oct table (`build_oct`), one row gather per sample, the
     f32 lerp.  Backward: `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd`,
-    the corner-packed cell gradient by one scatter of [n, 8F] f32 rows, then
-    its eight corner slices added back onto the grid.  Only the coordinates
-    are saved: the cell and weights are recomputed, and no oct table is kept
-    alive across the backward."""
+    the corner-packed cell gradient (`oct_table_grad`: sorted by window,
+    summed in a fixed order), then its eight corner slices added back onto
+    the grid.  Only the coordinates are saved: the cell and weights are
+    recomputed, and no oct table is kept alive across the backward."""
 
     @staticmethod
     def forward(ctx, table, coords, gather_dtype):
@@ -388,15 +416,9 @@ class _TrilinearOct(torch.autograd.Function):
         r0, r1, r2, f = ctx.table_shape
         cell, w = _cell_3d(coords, r0, r1, r2)
         n = cell.numel()
-        contrib = (g.float().reshape(n, 1, f) * w.reshape(n, 8, 1)).reshape(n, 8 * f)
         m = (r0 - 1, r1 - 1, r2 - 1)
-        gq = torch.zeros(m[0] * m[1] * m[2], 8 * f, dtype=torch.float32, device=g.device)
-        gq.index_add_(0, cell.reshape(-1), contrib)
-        gq = gq.reshape(*m, 8 * f)
-        grad = torch.zeros(r0, r1, r2, f, dtype=torch.float32, device=g.device)
-        for c, (dx, dy, dz) in enumerate(CORNERS_3D):
-            grad[dx : dx + m[0], dy : dy + m[1], dz : dz + m[2]] += gq[..., c * f : (c + 1) * f]
-        return grad, None, None
+        gq = oct_table_grad(g.reshape(n, f), w.reshape(n, 8), cell.reshape(n), m[0] * m[1] * m[2])
+        return oct_grad_to_grid(gq, (r0, r1, r2, f)), None, None
 
 
 def trilinear_lookup_oct(

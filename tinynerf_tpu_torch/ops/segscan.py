@@ -17,6 +17,13 @@ comes out 0 (the renderer passes `n_rays`, so its pad tail, id `n_rays`,
 gets weight 0, exactly as its `valid = 0` gives in the JAX op); the kernel
 writes those zeros itself.  When None, every id counts.
 
+`segment_sum` is the per-ray reduction of the renderer (the JAX
+package's `jax.ops.segment_sum`, not a Pallas kernel): on a CUDA tensor one
+launch of `csrc/segscan.cu`'s segment_sum_kernel, in the same tiling, which
+sums every run in a fixed order, so that a step and a served view repeat
+themselves bit for bit; on a CPU tensor `index_add`, which sums in sample
+order there.  Its gradient is a gather.
+
 Sums stay segment-local in both versions: the kernel sums a segment's
 samples before the tile, then scans the tile, and the plain version takes a
 float64 global cumsum minus each segment's base, so neither loses f32
@@ -203,3 +210,70 @@ def compute_weights_packed(
 
 
 compute_weights_packed.launches = 0
+
+
+# ------------------------------------------------------- per-segment sums
+
+SEGMENT_SUM_CHANNELS = 4  # columns of one row of csrc/segscan.cu's segment_sum_kernel
+
+
+def _segment_index(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """seg as int64 row indices, ids outside [0, n_segments) sent to row n_segments."""
+    seg = seg.long()
+    return torch.where((seg >= 0) & (seg < n_segments), seg, n_segments)
+
+
+def segment_sum_plain(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Plain PyTorch `segment_sum`: one `index_add` into n_segments + 1 rows
+    (the last takes the ids outside the range), in sample order on the CPU."""
+    out = torch.zeros(n_segments + 1, x.shape[1], dtype=x.dtype, device=x.device)
+    return out.index_add(0, _segment_index(seg, n_segments), x)[:n_segments]
+
+
+def segment_sum_fwd(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """The forward value: kernel on CUDA tensors, plain on CPU tensors."""
+    if cuda_lib.runs_plain("segment_sum", x, seg):
+        return segment_sum_plain(x, seg, n_segments)
+    n, c = x.shape
+    if c > SEGMENT_SUM_CHANNELS:
+        raise ValueError(f"segment_sum: at most {SEGMENT_SUM_CHANNELS} columns, got {c}")
+    if c < SEGMENT_SUM_CHANNELS:
+        x = torch.cat([x, x.new_zeros(n, SEGMENT_SUM_CHANNELS - c)], dim=1)
+    cuda_lib.check_cuda_inputs("segment_sum", torch.float32, (n, SEGMENT_SUM_CHANNELS), x)
+    cuda_lib.check_cuda_inputs("segment_sum", torch.int32, (n,), seg)
+    if x.data_ptr() % 16:
+        raise ValueError("segment_sum: rows must start on a 16-byte boundary")
+    out = torch.zeros(n_segments, SEGMENT_SUM_CHANNELS, dtype=torch.float32, device=x.device)
+    if n > 0 and n_segments > 0:
+        cuda_lib.library().call("tn_segment_sum", x.data_ptr(), seg.data_ptr(), n, int(n_segments),
+                                out.data_ptr(), cuda_lib.stream_of(x))
+        segment_sum.launches += 1
+    return out[:, :c]
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg, n_segments):
+        ctx.save_for_backward(seg)
+        ctx.n_segments = n_segments
+        return segment_sum_fwd(x, seg, n_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        g_pad = torch.cat([g, g.new_zeros(1, g.shape[1])])
+        return g_pad[_segment_index(seg, ctx.n_segments)], None, None
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Per-segment sums of the packed rows x [n, C] (C <= 4, float32) by
+    the ids seg [n] (int32, each id one contiguous run): [n_segments, C],
+    ids outside [0, n_segments) (the renderer's pad tail) dropped, a
+    segment without samples 0.  On the card every sum has a fixed order,
+    the same from run to run; gradients flow to x (a gather)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return segment_sum_fwd(x, seg, n_segments)
+    return _SegmentSum.apply(x, seg, n_segments)
+
+
+segment_sum.launches = 0

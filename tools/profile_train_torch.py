@@ -24,8 +24,9 @@ converged; its grid rebuilt from the state).  For each state it reports the
 march, the host-clock time per step (synchronized), the device
 time the profiler saw (sum of kernel times), the device's busy share of the
 window, the kernels that took the most device time, and the share of the
-port's own CUDA kernels (`csrc/*.cu`: the weights, sort, accumulation,
-oct and quad build and both skip march kernels, by name), to stdout and, with --out, to a file.  Needs a
+port's own CUDA kernels (`csrc/*.cu`: the weights, the per-ray sum, the
+sorts, the accumulation, the oct and quad builds and both skip march
+kernels, by name), to stdout and, with --out, to a file.  Needs a
 CUDA device.
 """
 
@@ -50,8 +51,9 @@ from tinynerf_tpu_torch.utils.device import card_line
 
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
-PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "weights_dense_kernel", "weights_dense_bwd", "radix_",
-                "windowed_", "oct_build", "quad_build", "skip_march_kernel", "skip_march_unbounded")
+PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "segment_sum_kernel", "weights_dense_kernel",
+                "weights_dense_bwd", "radix_", "windowed_", "oct_build", "quad_build", "skip_march_kernel",
+                "skip_march_unbounded")
 
 
 def _kernel_table(prof):

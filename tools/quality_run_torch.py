@@ -21,7 +21,10 @@ f32 table-gradient payload; "scatter" runs on CPU tensors only, so the port
 refuses it on a card).  The JAX tool's `--lookup` (but its default, fused)
 and `--fwd-mode fusedfine` pick TPU layouts of the same values, which the
 port leaves out (ROADMAP.md Queue 1 item 4), so they are not offered.
-`--output` keeps the experiment (checkpoint, renders, metrics) in a
+`--matmul-precision` (highest, high or medium; not the JAX tool's) sets
+`torch.set_float32_matmul_precision` for the run and restores it after:
+"medium" lets f32 matmuls take bf16 passes, as a TPU's f32 matmuls do by
+default.  `--output` keeps the experiment (checkpoint, renders, metrics) in a
 directory of the caller's; by default a new temporary one.  `main(argv)`
 returns the numbers it prints.  Runs on the card unless `--device cpu` is
 given.
@@ -73,6 +76,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--march", default="auto", choices=["auto", "dense", "skip"])
     ap.add_argument("--field_scale", type=float, default=1.0)
     ap.add_argument("--output", type=Path, default=None, help="experiment directory (default: a new temp dir)")
+    ap.add_argument("--matmul-precision", dest="matmul_precision", default=None,
+                    choices=[None, "highest", "high", "medium"], help="torch's f32 matmul precision for the run")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -143,12 +148,18 @@ def main(argv=None) -> dict:
     print(f"scene={scene} output={cfg.output} device={device} ({card})")
     train_rays = RayPool(parse_nerf_synthetic(scene, "train"))
     test_set = PoseSet(parse_nerf_synthetic(scene, "test"))
+    import torch
+
+    precision = torch.get_float32_matmul_precision()
     loop_mod.make_model = make_model
     try:
+        if args.matmul_precision:
+            torch.set_float32_matmul_precision(args.matmul_precision)
         out = train(cfg, train_rays, test_set=test_set, eval_set=test_set if args.eval_every else None,
                     device=device)
     finally:
         loop_mod.make_model = orig
+        torch.set_float32_matmul_precision(precision)
 
     psnrs = [m.psnr for m in out["test_metrics"]]
     ssims = [m.ssim for m in out["test_metrics"]]
@@ -167,6 +178,8 @@ def main(argv=None) -> dict:
         dev.append(f"lr={args.lr}")
     if args.lr_tables is not None:
         dev.append(f"lr_tables={args.lr_tables}")
+    if args.matmul_precision:
+        dev.append(f"matmul={args.matmul_precision}")
     print(
         f"RESULT scene={args.scene} method={args.method} lookup=default "
         f"gather={args.gather_dtype or 'default'} dtype={args.dtype} steps={args.steps} "
@@ -197,6 +210,7 @@ def main(argv=None) -> dict:
         "march_steps": marches, "first_skip_step": out["first_skip_step"],
         "gather_dtype": getattr(out["renderer"].field, "gather_dtype", None),
         "bwd_impl": getattr(out["renderer"].field, "bwd_impl", None),
+        "matmul_precision": args.matmul_precision or precision,
     }
 
 
