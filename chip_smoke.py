@@ -57,8 +57,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    step's, against its plain `index_add` and the renderer's former two
    `index_add` calls; the key-value radix sort at Cobafa's largest grid's
    window ids; Cobafa's oct gradient over the seven full-width grids
-   (819,200 samples, a converged step's pad tail) against its plain version
-   and the `index_add_` it replaced; and the training-shaped accumulation;
+   (819,200 samples, a converged step's pad tail: the window sort, then the
+   accumulation that reads the rows through the sort's permutation) against
+   its plain version and the `index_add_` it replaced; and the training-shaped
+   accumulation; and the fold of the oct cell gradient onto the grid over
+   the seven grids, bit-equal to its plain version;
 3. the K-Planes serving slice at full width (TrainConfig defaults:
    planes 129/257/513 x 3 x 32, bf16 compute, 400 samples per ray, chunks
    of 2048 rays, 64 packed samples per ray, 64 skip-march rounds): a
@@ -93,8 +96,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the CPU's, and the oct build, the skip march and both weights kernels
    must have launched;
 6. the Cobafa training slice at full width, as phase 4 (dropout on): a
-   finite, falling loss, the oct build and the packed weights and their
-   backward launched inside `train()`; the dense and skip steps at bucket
+   finite, falling loss, the oct build, the packed weights and their
+   backward, the oct accumulation and the fold launched inside `train()`,
+   and K-Planes' payload accumulation not (phases 4 and 10 the reverse); the dense and skip steps at bucket
    64; then one full-width dense chunk's gradients through the oct-build
    kernel must match those through the plain build, every leaf bit-equal;
 7. the vanilla serving slice at full width (TrainConfig(method="vanilla"):
@@ -698,11 +702,13 @@ def check_fixed_order_kernels(dev, results: dict) -> dict:
     plain version (one `index_add`) and the renderer's old two `index_add`
     calls; the key-value radix sort at Cobafa's largest grid; Cobafa's oct
     gradient over the seven full-width grids (window sort, accumulation in
-    the register kernel's flat layout), against its plain version and the
-    `index_add_` of [n, 8F] rows it replaced.  Each bit-equal over REPEATS
-    calls; adds to `results`."""
+    `oct_accumulate`, which reads the rows through the sort's permutation),
+    against its plain version and the `index_add_` of [n, 8F] rows it
+    replaced, each bit-equal over REPEATS calls; the fold of the cell
+    gradient onto the seven grids bit-equal to its plain version.  Adds to
+    `results`."""
     from tinynerf_tpu_torch.models import make_model
-    from tinynerf_tpu_torch.ops import bitonic, interp, segscan, table_grad
+    from tinynerf_tpu_torch.ops import bitonic, interp, octbuild, segscan, table_grad
 
     rng = np.random.default_rng(4)
     t = lambda a: torch.from_numpy(a).to(dev)
@@ -770,15 +776,13 @@ def check_fixed_order_kernels(dev, results: dict) -> dict:
     def sorted_grads():
         return [interp.oct_table_grad(g, w, c, nc) for c, w, g, nc in cases]
 
-    def plain_grads():  # sort plain, then windowed_accumulate_plain
+    def plain_grads():  # the window sort, then oct_accumulate_plain
         grads = []
         for c, w, g, nc in cases:
-            w_window = table_grad.default_window(dev, nc, n, 8 * g.shape[1], packed_keys=False)
+            w_window = table_grad.default_window(dev, nc, n, 8 * g.shape[1], oct_rows=True)
             nc_pad = -(-nc // w_window) * w_window
-            perm, offsets = table_grad.sort_by_window_pairs(c[None], nc_pad, w_window)
-            rows = table_grad.pack_payload(g[None], w[None], c[None], w_window, torch.float32, row_align=4)
-            rows = rows[0, perm[0].long()][None]
-            grads.append(table_grad.windowed_accumulate_plain(rows, offsets, g.shape[1], 8, nc_pad, w_window)[0, :nc])
+            perm, _ = table_grad.sort_windows(c.to(torch.int32)[None], nc_pad, w_window)
+            grads.append(table_grad.oct_accumulate_plain(g, w, c, perm[0], nc_pad)[:nc])
         return grads
 
     def index_add_grads():  # the backward's scatter before this change
@@ -786,10 +790,11 @@ def check_fixed_order_kernels(dev, results: dict) -> dict:
             0, c, (g[:, None, :] * w[:, :, None]).reshape(n, 8 * g.shape[1])) for c, w, g, nc in cases]
 
     outs = _repeats("kernel oct gradient, 7 grids", lambda: torch.cat([o.reshape(-1) for o in sorted_grads()]))
-    err = 0.0
+    err = abs_err = 0.0
     for ref in (plain_grads(), index_add_grads()):
         ref = torch.cat([o.reshape(-1) for o in ref])
         err = max(err, _rel_err(outs, ref))
+        abs_err = max(abs_err, float((outs - ref).abs().max()))
     print(f"kernel oct gradient [{n} samples, {n_pad} pads] -> the 7 grids' cell tables: max|kernel-plain| and "
           f"|kernel-index_add_| / max = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g})")
     if not err <= GRAD_RTOL_OF_MAX:
@@ -797,10 +802,32 @@ def check_fixed_order_kernels(dev, results: dict) -> dict:
     out_bytes = sum(4 * nc * 8 * g.shape[1] for _, _, g, nc in cases)
     in_bytes = sum(nbytes(c, w, g) for c, w, g, _ in cases)
     flops = sum(2.0 * 8 * g.shape[1] * (n - n_pad) for _, _, g, _ in cases)
-    timed = time_pair(f"Cobafa oct gradient (sort, pack, gather, accumulate), 7 grids x {n} samples",
+    timed = time_pair(f"Cobafa oct gradient (sort, accumulate through the permutation), 7 grids x {n} samples",
                       sorted_grads, plain_grads, bound(in_bytes + out_bytes, flops), index_add_grads)
-    results["accumulate"].update({f"cobafa_oct_{k}": v for k, v in timed.items()})
-    results["accumulate"]["cobafa_oct_max_abs_err"] = err
+    # the accumulation kernel apart from the sorts and the wrapper's other
+    # launches (the work list's scan and item table, the combine)
+    by_name = device_ms_by_kernel(sorted_grads)
+    main = sum(ms for name, ms in by_name.items() if "oct_accumulate_kernel" in name)
+    timed["kernel_device_ms"] = main if by_name else None
+    timed["other_device_ms"] = sum(by_name.values()) - main if by_name else None
+    print(f"Cobafa oct gradient: device {_ms(timed['kernel_device_ms'])} in the accumulation kernel, "
+          f"{_ms(timed['other_device_ms'])} in the sorts and the other launches")
+    results["oct_accumulate"] = dict(max_abs_err=abs_err, **timed)
+    del outs
+
+    # the fold of each grid's cell gradient onto the grid, one launch a grid
+    gen = torch.Generator(dev).manual_seed(6)
+    gqs = [torch.randn(nc, 8 * s[3], device=dev, generator=gen) for s, (_, _, _, nc) in zip(grids, cases)]
+    for gq, shape in zip(gqs, grids):
+        if not torch.equal(octbuild.oct_fold(gq, shape), octbuild.oct_fold_plain(gq, shape)):
+            raise AssertionError(f"oct fold of {shape} is not bit-equal to its plain version")
+    roster = " ".join(f"{s[0]}^3x{s[3]}" for s in grids)
+    print(f"kernel oct fold [{roster}]: bit-equal to its plain version")
+    out_bytes = sum(4 * s[0] * s[1] * s[2] * s[3] for s in grids)
+    results["oct_fold"] = dict(max_abs_err=0.0, **time_pair(
+        f"kernel oct fold, the 7 grids", lambda: [octbuild.oct_fold(gq, s) for gq, s in zip(gqs, grids)],
+        lambda: [octbuild.oct_fold_plain(gq, s) for gq, s in zip(gqs, grids)],
+        bound(nbytes(*gqs) + out_bytes, sum(7.0 * s[0] * s[1] * s[2] * s[3] for s in grids))))
     return results
 
 
@@ -1118,9 +1145,9 @@ def zero_counts() -> None:
     cuda_lib.zero_launch_counts()
 
 
-def read_counts(label: str, required) -> dict:
+def read_counts(label: str, required, absent=()) -> dict:
     """The launches since `zero_counts`; raise if a kernel of `required`
-    was not launched."""
+    was not launched, or one of `absent` was."""
     from tinynerf_tpu_torch.ops import cuda_lib
 
     torch.cuda.synchronize()
@@ -1129,6 +1156,9 @@ def read_counts(label: str, required) -> dict:
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by {label}")
+    for name in absent:
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} was launched by {label}, whose path does not take it")
     return counts
 
 
@@ -1148,8 +1178,12 @@ FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_buil
 SKIP_KERNEL = {"aabb": "skip_march", "unbounded": "skip_march_unbounded"}
 TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd", "segment_sum"),
                     "kplanes": ("segscan", "segscan_bwd", "segment_sum", "sort", "accumulate", "quad_build"),
-                    "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "accumulate",
-                               "oct_build")}
+                    "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "oct_accumulate",
+                               "oct_fold", "oct_build")}
+# the table-gradient kernels of the other table field, which a step must not
+# launch: Cobafa's oct rows take no payload accumulation
+TRAINING_ABSENT = {"vanilla": ("accumulate", "oct_accumulate", "oct_fold"),
+                   "kplanes": ("oct_accumulate", "oct_fold"), "cobafa": ("accumulate",)}
 
 
 def serving_kernels(method: str, scene_type: str) -> tuple:
@@ -1216,7 +1250,8 @@ def skip_and_dense_steps(renderer, pool, cfg, card: str, name: str) -> dict:
     with torch.no_grad():
         for p, p0 in zip(renderer.parameters(), start):
             p.copy_(p0)
-    counts = read_counts(f"{name} dense and skip steps", skip_step_kernels(cfg.method, cfg.scene_type))
+    counts = read_counts(f"{name} dense and skip steps", skip_step_kernels(cfg.method, cfg.scene_type),
+                         TRAINING_ABSENT[cfg.method])
     dense, full = res["dense"], res[f"skip {cfg.n_samples} rounds"]
     err = abs(full["loss"] - dense["loss"]) / abs(dense["loss"])
     print(f"{name} skip ({cfg.n_samples} rounds) vs dense step loss: relative difference {err:.3e} "
@@ -1359,7 +1394,7 @@ def run_training(tmp: str, card: str, method: str, scene_type: str = "aabb", poo
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     out = train(cfg, pool, device="cuda")
-    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method])}
+    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method], TRAINING_ABSENT[method])}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = np.array([m.loss for m in out["train_metrics"]])
@@ -1815,6 +1850,8 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("sort", "bitonic.sort_i32", "radix_sort.cu", "tinynerf_tpu/ops/bitonic.py:73"),
     ("sort_pairs", "bitonic.sort_pairs_i32", "radix_sort.cu", "tinynerf_tpu/ops/interp.py:478"),
     ("accumulate", "table_grad.windowed_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
+    ("oct_accumulate", "table_grad.oct_accumulate", "table_grad.cu", "tinynerf_tpu/ops/table_grad.py:66"),
+    ("oct_fold", "octbuild.oct_fold", "octbuild.cu", "tinynerf_tpu/ops/interp.py:474"),
     ("oct_build", "octbuild.build_oct", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:73"),
     ("quad_build", "octbuild.build_quad", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
     ("quad_build_fp8", "octbuild.build_quad (float8_e4m3fn out)", "octbuild.cu", "tinynerf_tpu/ops/octbuild.py:114"),
@@ -1898,7 +1935,8 @@ def run_determinism(tmp: str, card: str) -> dict:
             run.update({f"{kind} {path}": s.detach().clone() for kind, tensors in
                         (("param", opt.params), ("mu", opt.mu), ("nu", opt.nu)) for path, s in zip(opt.paths, tensors)})
             runs.append(run)
-        launches[f"13_{method}_step"] = read_counts(f"phase 13 {method} steps", TRAINING_KERNELS[method])
+        launches[f"13_{method}_step"] = read_counts(f"phase 13 {method} steps", TRAINING_KERNELS[method],
+                                                    TRAINING_ABSENT[method])
         differ = [k for k, v in runs[0].items() if not torch.equal(v, runs[1][k])]
         n_zero = sum(float(v.abs().max()) == 0.0 for k, v in runs[0].items() if k.startswith("grad "))
         print(f"phase 13 {method} deterministic step [{cfg.batch_size} rays x {cfg.n_samples}], twice from one "
@@ -2039,7 +2077,7 @@ def run_tools(card: str) -> dict:
     # (f) the field's pieces at the training cap, both fields (Cobafa with a
     # converged step's pad tail): kernels 4-7 launched, every piece timed
     for method, required, extra in (("kplanes", ("quad_build", "sort", "accumulate"), []),
-                                    ("cobafa", ("oct_build", "sort_pairs", "accumulate"),
+                                    ("cobafa", ("oct_build", "sort_pairs", "oct_accumulate", "oct_fold"),
                                      ["--pad", str(COBAFA_PAD_SHARE)])):
         prof = counted(f"12f_profile_field_{method}", required, lambda: _import_tool("profile_field_torch").main(
             ["--method", method, "--n", str(PROFILE_FIELD_N), *extra]))

@@ -1,10 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the wrappers' device dispatch: the packed and dense weights and their
 backwards, the per-ray segment sum, the radix sort (keys, and key-value
-pairs), the windowed table-gradient accumulation and Cobafa's oct
-gradient through it, the oct and quad cell-pack builds and both skip
-marches (AABB and unbounded); and that a training step and a served chunk
-repeat themselves bit for bit.
+pairs), the windowed table-gradient accumulation, Cobafa's oct gradient
+(the accumulation through the sort's permutation) and its fold onto the
+grid, the oct and quad cell-pack builds and both skip marches (AABB and
+unbounded); and that a training step and a served chunk repeat themselves
+bit for bit.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -19,10 +20,13 @@ test_torch_ops.py and test_torch_train_ops.py.  Tolerances: weights atol
 order); weight gradients 1e-5 of their largest magnitude (f32 sums of up
 to 400 terms in another order); sorts bit-equal (the keys are the same
 multiset); accumulated table gradients and per-ray sums 1e-5 of their
-largest magnitude (f32 sums in another order); the
-oct and quad builds bit-equal (a relayout that rounds each value once, to
-nearest even in both); the skip marches' k_idx and complete equal (each
-kernel repeats its plain version's f32 operations, each rounded once).
+largest magnitude (f32 sums in another order), and where no window splits
+the oct accumulation bit-equal to the payload route it replaced (the same
+fmas in the same order); the oct and quad builds bit-equal (a relayout
+that rounds each value once, to nearest even in both); the oct fold
+bit-equal (the same adds in the same order); the skip marches' k_idx and
+complete equal (each kernel repeats its plain version's f32 operations,
+each rounded once).
 """
 
 import numpy as np
@@ -592,34 +596,117 @@ def test_sort_pairs_kernel_bit_equal_to_plain(cuda_device):
             assert torch.equal(k, k_ref) and torch.equal(v, v_ref), (shape, begin_bit, end_bit)
 
 
+def _oct_problem(res, f, seed=43, n=300_000, n_pad=100_000):
+    """Cells of the (res - 1)^3 grid, a pad tail of zero cotangents in one
+    cell, on the card: (cell int64, g, w, n_cells)."""
+    rng = np.random.default_rng(seed)
+    n_cells = (res - 1) ** 3
+    cell = rng.integers(0, n_cells, n)
+    cell[n - n_pad :] = n_cells // 3
+    g = rng.normal(size=(n, f)).astype(np.float32)
+    g[n - n_pad :] = 0.0
+    w = rng.uniform(size=(n, 8)).astype(np.float32)
+    return (*(T(a).to("cuda") for a in (cell, g, w)), n_cells)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("res,f", [(128, 4), (64, 6), (32, 8), (9, 3)])
 def test_oct_table_grad_kernels_match_scatter_and_repeat(cuda_device, res, f):
     """Cobafa's oct gradient on the card (the window sort, by key and value
-    where the windows and samples pass 32 bits, then the register kernel's
-    flat layout): against one `index_add_` of the [n, 8F] rows, 1e-5 of the
-    largest sum; a pad tail of zero cotangents in one cell; DET_RUNS calls
-    bit-equal."""
-    rng = np.random.default_rng(43)
-    n = 300_000
-    n_cells = (res - 1) ** 3
-    cell = rng.integers(0, n_cells, n)
-    cell[-100_000:] = n_cells // 3
-    g = rng.normal(size=(n, f)).astype(np.float32)
-    g[-100_000:] = 0.0
-    w = rng.uniform(size=(n, 8)).astype(np.float32)
-    cell_t, g_t, w_t = (T(a).to(cuda_device) for a in (cell, g, w))
+    where the windows and samples pass 32 bits, then the accumulation that
+    reads the rows through the permutation): against one `index_add_` of
+    the [n, 8F] rows, 1e-5 of the largest sum; a pad tail of zero
+    cotangents in one cell; DET_RUNS calls bit-equal; the payload
+    accumulation of K-Planes not launched."""
+    cell_t, g_t, w_t, n_cells = _oct_problem(res, f)
+    n = cell_t.numel()
     before = {k: getattr(fn, a) for k, (fn, a) in cuda_lib.launch_counters().items()}
     outs = [interp.oct_table_grad(g_t, w_t, cell_t, n_cells) for _ in range(DET_RUNS)]
     torch.cuda.synchronize()
     launched = {k: getattr(fn, a) - before[k] for k, (fn, a) in cuda_lib.launch_counters().items()}
-    pairs = not table_grad.window_keys_fit(-(-n_cells // 64) * 64, 64, n)
-    assert launched["accumulate"] == DET_RUNS and launched["sort_pairs" if pairs else "sort"] == DET_RUNS
+    window = table_grad.OCT_WINDOW
+    pairs = not table_grad.window_keys_fit(-(-n_cells // window) * window, window, n)
+    assert launched["oct_accumulate"] == DET_RUNS and launched["sort_pairs" if pairs else "sort"] == DET_RUNS
+    assert launched["accumulate"] == 0
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     contrib = (g_t[:, None, :] * w_t[:, :, None]).reshape(n, 8 * f)
     ref = torch.zeros(n_cells, 8 * f, device=cuda_device).index_add_(0, cell_t.long(), contrib)
     assert outs[0].shape == ref.shape
     torch.testing.assert_close(outs[0], ref, atol=_grad_tol(ref), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,f", [(128, 4), (64, 6), (32, 8), (9, 3)])
+def test_oct_accumulate_kernel_matches_plain_and_index_add(cuda_device, res, f):
+    """The accumulation through the permutation alone, on the window sort's
+    output: against its plain version and one `index_add_` of the [n, 8F]
+    rows, 1e-5 of the largest sum (f32 sums in another order); cells with no
+    sample exactly 0 (the output is `torch.empty`, poisoned); DET_RUNS
+    calls bit-equal, each one launch."""
+    cell_t, g_t, w_t, n_cells = _oct_problem(res, f)
+    n = cell_t.numel()
+    window = table_grad.OCT_WINDOW
+    n_cells_pad = -(-n_cells // window) * window
+    cell32 = cell_t.to(torch.int32)
+    perm, offsets = table_grad.sort_windows(cell32[None], n_cells_pad, window)
+    before = table_grad.oct_accumulate.launches
+    outs = []
+    for _ in range(DET_RUNS):
+        _poison_next_empty(torch.empty(n_cells_pad, 8 * f, device=cuda_device))
+        outs.append(table_grad.oct_accumulate(g_t, w_t, cell32, perm[0], offsets[0], n_cells_pad, window))
+    torch.cuda.synchronize()
+    assert table_grad.oct_accumulate.launches == before + DET_RUNS
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    plain = table_grad.oct_accumulate_plain(g_t, w_t, cell32, perm[0], n_cells_pad)
+    torch.testing.assert_close(outs[0], plain, atol=_grad_tol(plain), rtol=0)
+    contrib = (g_t[:, None, :] * w_t[:, :, None]).reshape(n, 8 * f)
+    ref = torch.zeros(n_cells_pad, 8 * f, device=cuda_device).index_add_(0, cell_t.long(), contrib)
+    torch.testing.assert_close(outs[0], ref, atol=_grad_tol(ref), rtol=0)
+    empty = torch.bincount(cell_t, minlength=n_cells_pad) == 0
+    assert bool((outs[0][empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,f", [(100, 4), (64, 6), (32, 8)])
+def test_oct_accumulate_kernel_bit_equal_to_payload_route_where_no_window_splits(cuda_device, res, f):
+    """Where no window of either route holds more than one work item's
+    samples, each cell's sum is the same f32 fmas in the same order in the
+    accumulation through the permutation (windows of OCT_WINDOW cells) and
+    in the payload route it replaced (the f32 payload of rows of 4 values,
+    its sorted copy, the register kernel's flat layout in windows of 64
+    cells): bit-equal, so no row is lost or counted twice.  Zero cotangents
+    are scattered over the cells."""
+    cell_t, g_t, w_t, n_cells = _oct_problem(res, f, seed=47, n=60_000, n_pad=0)
+    g_t[torch.rand(g_t.shape[0], device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(1))
+        < 0.1] = 0.0
+    for window in (table_grad.OCT_WINDOW, 64):
+        counts = torch.bincount(cell_t // window)
+        assert int(counts.max()) <= table_grad.ACCUM_CHUNK
+    new = interp.oct_table_grad(g_t, w_t, cell_t, n_cells)
+    old = table_grad.table_grad_sorted(g_t[None], w_t[None], cell_t[None], n_cells, 64, torch.float32,
+                                       row_align=4)[0]
+    assert torch.equal(new.view(torch.int32), old.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_oct_fold_kernel_bit_equal_to_plain(cuda_device):
+    """The fold onto the grid, one launch a grid, over the Cobafa field's
+    seven grids and the ragged shapes (F = 16 takes the kernel's runtime
+    channel count): bit-equal to its plain version, -0.0 in the cell
+    gradient included; the output is `torch.empty`, poisoned."""
+    rng = np.random.default_rng(53)
+    for shape in OCT_SHAPES:
+        r0, r1, r2, f = shape
+        gq = rng.normal(size=((r0 - 1) * (r1 - 1) * (r2 - 1), 8 * f)).astype(np.float32)
+        gq[rng.random(gq.shape) < 0.1] = -0.0
+        gq_t = T(gq).to(cuda_device)
+        plain = octbuild.oct_fold_plain(gq_t, shape)
+        _poison_next_empty(plain)
+        before = octbuild.oct_fold.launches
+        out = octbuild.oct_fold(gq_t, shape)
+        torch.cuda.synchronize()
+        assert octbuild.oct_fold.launches == before + 1
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32)), shape
 
 # the Cobafa field's seven grids at full width (make_model("cobafa")), then
 # ragged shapes: odd channel counts (12- and 24-byte corners), r = 2

@@ -229,8 +229,11 @@ FIELD_PIECES = {
                 "bwd: _fine_from_quad (1 proj)", "bwd: _pullback_scales (1 proj)",
                 "field fwd+bwd (incl product rule)"),
     "cobafa": ("oct build: coef (kernel 6)", "oct build: ALL grids", "gathers: ALL grids (same coords)",
-               "bwd: window sort + accumulate + reduce ALL grids",
-               "bwd: index_add_ + reduce ALL grids (replaced; here only)", "field fwd+bwd (dropout on)"),
+               "bwd: window sort + accumulate + reduce ALL grids", "bwd: _cell_3d ALL grids (recompute)",
+               "bwd: window sort ALL grids (kernel 4; windows of 256)",
+               "bwd: oct_accumulate ALL grids (permutation read)", "bwd: oct_fold ALL grids",
+               "bwd: index_add_ + reduce ALL grids (replaced; here only)",
+               "bwd: payload + flat layout + reduce ALL grids (replaced; here only)", "field fwd+bwd (dropout on)"),
 }
 
 

@@ -1,4 +1,6 @@
-// Windowed table-gradient accumulation over window-sorted samples.
+// Windowed table-gradient accumulation over window-sorted samples, and
+// Cobafa's oct accumulation through the sort's permutation
+// (tn_oct_accumulate, its note below the combine kernel).
 //
 // Replaces tinynerf_tpu/ops/table_grad.py:_accum_kernel, the Pallas TPU
 // kernel that, per (projection p, window of W cells), sums the sorted
@@ -45,9 +47,9 @@
 // the staged row.
 //   * windowed_accumulate_owner_kernel, for windows of up to 64 cells x 4
 //     corners x 96 values (K-Planes: the caller sorts by windows of 64
-//     cells), or x 8 corners of up to 64 values in all (Cobafa's oct
-//     rows, 8 corners x F = 8, 6 or 4: a lane holds two of the row's flat
-//     columns).  Nothing is summed in shared memory: each of a block's
+//     cells), or x 8 corners of up to 64 values in all (8-corner payload
+//     rows of F <= 8, in the flat layout: a lane holds two of the row's
+//     columns; Cobafa's oct rows take tn_oct_accumulate).  Nothing is summed in shared memory: each of a block's
 //     32 warps owns two cells of the window and keeps their sums in
 //     registers, so there is no atomic, no tile to zero and no second copy
 //     of the sums, and each cell's sum runs in sample order.  One resident
@@ -475,7 +477,7 @@ struct OwnerFeed {
 // lane + 64 of g for each of up to 4 corners, 2 x 4 x 3 sums: K-Planes'
 // rows of 4 corners x up to 96) or flat (FLAT true: a lane holds the row's
 // flat columns lane and lane + 32, corner c / F, value c % F, 2 x 2 sums:
-// Cobafa's oct rows of 8 corners x F <= 8).  The items' rows pass through
+// payload rows of 8 corners x F <= 8).  The items' rows pass through
 // one ring of stages of 32 * ROUNDS rows, across item boundaries, so an
 // item's first rows land while the last item's are summed.  Per stage:
 // warp w classifies rows w, w + 32, .. (the window-local cell, or -1 if
@@ -813,6 +815,173 @@ windowed_combine_kernel(const Args a, bool owner, const int* __restrict__ split)
   }
 }
 
+// ---- Cobafa's oct rows, read through the sort's permutation
+//
+// Replaces the same Pallas kernel (tinynerf_tpu/ops/table_grad.py:66) where
+// the JAX package's oct backward (tinynerf_tpu/ops/interp.py:474,
+// `_trilinear_oct_bwd`) scatters its rows: per cell c, the sum over the
+// samples in c of concat_k(w[i, k] * g[i]), 8 corners x F <= 8 values, into
+// gq [n_windows * W, 8F] f32.  Inputs: g [n, F], w [n, 8] f32, cell [n]
+// int32, and the window sort's perm [n] and offsets [NW + 1]; the kernel
+// reads row perm[j] of g, w and cell itself, so no payload row is packed
+// and no sorted copy of one is written.
+//
+// What bounds it on an H100: memory, and mostly the output.  At the field's
+// seven grids and 819,200 samples a grid it reads ~0.06 GB of inputs per
+// grid and writes 0.68 GB of cell tables in all, most of whose rows are
+// empty (0.312 ms at 3.35 TB/s).  What held the flat layout of the register
+// kernel above at 4x that: a block of 32 warps per window of 64 cells, ~25
+// samples a window, so most warps summed nothing; and the payload's pack and
+// sorted copy in front of it.
+//
+// Design.  Windows of W = 256 cells, so each work item writes up to 64 KB of
+// rows; the work list, the item table, the partial slots of split windows
+// and their combine in item order are the register kernel's (an item is at
+// most `chunk` samples of one window; its slot's one flag says whether any
+// of its rows has a cotangent that is not all zero).  A block per item:
+//   1. its threads read the item's perm entries, then each sample's g row;
+//      a row that is all zero (the pad tail's) is listed as -1, any other is
+//      staged with its w row in shared memory and counted in its cell;
+//   2. warp 0 scans the counts and places the staged rows in cell order,
+//      32 rows at a time (__match_any_sync ranks a cell's rows among the
+//      32), so each cell's rows keep the window-sorted order;
+//   3. each thread takes 4 consecutive values of a cell's row, sums its
+//      rows in that order (an f32 fma each) and stores them as one 16-byte
+//      store; an empty cell's zeros are stored too.
+// No float atomics: three calls on the same inputs give the same bits.
+
+constexpr int kOctThreads = 256;
+constexpr int kOctCorners = 8;
+constexpr int kOctMaxWindow = 1024;
+
+template <int F>
+__global__ void __launch_bounds__(kOctThreads)
+oct_accumulate_kernel(const float* __restrict__ g, const float* __restrict__ w, const int* __restrict__ cell,
+                      const int* __restrict__ perm, const int* __restrict__ chunk_start,
+                      const int4* __restrict__ items, int n_windows, int w_window, int chunk,
+                      float* __restrict__ out, float* __restrict__ partials, int* __restrict__ flags,
+                      int flag_stride, int max_slots) {
+  // [w rows: chunk x 8 | g rows: chunk x F | listed cell: chunk | cell order: chunk | cell counts: W + 1]
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int item = blockIdx.x;
+  if (item >= chunk_start[n_windows]) return;  // past the last chunk: uniform over the block
+  const int4 it = items[item];
+  const int pw = it.x, start = it.y, count = it.z;
+  const int slot = partial_slot(item, pw, it.w, max_slots);
+  float* sw = reinterpret_cast<float*>(smem);
+  float* sg = sw + kOctCorners * chunk;
+  int* listed = reinterpret_cast<int*>(sg + F * chunk);
+  int* order = listed + chunk;
+  int* ends = order + chunk;  // the counts, then each cell's first row, then its end
+  for (int t = threadIdx.x; t <= w_window; t += blockDim.x) ends[t] = 0;
+  __syncthreads();
+
+  // 1. stage the item's rows that add something
+  bool any = false;
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const long long i = perm[start + j];
+    float gv[F];
+    bool nonzero = false;
+#pragma unroll
+    for (int v = 0; v < F; ++v) {
+      gv[v] = g[i * F + v];
+      nonzero |= gv[v] != 0.0f;
+    }
+    int local = -1;
+    if (nonzero) {  // a zero cotangent adds nothing
+      // windows are aligned powers of two: the cell's low bits are window-local
+      local = cell[i] & (w_window - 1);
+#pragma unroll
+      for (int v = 0; v < F; ++v) sg[j * F + v] = gv[v];
+#pragma unroll
+      for (int k = 0; k < kOctCorners; ++k) sw[j * kOctCorners + k] = w[i * kOctCorners + k];
+      atomicAdd(&ends[local], 1);  // integer counts: the order of the adds changes nothing
+      any = true;
+    }
+    listed[j] = local;
+  }
+  any = __syncthreads_or(any);
+
+  // 2. warp 0: the cells' first rows (an exclusive scan of the counts), then
+  // the staged rows placed in cell order; ends[c] is left at cell c's end
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int per = (w_window + 31) / 32;
+    const int b0 = min(lane * per, w_window), b1 = min(b0 + per, w_window);
+    int sum = 0;
+    for (int c = b0; c < b1; ++c) sum += ends[c];
+    int incl = sum;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, k);
+      if (lane >= k) incl += u;
+    }
+    int run = incl - sum;
+    for (int c = b0; c < b1; ++c) {
+      const int n_c = ends[c];
+      ends[c] = run;
+      run += n_c;
+    }
+    __syncwarp();
+    for (int base = 0; base < count; base += 32) {
+      const int j = base + lane;
+      const int local = j < count ? listed[j] : -1;
+      if (__ballot_sync(kFull, local >= 0) == 0) continue;  // warp-uniform
+      const unsigned peers = __match_any_sync(kFull, local);
+      const int at = local >= 0 ? ends[local] + __popc(peers & ((1u << lane) - 1u)) : 0;
+      __syncwarp();  // every peer has read its cell's next place
+      if (local >= 0) {
+        order[at] = j;
+        if (lane == 31 - __clz(peers)) ends[local] += __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // 3. each cell's sums in its rows' order, 4 values a thread, stored once:
+  // into the output, or, for a split window's later item, into its slot
+  // (flagged; an item whose rows are all zero stores nothing)
+  float* dst = out;
+  if (slot >= 0) {
+    if (threadIdx.x == 0) flags[static_cast<long long>(slot) * flag_stride] = any;
+    if (!any) return;
+    dst = partials + static_cast<long long>(slot) * w_window * kOctCorners * F;
+  } else {
+    dst += static_cast<long long>(pw) * w_window * kOctCorners * F;
+  }
+  constexpr int kQuads = 2 * F;  // 16-byte groups of a cell's 8F values
+  for (int u = threadIdx.x; u < w_window * kQuads; u += blockDim.x) {
+    const int c = u / kQuads, col0 = 4 * (u % kQuads);
+    const int begin = c > 0 ? ends[c - 1] : 0, end = ends[c];
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = begin; r < end; ++r) {
+      const int j = order[r];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = col0 + t;
+        s[t] = __fmaf_rn(sw[j * kOctCorners + col / F], sg[j * F + col % F], s[t]);
+      }
+    }
+    reinterpret_cast<float4*>(dst)[u] = make_float4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+template <int F>
+cudaError_t launch_oct(const float* g, const float* w, const int* cell, const int* perm, const Args& a,
+                       const int4* items, int max_items, cudaStream_t stream) {
+  const long long smem = 4LL * a.chunk * (kOctCorners + F + 2) + 4LL * (a.w_window + 1);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(oct_accumulate_kernel<F>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  oct_accumulate_kernel<F><<<max_items, kOctThreads, static_cast<size_t>(smem), stream>>>(
+      g, w, cell, perm, a.chunk_start, items, a.n_windows, a.w_window, a.chunk, a.out, a.partials, a.flags,
+      a.flag_stride, a.max_slots);
+  return cudaGetLastError();
+}
+
 template <typename T, int ROUNDS, bool FLAT>
 cudaError_t launch_owner(Args a, int max_items, cudaStream_t stream) {
   const int row_bytes = a.fp * static_cast<int>(sizeof(T));
@@ -959,6 +1128,78 @@ int tn_windowed_accumulate(const void* packed, const void* offsets, void* chunk_
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     windowed_combine_kernel<<<2 * n_sm, kCombineThreads, 0, st>>>(a, owner, split);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n_windows * w_window, 8 * f_dim] f32, uninitialized: every element is
+// written.  g [n, f_dim] f32 (1 <= f_dim <= 8), w [n, 8] f32, cell [n] int32,
+// perm [n] int32 (the sample indices grouped by window w_window, a power of
+// two <= 1024, each window's in the order its cell's sums take) and offsets
+// [n_windows + 1] int32 (window v's entries of perm are [offsets[v],
+// offsets[v + 1])).  scratch, max_items, chunk, partials, max_slots, flags
+// and flag_capacity as tn_windowed_accumulate's for one projection, with
+// flag_capacity >= max_slots * 32 and chunk <= 1024.
+int tn_oct_accumulate(const void* g, const void* w, const void* cell, const void* perm, const void* offsets,
+                      void* scratch, int max_items, int chunk, int n, int f_dim, int n_windows, int w_window,
+                      void* partials, int max_slots, void* flags, long long flag_capacity, void* out,
+                      void* stream) {
+  if (n_windows <= 0) return 0;
+  if (w_window < 1 || w_window > kOctMaxWindow || (w_window & (w_window - 1)) != 0 || f_dim < 1 ||
+      f_dim > 8 || n < 0 || chunk < 1 || chunk > 1024 || max_items < n_windows || max_slots < n / chunk ||
+      flag_capacity < 32LL * max_slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a = {};
+  a.chunk_start = static_cast<const int*>(scratch);
+  int4* items = reinterpret_cast<int4*>(static_cast<int*>(scratch) + ((n_windows + 4) & ~3));
+  int* split = reinterpret_cast<int*>(items + max_items);
+  a.items = items;
+  a.out = static_cast<float*>(out);
+  a.chunk = chunk;
+  a.n_items = n_windows;
+  a.m_rows = n;
+  a.f_dim = f_dim;
+  a.nc = kOctCorners;
+  a.n_windows = n_windows;
+  a.w_window = w_window;
+  // for the combine: one tile of the whole window, one flag per slot
+  a.corners = kOctCorners;
+  a.rows = w_window;
+  a.n_split = 1;
+  a.partials = static_cast<float*>(partials);
+  a.flags = static_cast<int*>(flags);
+  a.max_slots = max_slots;
+  a.flag_stride = 32;
+
+  const int* off = static_cast<const int*>(offsets);
+  windowed_chunk_scan_kernel<<<1, kScanThreads, 0, st>>>(off, n_windows, n_windows, chunk,
+                                                         static_cast<int*>(scratch), split);
+  windowed_item_table_kernel<<<n_windows, 256, 0, st>>>(off, a.chunk_start, n_windows, chunk, items, split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* gf = static_cast<const float*>(g);
+  const float* wf = static_cast<const float*>(w);
+  const int* cf = static_cast<const int*>(cell);
+  const int* pf = static_cast<const int*>(perm);
+  switch (f_dim) {
+    case 1: err = launch_oct<1>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 2: err = launch_oct<2>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 3: err = launch_oct<3>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 4: err = launch_oct<4>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 5: err = launch_oct<5>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 6: err = launch_oct<6>(gf, wf, cf, pf, a, items, max_items, st); break;
+    case 7: err = launch_oct<7>(gf, wf, cf, pf, a, items, max_items, st); break;
+    default: err = launch_oct<8>(gf, wf, cf, pf, a, items, max_items, st); break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (max_slots > 0) {  // the split windows' later items, added in item order
+    int device = 0, n_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    windowed_combine_kernel<<<2 * n_sm, kCombineThreads, 0, st>>>(a, false, split);
   }
   return static_cast<int>(cudaGetLastError());
 }

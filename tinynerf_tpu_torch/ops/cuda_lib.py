@@ -42,6 +42,8 @@ _SIGNATURES = {
     "tn_sort_i32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tn_sort_pairs_i32": (_P,) * 7 + (_I,) * 4 + (_P,),
     "tn_windowed_accumulate": (_P, _P, _P) + (_I,) * 16 + (_P, _I, _P, ctypes.c_longlong, _P, _P),
+    "tn_oct_accumulate": (_P,) * 6 + (_I,) * 6 + (_P, _I, _P, ctypes.c_longlong, _P, _P),
+    "tn_oct_fold": (_P, _I, _I, _I, _I, _P, _P),
     "tn_build_oct": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "tn_build_quad": (_P,) + (_I,) * 8 + (_P, _P),
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -187,7 +189,9 @@ def launch_counters() -> dict:
         "sort": (bitonic.sort_i32, "launches"),
         "sort_pairs": (bitonic.sort_pairs_i32, "launches"),
         "accumulate": (table_grad.windowed_accumulate, "launches"),
+        "oct_accumulate": (table_grad.oct_accumulate, "launches"),
         "oct_build": (octbuild.build_oct, "launches"),
+        "oct_fold": (octbuild.oct_fold, "launches"),
         "quad_build": (octbuild.build_quad, "launches"),
         "quad_build_fp8": (octbuild.build_quad, "fp8_launches"),
         "skip_march": (skipmarch.skip_march, "launches"),

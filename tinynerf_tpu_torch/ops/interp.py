@@ -27,8 +27,9 @@ from typing import Sequence, Tuple
 
 import torch
 
+from . import table_grad
 from .bitonic import packed_bits_ok
-from .octbuild import CORNERS_3D, build_oct, build_quad
+from .octbuild import CORNERS_3D, build_oct, build_quad, oct_fold
 from .table_grad import default_window, table_grad_sorted
 
 
@@ -367,37 +368,30 @@ def oct_table_grad(g: torch.Tensor, w: torch.Tensor, cell: torch.Tensor, n_cells
     """The corner-packed cell gradient of an oct lookup: [n_cells, 8F] f32,
     row c the sum over the samples in cell c of concat_k(w[i, k] * g[i]).
     g [n, F], w [n, 8] f32, cell [n].  The scatter of
-    `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd` taken as K-Planes takes
-    its own: the samples sorted by window of cells (`table_grad_sorted`: the
-    radix sort, by key and value where the windows and samples pass 32 bits),
-    then each window summed in a fixed order by the accumulation kernel, in
-    f32 rows padded to 16 bytes; on the CPU their plain versions."""
+    `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd` in a fixed order: the
+    samples sorted by window of cells (`table_grad.sort_windows`: the radix
+    sort, by key and value where the windows and samples pass 32 bits), then
+    each cell's samples summed in that order by `table_grad.oct_accumulate`,
+    which reads the rows through the permutation; on the CPU their plain
+    versions."""
     n, f = g.shape
-    w_window = default_window(g.device, n_cells, n, 8 * f, packed_keys=False)
-    return table_grad_sorted(g.float()[None], w[None], cell.reshape(1, n), n_cells, w_window,
-                             payload_dtype=torch.float32, row_align=4)[0]
-
-
-def oct_grad_to_grid(gq: torch.Tensor, shape) -> torch.Tensor:
-    """The corner-packed cell gradient [cells, 8F] back onto the grid
-    `shape` [r0, r1, r2, F]: its eight corner slices added at their shifts,
-    in `CORNERS_3D` order."""
-    r0, r1, r2, f = shape
-    m = (r0 - 1, r1 - 1, r2 - 1)
-    gq = gq.reshape(*m, 8 * f)
-    grad = torch.zeros(r0, r1, r2, f, dtype=torch.float32, device=gq.device)
-    for c, (dx, dy, dz) in enumerate(CORNERS_3D):
-        grad[dx : dx + m[0], dy : dy + m[1], dz : dz + m[2]] += gq[..., c * f : (c + 1) * f]
-    return grad
+    w_window = default_window(g.device, n_cells, n, 8 * f, oct_rows=True)
+    n_cells_pad = -(-n_cells // w_window) * w_window
+    cell = cell.to(torch.int32).reshape(1, n)
+    perm, offsets = table_grad.sort_windows(cell, n_cells_pad, w_window)
+    gq = table_grad.oct_accumulate(g.float().contiguous(), w.contiguous(), cell[0], perm[0], offsets[0],
+                                   n_cells_pad, w_window)
+    return gq[:n_cells]
 
 
 class _TrilinearOct(torch.autograd.Function):
     """Forward: the oct table (`build_oct`), one row gather per sample, the
     f32 lerp.  Backward: `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd`,
     the corner-packed cell gradient (`oct_table_grad`: sorted by window,
-    summed in a fixed order), then its eight corner slices added back onto
-    the grid.  Only the coordinates are saved: the cell and weights are
-    recomputed, and no oct table is kept alive across the backward."""
+    summed in a fixed order), then folded back onto the grid (`oct_fold`,
+    the eight corner slices added in order, one launch on the card).  Only
+    the coordinates are saved: the cell and weights are recomputed, and no
+    oct table is kept alive across the backward."""
 
     @staticmethod
     def forward(ctx, table, coords, gather_dtype):
@@ -418,7 +412,7 @@ class _TrilinearOct(torch.autograd.Function):
         n = cell.numel()
         m = (r0 - 1, r1 - 1, r2 - 1)
         gq = oct_table_grad(g.reshape(n, f), w.reshape(n, 8), cell.reshape(n), m[0] * m[1] * m[2])
-        return oct_grad_to_grid(gq, (r0, r1, r2, f)), None, None
+        return oct_fold(gq, (r0, r1, r2, f)), None, None
 
 
 def trilinear_lookup_oct(

@@ -9,7 +9,11 @@ Counterpart of `tinynerf_tpu/ops/octbuild.py`:
     values in `CORNERS_3D` order (Cobafa's grids);
   * `build_quad` (the TPU kernel `_quad_kernel` behind `build_quad_pallas`):
     `[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]`, row (i, j) holding the cell's
-    four corner rows in `CORNERS_2D` order (K-Planes' planes).
+    four corner rows in `CORNERS_2D` order (K-Planes' planes);
+  * `oct_fold`, the oct build's transpose (the eight pad-adds of
+    `tinynerf_tpu/ops/interp.py:_trilinear_oct_bwd`): a cell gradient
+    `[(r0-1)(r1-1)(r2-1), 8F]` f32 back onto the grid `[r0, r1, r2, F]`,
+    on CPU tensors `oct_fold_plain`, bit-equal to the kernel.
 
 Both cast to `out_dtype` (bf16 or f32; the quad build also to
 float8_e4m3fn, the K-Planes field's `gather_dtype="float8"`).  On CUDA
@@ -154,3 +158,36 @@ def build_quad(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
 # every launch, and apart the launches with float8 output
 build_quad.launches = 0
 build_quad.fp8_launches = 0
+
+
+def oct_fold_plain(gq: torch.Tensor, shape) -> torch.Tensor:
+    """The plain version of `oct_fold`: a zero grid, then each corner's
+    slice of the cell rows added at its shift, in `CORNERS_3D` order."""
+    r0, r1, r2, f = shape
+    m = (r0 - 1, r1 - 1, r2 - 1)
+    gq = gq.reshape(*m, 8 * f)
+    grad = torch.zeros(r0, r1, r2, f, dtype=torch.float32, device=gq.device)
+    for c, (dx, dy, dz) in enumerate(CORNERS_3D):
+        grad[dx : dx + m[0], dy : dy + m[1], dz : dz + m[2]] += gq[..., c * f : (c + 1) * f]
+    return grad
+
+
+def oct_fold(gq: torch.Tensor, shape) -> torch.Tensor:
+    """The corner-packed cell gradient `gq` [(r0-1)(r1-1)(r2-1), 8F] f32 back
+    onto the grid `shape` [r0, r1, r2, F]: each grid value the sum of the
+    cell values that hold it as a corner, added in `CORNERS_3D` order from
+    0.  The kernel (one launch) on a CUDA tensor, the plain version on a CPU
+    tensor; the two are bit-equal."""
+    if cuda_lib.runs_plain("oct_fold", gq):
+        return oct_fold_plain(gq, shape)
+    r0, r1, r2, f = (int(v) for v in shape)
+    cuda_lib.check_cuda_inputs("oct_fold", torch.float32, ((r0 - 1) * (r1 - 1) * (r2 - 1), 8 * f), gq)
+    out = torch.empty(r0, r1, r2, f, dtype=torch.float32, device=gq.device)
+    if out.numel():
+        cuda_lib.library().call("tn_oct_fold", gq.data_ptr(), r0, r1, r2, f, out.data_ptr(),
+                                cuda_lib.stream_of(gq))
+        oct_fold.launches += 1
+    return out
+
+
+oct_fold.launches = 0

@@ -14,8 +14,8 @@ so that the register kernel's sums repeat themselves bit for bit), on CPU
 tensors its plain version, decode + `index_add_`.  On a CUDA device the
 pipeline sorts by windows of 64 cells where the JAX package takes 256
 (`default_window`).  Where a window id and a sample index do not fit one
-int32 together (Cobafa's largest grids), the sort carries the index as a
-value (`sort_by_window_pairs`).
+int32 together, the sort carries the index as a value
+(`sort_by_window_pairs`).
 
 One packed payload row per sample, so the sorted stream costs one
 permutation gather, in either of the JAX package's encodings (keyed on the
@@ -28,8 +28,14 @@ payload dtype):
          rounded to bf16 (~2^-8 relative).
 
 The JAX layout pads rows to 128 values (a TPU's lanes); the kernel needs
-only rows of a multiple of 16 bytes, and Cobafa's narrow oct rows (8
-corners x F <= 8) pad to that (`pack_payload`'s `row_align`).
+only rows of a multiple of 16 bytes (`pack_payload`'s `row_align`).
+
+Cobafa's oct rows (8 corners x F <= 8, the scatter of the JAX package's
+`_trilinear_oct_bwd`) take no payload: `oct_accumulate` reads row perm[j]
+of g, w and cell itself (`csrc/table_grad.cu` `tn_oct_accumulate`, windows
+of OCT_WINDOW cells, the same work list, slots and ordered combine), on CPU
+tensors its plain version, a gather through the permutation and
+`index_add_` in row order.
 """
 
 from __future__ import annotations
@@ -49,13 +55,17 @@ ACCUM_CHUNK = 1024
 # to itself; a window that does not fit the largest is split over blocks
 ACCUM_SHAPES = ((96 * 1024, 2, 8192, 544), (192 * 1024, 2, 16384, 1024))
 # windows of up to OWNER_WINDOW cells x up to 4 corners x up to 96 values,
-# or x up to 8 corners of up to 64 values in all (Cobafa's oct rows), go
+# or x up to 8 corners of up to 64 values in all (payload rows; Cobafa's
+# oct rows take `oct_accumulate`), go
 # to the kernel that keeps every cell's sums in one warp's registers: the
 # rows per stage of its ring (32, 64 or 128) and the ring's bytes (as many
 # stages as fit, at most 8); 0 bytes would send them to the tile kernel too
 ACCUM_OWNER_STAGE_ROWS = 128
 ACCUM_OWNER_RING_BYTES = 192 * 1024
 OWNER_WINDOW = 64
+# cells per window of the oct accumulation, on every device (the JAX
+# package's window): a work item writes up to 256 x 64 f32 sums
+OCT_WINDOW = 256
 
 
 def pack_payload(g, w_corners, cell, w_window: int, payload_dtype=torch.float32, row_align: int = 128):
@@ -173,18 +183,20 @@ windowed_accumulate.launches = 0
 KEY_BITS = 32  # of the packed sort keys: window id over sample index
 
 
-def default_window(device: torch.device, n_cells: int, n: int, width: int, packed_keys: bool = True) -> int:
-    """The window the pipeline sorts by: 256 cells, the JAX package's, on
-    the CPU.  On a CUDA device the largest power of two <= OWNER_WINDOW whose
-    f32 tile [W, width] fits the tile kernel's smallest block shape, so that
-    one block reads each sample once (and up to 4 corners x 96 values, or 8
-    corners of up to 64 values in all, are summed in registers), as long as
-    the packed keys still fit (`packed_keys`; the key-value sort of
-    `sort_by_window_pairs` takes any number of windows)."""
+def default_window(device: torch.device, n_cells: int, n: int, width: int, oct_rows: bool = False) -> int:
+    """The window the pipeline sorts by: OCT_WINDOW cells for Cobafa's oct
+    rows (`oct_rows`, `oct_accumulate`) on every device; otherwise 256
+    cells, the JAX package's, on the CPU, and on a CUDA device the largest
+    power of two <= OWNER_WINDOW whose f32 tile [W, width] fits the tile
+    kernel's smallest block shape, so that one block reads each sample once
+    (and up to 4 corners x 96 values, or 8 corners of up to 64 values in
+    all, are summed in registers), as long as the packed keys still fit."""
+    if oct_rows:
+        return OCT_WINDOW
     w = 256
     if device.type == "cuda":
         while (w > 1 and (w > OWNER_WINDOW or w * width * 4 > ACCUM_SHAPES[0][0])
-               and (not packed_keys or _bits(-(-n_cells // (w // 2))) + _bits(n) <= KEY_BITS)):
+               and _bits(-(-n_cells // (w // 2))) + _bits(n) <= KEY_BITS):
             w //= 2
     return w
 
@@ -249,6 +261,69 @@ def sort_by_window(cell: torch.Tensor, n_cells_pad: int, w_window: int):
     skeys = sort_i32(keys, begin_bit=idx_bits, end_bit=idx_bits + window_bits)
     bucket, perm = unpack_keys(skeys, idx_bits)
     return perm, _window_offsets(bucket + bias, nw)
+
+
+def sort_windows(cell: torch.Tensor, n_cells_pad: int, w_window: int):
+    """`sort_by_window` where its packed keys fit KEY_BITS, else
+    `sort_by_window_pairs`: (perm [P, n], offsets [P, NW + 1]), each
+    window's samples in their input order."""
+    fits = window_keys_fit(n_cells_pad, w_window, cell.shape[-1])
+    return (sort_by_window if fits else sort_by_window_pairs)(cell, n_cells_pad, w_window)
+
+
+def oct_accumulate_plain(g, w, cell, perm, n_cells_pad):
+    """Plain PyTorch `oct_accumulate`: the rows gathered through the
+    permutation, then one `index_add_` in that order."""
+    idx = perm.long()
+    f = g.shape[-1]
+    contrib = (w[idx][:, :, None] * g[idx][:, None, :]).reshape(-1, 8 * f)
+    out = torch.zeros(n_cells_pad, 8 * f, dtype=torch.float32, device=g.device)
+    return out.index_add_(0, cell[idx].long(), contrib)
+
+
+def oct_accumulate(
+    g: torch.Tensor,  # [n, F] f32 cotangents, 1 <= F <= 8
+    w: torch.Tensor,  # [n, 8] f32 corner weights (CORNERS_3D order)
+    cell: torch.Tensor,  # [n] int32 cell ids in [0, n_cells_pad)
+    perm: torch.Tensor,  # [n] int32 sample indices grouped by window (`sort_windows`)
+    offsets: torch.Tensor,  # [NW + 1] int32 window ranges of perm
+    n_cells_pad: int,
+    w_window: int,
+) -> torch.Tensor:
+    """-> [n_cells_pad, 8F] f32: per cell, the sum over its samples of
+    concat_k(w[i, k] * g[i]), each cell's samples taken in perm's order (a
+    split window's chunks summed apart, then added in order).  Cells without
+    samples, and samples whose cotangent is all zero, add exactly 0."""
+    if cuda_lib.runs_plain("oct_accumulate", g, w, cell, perm, offsets):
+        return oct_accumulate_plain(g, w, cell, perm, n_cells_pad)
+    n, f = g.shape
+    if not 1 <= f <= 8 or n_cells_pad % w_window:
+        raise ValueError(f"oct_accumulate: F = {f} (1..8), {n_cells_pad} cells in windows of {w_window}")
+    nw = n_cells_pad // w_window
+    cuda_lib.check_cuda_inputs("oct_accumulate", torch.float32, (n, f), g)
+    cuda_lib.check_cuda_inputs("oct_accumulate", torch.float32, (n, 8), w)
+    cuda_lib.check_cuda_inputs("oct_accumulate", torch.int32, (n,), cell, perm)
+    cuda_lib.check_cuda_inputs("oct_accumulate", torch.int32, (nw + 1,), offsets)
+    # the kernel writes every element (an empty window's zeros too)
+    out = torch.empty(n_cells_pad, 8 * f, dtype=torch.float32, device=g.device)
+    # windowed_accumulate's work list, slots and flags, for one projection
+    # and one flag per slot
+    max_items = nw + -(-n // ACCUM_CHUNK)
+    scratch = torch.empty(nw + 4 + 4 * max_items + nw + 1, dtype=torch.int32, device=g.device)
+    max_slots = n // ACCUM_CHUNK
+    partials = torch.empty(max(1, max_slots), w_window, 8 * f, dtype=torch.float32, device=g.device)
+    flags = torch.empty(max(1, 32 * max_slots), dtype=torch.int32, device=g.device)
+    cuda_lib.library().call(
+        "tn_oct_accumulate", g.data_ptr(), w.data_ptr(), cell.data_ptr(), perm.data_ptr(),
+        offsets.data_ptr(), scratch.data_ptr(), max_items, ACCUM_CHUNK, n, f, nw, w_window,
+        partials.data_ptr(), max_slots, flags.data_ptr(), 32 * max_slots, out.data_ptr(),
+        cuda_lib.stream_of(g),
+    )
+    oct_accumulate.launches += 1
+    return out
+
+
+oct_accumulate.launches = 0
 
 
 def table_grad_sorted(

@@ -24,11 +24,15 @@ zero cotangent), the cells a converged step's backward sees.
     the field's forward + backward.
   * Cobafa (basis grids 32..128^3, coefficients 64^3 x 6, bf16 corners):
     the oct build (kernel 6) per grid and for all grids; all grids'
-    gathers; the backward of all grids through the window sort and the
-    windowed accumulation (`ops/interp.py: oct_table_grad`, with the eight
-    shifted adds), and, run here only, the `index_add_` of [n, 8F] rows it
-    replaced (the two held to 1e-5 of the largest gradient); the field's
-    forward + backward (dropout on).
+    gathers; the backward of all grids, whole (`_TrilinearOct.backward`'s
+    steps: `ops/interp.py: oct_table_grad`, then `oct_fold`) and piece by
+    piece: the `_cell_3d` recompute, the window sort (kernel 4),
+    `oct_accumulate` (its permutation read) and `oct_fold`; and, run here
+    only, the two forms it replaced: the `index_add_` of [n, 8F] rows and
+    the payload route of the register kernel's flat layout (pack, sorted
+    copy, `windowed_accumulate` in windows of 64 cells on the card), each
+    with the eight shifted adds (all three held to 1e-5 of the largest
+    gradient); the field's forward + backward (dropout on).
 
 Left out, as TPU layouts the port does not carry: `fwd_mode="fusedfine"`,
 `scatter_add_rows` alone and the oct build's stack A/B form.  Each piece
@@ -191,7 +195,8 @@ def profile_cobafa(args, device, timeit) -> dict:
     from tinynerf_tpu_torch.models import make_model
     from tinynerf_tpu_torch.models.cobafa import GATHER_DTYPE
     from tinynerf_tpu_torch.ops import interp as I
-    from tinynerf_tpu_torch.ops.octbuild import build_oct
+    from tinynerf_tpu_torch.ops import table_grad as TG
+    from tinynerf_tpu_torch.ops.octbuild import build_oct, oct_fold, oct_fold_plain
 
     field = make_model("cobafa", field_scale=args.field_scale, generator=torch.Generator().manual_seed(0),
                        device=device)[0]
@@ -219,33 +224,56 @@ def profile_cobafa(args, device, timeit) -> dict:
     del octs
 
     # the backward of every grid for a cotangent of ones (the JAX tool's),
-    # zero on the pads: the oct cell gradient, then the shifted adds
+    # zero on the pads: the oct cell gradient, then the fold onto the grid
     g_ones = torch.ones(cap, 1, device=device)
     if n_pad:
         g_ones[cap - n_pad :] = 0.0
+    shapes = [tuple(grid.shape) for _, grid in grids]
+    n_cells = [(r0 - 1) * (r1 - 1) * (r2 - 1) for r0, r1, r2, _ in shapes]
+    gs = [g_ones.expand(cap, s[3]).contiguous() for s in shapes]
 
-    def all_bwd(sorted_path: bool):
+    def all_bwd(route: str):
         outs = []
-        for _, grid in grids:
-            r0, r1, r2, f = grid.shape
-            n_cells = (r0 - 1) * (r1 - 1) * (r2 - 1)
-            g = g_ones.expand(cap, f)
-            cell, w = I._cell_3d(x, r0, r1, r2)
-            if sorted_path:
-                gq = I.oct_table_grad(g, w, cell, n_cells)
-            else:
-                contrib = (g[:, None, :] * w[:, :, None]).reshape(cap, 8 * f)
-                gq = torch.zeros(n_cells, 8 * f, device=device).index_add_(0, cell, contrib)
-            outs.append(I.oct_grad_to_grid(gq, grid.shape))
+        for shape, nc, g in zip(shapes, n_cells, gs):
+            cell, w = I._cell_3d(x, *shape[:3])
+            if route == "sorted":
+                outs.append(oct_fold(I.oct_table_grad(g, w, cell, nc), shape))
+                continue
+            if route == "index_add":
+                contrib = (g[:, None, :] * w[:, :, None]).reshape(cap, 8 * shape[3])
+                gq = torch.zeros(nc, 8 * shape[3], device=device).index_add_(0, cell, contrib)
+            else:  # the payload route, windows of 64 cells on the card (256 on the CPU)
+                w_window = 64 if device.type == "cuda" else 256
+                gq = TG.table_grad_sorted(g[None], w[None], cell[None], nc, w_window, torch.float32, row_align=4)[0]
+            outs.append(oct_fold_plain(gq, shape))
         return outs
 
-    new = timeit("bwd: window sort + accumulate + reduce ALL grids", lambda: all_bwd(True))
-    old = timeit("bwd: index_add_ + reduce ALL grids (replaced; here only)", lambda: all_bwd(False))
-    err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(new, old))
-    print(f"bwd: sorted vs index_add_, max|diff| / max|index_add_| over the grids = {err:.3e} (tol 1e-5)")
+    new = timeit("bwd: window sort + accumulate + reduce ALL grids", lambda: all_bwd("sorted"))
+    cws = timeit("bwd: _cell_3d ALL grids (recompute)", lambda: [I._cell_3d(x, *s[:3]) for s in shapes])
+    cells = [c.to(torch.int32).reshape(1, cap) for c, _ in cws]
+    pads = [-(-nc // TG.OCT_WINDOW) * TG.OCT_WINDOW for nc in n_cells]
+    sorts = timeit(f"bwd: window sort ALL grids (kernel 4; windows of {TG.OCT_WINDOW})",
+                   lambda: [TG.sort_windows(c, p, TG.OCT_WINDOW) for c, p in zip(cells, pads)])
+    args = list(zip(gs, cws, cells, sorts, pads, n_cells))
+
+    def accumulate(g, cw, c, sort, pad, nc):
+        return TG.oct_accumulate(g, cw[1], c[0], sort[0][0], sort[1][0], pad, TG.OCT_WINDOW)[:nc]
+
+    # each grid's cell table dropped as the next is made, as the backward does
+    timeit("bwd: oct_accumulate ALL grids (permutation read)", lambda: [accumulate(*a).shape for a in args])
+    gqs = [accumulate(*a) for a in args]
+    timeit("bwd: oct_fold ALL grids", lambda: [oct_fold(gq, s) for gq, s in zip(gqs, shapes)])
+    del cws, cells, sorts, args, gqs
+    old = timeit("bwd: index_add_ + reduce ALL grids (replaced; here only)", lambda: all_bwd("index_add"))
+    payload = timeit("bwd: payload + flat layout + reduce ALL grids (replaced; here only)",
+                     lambda: all_bwd("payload"))
+    err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for ref in (old, payload) for a, b in zip(new, ref))
+    print(f"bwd: sorted vs index_add_ and the payload route, max|diff| / max|ref| over the grids = {err:.3e} "
+          f"(tol 1e-5)")
     if not err <= 1e-5:
         raise AssertionError(f"profile_field_torch: the sorted oct gradient disagrees with index_add_ ({err})")
-    del new, old
+    del new, old, payload
 
     params = list(field.parameters())
     words = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device=device)

@@ -52,8 +52,8 @@ from tinynerf_tpu_torch.utils.device import card_line
 
 # the port's hand-written kernels, by the names nvcc gives them in a trace
 PORT_KERNELS = ("segscan_kernel", "weights_packed_bwd", "segment_sum_kernel", "weights_dense_kernel",
-                "weights_dense_bwd", "radix_", "windowed_", "oct_build", "quad_build", "skip_march_kernel",
-                "skip_march_unbounded")
+                "weights_dense_bwd", "radix_", "windowed_", "oct_accumulate", "oct_build", "oct_fold",
+                "quad_build", "skip_march_kernel", "skip_march_unbounded")
 
 
 def _kernel_table(prof):
