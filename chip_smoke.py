@@ -51,7 +51,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    of the shell occupancy, rays drawn over the nerfstudio capture's
    training views (a 2048-ray serving chunk and a 131,072-ray bucket, 96
    rounds, with and without jitter), k_idx and complete equal to its plain
-   version's, timed the same way; and the sums that make a step repeat
+   version's, timed the same way; each march's times printed beside the
+   bound that holds for any design (its bytes or the launch floor, the
+   larger) with the lanes per ray it took; and the sums that make a step repeat
    itself, each bit-equal over three calls on the same inputs: the per-ray
    sum (`segment_sum`) at the serving chunk's buffer and the early K-Planes
    step's, against its plain `index_add` and the renderer's former two
@@ -1007,7 +1009,7 @@ def check_quad_build(dev):
 
 
 def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march_args, round_flops: int,
-                 batch: int) -> dict:
+                 batch: int, probe=None) -> dict:
     """A skip march kernel against its plain version on rays drawn from
     `pool`: a serving chunk (`batch` rays, timed without jitter) and a
     training bucket (SKIP_BUCKET x `batch` rays, timed with jitter), each
@@ -1018,7 +1020,9 @@ def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march
     need), and each records its longest chain of dependent gathers (the
     fewest rounds in which every ray completes, or all of them if a ray
     never does; the march is a prefix of itself with more rounds).
-    Returns the serving record with the bucket's beside it."""
+    `probe(label, head, jitter, n_steps, k_idx)`, where given, runs on each
+    timed problem and returns entries for its record.  Returns the serving
+    record with the bucket's beside it."""
     perm = torch.randperm(pool.n_rays, device=pool.rays_o.device, generator=gen)
 
     def longest_chain(head, j) -> int:
@@ -1053,15 +1057,18 @@ def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march
             lambda: plain(*args(jitter)), bound(n_bytes, round_flops * timed_rounds))
         out[part]["active_rounds"] = timed_rounds
         out[part]["longest_rounds"] = longest_chain(head, jitter)
+        out[part]["n_rays"] = n_rays
+        if probe is not None:
+            out[part].update(probe(label, head, jitter, n_steps, kernel(*args(jitter))[0]))
     # the serving chunk is the main record (313 launches per 800x800 view);
     # the training bucket rides along
     return {"max_abs_err": 0.0, **out["serving"], **{f"train_bucket_{k}": v for k, v in out["training"].items()}}
 
 
-def check_skip_march(dev):
+def check_skip_march(dev, probe=None):
     """The skip march on the shell occupancy's skip grid (the smoke's
     serving state), with rays drawn over a generated 800x800 view, 64
-    rounds; and the skip grid's build."""
+    rounds; and the skip grid's build.  `probe`: as `_check_march`'s."""
     from tinynerf_tpu_torch.core import skipmarch
     from tinynerf_tpu_torch.data import RayPool
     from tinynerf_tpu_torch.train import TrainConfig, build_renderer
@@ -1084,15 +1091,15 @@ def check_skip_march(dev):
                        RayPool(make_spheres_data(n_views=1, res=800, seed=0), device=dev),
                        torch.Generator(dev).manual_seed(4),
                        torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev),
-                       renderer.skip_steps, march_args, SKIP_ROUND_FLOPS, cfg.batch_size)
+                       renderer.skip_steps, march_args, SKIP_ROUND_FLOPS, cfg.batch_size, probe)
     return {"skip_march": {**rec, "skip_grid_ms": grid_ms}}
 
 
-def check_skip_march_unbounded(dev, ns_root) -> dict:
+def check_skip_march_unbounded(dev, ns_root, probe=None) -> dict:
     """The unbounded skip march on the iso grid of the shell occupancy, with
     rays drawn over the nerfstudio capture's training views (cameras on the
     spheres' ring, so rays cross the core and the far field), 96 rounds;
-    and the iso grid's build."""
+    and the iso grid's build.  `probe`: as `_check_march`'s."""
     from tinynerf_tpu_torch.core import skipmarch
     from tinynerf_tpu_torch.data import RayPool, parse_nerfstudio
     from tinynerf_tpu_torch.train import TrainConfig, build_renderer
@@ -1112,8 +1119,24 @@ def check_skip_march_unbounded(dev, ns_root) -> dict:
                        skipmarch.skip_march_unbounded_plain, pool, torch.Generator(dev).manual_seed(8),
                        torch.tensor([0x2345678, 0x9ABCDEF], dtype=torch.int64, device=dev),
                        renderer.skip_steps, lambda o, d: (o, d, marcher, contraction, grid),
-                       UNBOUNDED_ROUND_FLOPS, cfg.batch_size)
+                       UNBOUNDED_ROUND_FLOPS, cfg.batch_size, probe)
     return {"skip_march_unbounded": {**rec, "skip_grid_ms": grid_ms}}
+
+
+def report_march(key: str, rec: dict, floor) -> None:
+    """A march's call and device ms at both timed shapes beside the bound
+    that holds for any design: the larger of its bytes-only bound and the
+    launch floor (kernel 1 on one ray); and the lanes per ray it took."""
+    from tinynerf_tpu_torch.ops import cuda_lib
+
+    for pre, part in (("", "serving"), ("train_bucket_", "training bucket")):
+        n_rays, dev_ms = rec[f"{pre}n_rays"], rec[f"{pre}device_ms"]
+        holds = max(rec[f"{pre}bound_ms"], floor or 0.0)
+        rec[f"{pre}bound_holds_ms"] = holds
+        share = f"{holds / dev_ms:.1%}" if dev_ms else "not measured"
+        print(f"kernel {key} {part} [{n_rays} rays], {cuda_lib.library().lib.tn_skip_lanes(n_rays)} lanes per "
+              f"ray: call {rec[f'{pre}ms']:.4f} ms, device {_ms(dev_ms)}; the bound that holds {holds:.4f} ms "
+              f"(bytes-only {rec[f'{pre}bound_ms']:.4f}, launch floor {_ms(floor)}): {share}")
 
 
 def write_nerfstudio_scene(root, n_frames: int = 9, res: int = 800):
@@ -2141,6 +2164,8 @@ def main() -> None:
         kern.update(check_quad_build(dev))
         kern.update(check_skip_march(dev))
         kern.update(check_skip_march_unbounded(dev, ns_root))
+        for key in ("skip_march", "skip_march_unbounded"):
+            report_march(key, kern[key], kern["segscan"]["floor_device_ms"])
         launches = run_phases(card, ns_root)
         t0 = time.perf_counter()
         launches.update(run_data_parallel(card))

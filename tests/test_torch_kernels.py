@@ -841,8 +841,8 @@ def test_quad_build_kernel_float8_boundaries_at_every_chunk_position(cuda_device
 @pytest.mark.parametrize("aabb", [((-1.5,) * 3, (1.5,) * 3), ((-1.5, -0.6, -1.5), (1.5, 0.6, 1.5))])
 def test_skip_march_kernel_equals_plain(cuda_device, aabb):
     """Random grids (cubic and not), rays from outside the box, with and
-    without jitter, at a full and a starved budget: k_idx and complete
-    equal, on 20,000 rays."""
+    without jitter, at a full, a starved and a one-round budget: k_idx and
+    complete equal, on 20,000 rays."""
     rng = np.random.default_rng(19)
     for shape, density, n_samples in (((32, 32, 32), 0.02, 200), ((16, 24, 12), 0.2, 64), ((128,) * 3, 0.005, 400)):
         occ = T(rng.random(shape) < density).to(cuda_device)
@@ -855,7 +855,7 @@ def test_skip_march_kernel_equals_plain(cuda_device, aabb):
         marcher = RayMarcherAABB(aabb, n_samples=n_samples, near=0.1)
         t_min, t_exit = marcher.entry_exit(o, d)
         for seed in (None, [0x12345678, 0x9ABCDEF0]):
-            for n_steps in (64, 7):
+            for n_steps in (64, 7, 1):
                 args = (o, d, t_min, t_exit, marcher.step_size, n_samples, aabb, grid, seed, n_steps)
                 before = skipmarch.skip_march.launches
                 k, c = skipmarch.skip_march(*args)
@@ -870,7 +870,8 @@ def test_skip_march_kernel_equals_plain(cuda_device, aabb):
 def test_skip_march_unbounded_kernel_equals_plain(cuda_device):
     """Random iso grids, rays from ~4 units out and from near the origin
     (the far field along the diagonals), with and without jitter, at a
-    full and a starved budget: k_idx and complete equal, on 20,000 rays."""
+    full, a starved and a one-round budget: k_idx and complete equal, on
+    20,000 rays."""
     rng = np.random.default_rng(23)
     for res, density, n_samples, near_origin in ((32, 0.02, 200, False), (16, 0.2, 64, False),
                                                   (128, 0.005, 400, True)):
@@ -884,7 +885,7 @@ def test_skip_march_unbounded_kernel_equals_plain(cuda_device):
         o, d = T(o).to(cuda_device), T(d).to(cuda_device)
         marcher = RayMarcherUnbounded(n_samples=n_samples, near=0.1, uniform_range=2.5)
         for seed in (None, [0x12345678, 0x9ABCDEF0]):
-            for n_steps in (96, 7):
+            for n_steps in (96, 7, 1):
                 args = (o, d, marcher, ContractionMip360(), grid, seed, n_steps)
                 before = skipmarch.skip_march_unbounded.launches
                 k, c = skipmarch.skip_march_unbounded(*args)
@@ -893,6 +894,86 @@ def test_skip_march_unbounded_kernel_equals_plain(cuda_device):
                 assert torch.equal(k, k_ref), (res, seed, n_steps)
                 assert torch.equal(c, c_ref), (res, seed, n_steps)
                 assert int((k >= 0).sum()) > 0
+
+
+def _poisoned(march, *args):
+    """`march(*args)` after freeing a k_idx-sized block of -2, a value no
+    march writes: the caching allocator hands that block to the march's
+    k_idx, so an element the kernel leaves unwritten shows."""
+    n_rays, n_steps = args[0].shape[0], args[-1]
+    torch.full((n_rays, n_steps), -2, dtype=torch.int32, device=args[0].device)
+    return march(*args)
+
+
+SKIP_RAY_COUNTS = [1, 33, 2048, 4096, 8192, 16_384, 32_768, 131_072]  # every lanes-per-ray pick, 32 down to 1
+SKIP_GRIDS = {"random": 0.05, "full": 1.0, "empty": 0.0}
+
+
+def _skip_rays(n, device, seed, near_origin=False):
+    """Unit directions from ~4 units out aimed near the origin (or from
+    near the origin), every 8th turned around: from outside the box it
+    leaves the box behind (k_end = 0)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32) if near_origin else \
+        -4.0 * d + rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+    d[::8] *= -1.0
+    return T(o).to(device), T(d).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(SKIP_GRIDS))
+@pytest.mark.parametrize("n_rays", SKIP_RAY_COUNTS)
+def test_skip_march_kernel_ray_counts_and_grids(cuda_device, n_rays, kind):
+    """Ray counts that take every number of lanes per ray the wrapper picks,
+    on a random, an all-occupied (every step a unit step) and an all-empty
+    grid (every step a jump), rays that miss the box among them, with and
+    without jitter, at budgets of 64, 7 and 1 rounds: k_idx and complete
+    equal, one launch a call."""
+    rng = np.random.default_rng(29)
+    aabb = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
+    grid = skipmarch.make_skip_grid(T(rng.random((32, 32, 32)) < SKIP_GRIDS[kind]).to(cuda_device))
+    o, d = _skip_rays(n_rays, cuda_device, 31)
+    marcher = RayMarcherAABB(aabb, n_samples=200, near=0.1)
+    t_min, t_exit = marcher.entry_exit(o, d)
+    lanes = cuda_lib.library().lib.tn_skip_lanes(n_rays)
+    for seed in (None, [0x12345678, 0x9ABCDEF0]):
+        for n_steps in (64, 7, 1):
+            args = (o, d, t_min, t_exit, marcher.step_size, 200, aabb, grid, seed, n_steps)
+            before = skipmarch.skip_march.launches
+            k, c = _poisoned(skipmarch.skip_march, *args)
+            assert skipmarch.skip_march.launches == before + 1
+            k_ref, c_ref = skipmarch.skip_march_plain(*args)
+            assert torch.equal(k, k_ref), (n_rays, lanes, kind, seed, n_steps)
+            assert torch.equal(c, c_ref), (n_rays, lanes, kind, seed, n_steps)
+    if n_rays > 1:  # the turned-around rays: no sample, complete
+        missed = (t_exit - t_min) < -marcher.step_size
+        assert bool(missed.any()) and bool(c[missed].all()) and bool((k[missed] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(SKIP_GRIDS))
+@pytest.mark.parametrize("n_rays", SKIP_RAY_COUNTS)
+def test_skip_march_unbounded_kernel_ray_counts_and_grids(cuda_device, n_rays, kind):
+    """As test_skip_march_kernel_ray_counts_and_grids for the unbounded
+    march: rays from outside and from near the origin, random, all-occupied
+    and all-empty iso grids, budgets of 96, 7 and 1 rounds."""
+    rng = np.random.default_rng(37)
+    grid = skipmarch.make_skip_grid_iso(T(rng.random((32, 32, 32)) < SKIP_GRIDS[kind]).to(cuda_device))
+    marcher = RayMarcherUnbounded(n_samples=200, near=0.1, uniform_range=2.5)
+    lanes = cuda_lib.library().lib.tn_skip_lanes(n_rays)
+    for near_origin in (False, True):
+        o, d = _skip_rays(n_rays, cuda_device, 41, near_origin)
+        for seed in (None, [0x12345678, 0x9ABCDEF0]):
+            for n_steps in (96, 7, 1):
+                args = (o, d, marcher, ContractionMip360(), grid, seed, n_steps)
+                before = skipmarch.skip_march_unbounded.launches
+                k, c = _poisoned(skipmarch.skip_march_unbounded, *args)
+                assert skipmarch.skip_march_unbounded.launches == before + 1
+                k_ref, c_ref = skipmarch.skip_march_unbounded_plain(*args)
+                assert torch.equal(k, k_ref), (n_rays, lanes, kind, near_origin, seed, n_steps)
+                assert torch.equal(c, c_ref), (n_rays, lanes, kind, near_origin, seed, n_steps)
 
 
 # ---- determinism: a training step and a served chunk repeat themselves

@@ -22,9 +22,11 @@ advance bounds are conservative, and both marches compute a sample's
 position by the same f32 operations in the same order, with the same
 stateless hash (`ops/hashrng.py`).
 
-Each march is one CUDA kernel on a CUDA tensor (`csrc/skipmarch.cu`: one
-thread per ray walks all its rounds; eager PyTorch would launch dozens of
-small ops per round) and the plain round loop (`skip_march_plain`,
+Each march is one CUDA kernel on a CUDA tensor (`csrc/skipmarch.cu`: a ray
+walks all its rounds with several lanes where the rays leave the card
+idle, each lane probing one of the next candidates; eager PyTorch would
+launch dozens of small ops per round) and the plain round loop (`walk`
+over `aabb_candidates` / `unbounded_candidates`, as `skip_march_plain`,
 `skip_march_unbounded_plain`) on a CPU tensor.  The JAX `_probe` is a TPU
 lane trick for the same lookup; here it is a plain gather.  The grids are
 plain PyTorch: they are built once per `render_only` and once per occupancy
@@ -155,15 +157,13 @@ def _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps):
         raise ValueError(f"skip_march: n_steps must be >= 1, got {n_steps}")
 
 
-def skip_march_plain(
-    rays_o: torch.Tensor, rays_d: torch.Tensor, t_min: torch.Tensor, t_exit: torch.Tensor,
-    step_size: float, n_samples: int, aabb, skip_grid: torch.Tensor, jitter_seed, n_steps: int,
-    count_rounds: bool = False,
-):
-    """The plain version: the JAX package's round loop in its op order.
-    With `count_rounds` it also returns the rounds in which a ray was still
-    active (the work this input needs)."""
-    _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps)
+def aabb_candidates(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb, skip_grid, jitter_seed):
+    """The AABB march's per-candidate functions: (k_end [R] int32, where a
+    ray's walk ends; cand), where cand(kk), for one sample index per ray kk
+    [R] (clamped to n_samples - 1), gives (emits [R] bool: the candidate is
+    in the box and its voxel occupied; adv [R] int32 >= 1: how far a ray
+    at kk moves), each from kk alone, in the JAX package's op order."""
+    _check(rays_o, rays_d, t_min, t_exit, skip_grid, 1)
     dev = rays_o.device
     n_rays = rays_o.shape[0]
     _, r0, r1, r2 = skip_grid.shape
@@ -189,11 +189,8 @@ def skip_march_plain(
 
     ext = hi - lo
     zero = torch.zeros((), device=dev)
-    k = torch.zeros(n_rays, dtype=torch.int32, device=dev)
-    done = torch.zeros(n_rays, dtype=torch.bool, device=dev)
-    ys, rounds = [], 0
-    for _ in range(n_steps):
-        kk = torch.clamp(k, max=n_samples - 1)
+
+    def cand(kk):
         # the dense march's f32 order: (t_min + k * delta) + u * delta
         t = t_min + kk.float() * delta
         if jitter_seed is not None:
@@ -203,19 +200,47 @@ def skip_march_plain(
         cpos = (pos - lo) / ext * 2.0 - 1.0
         idx = torch.minimum(torch.maximum(torch.round((cpos + 1.0) * 0.5 * res), zero), res).long()
         g = flat[grid_base + (idx[:, 0] * r1 + idx[:, 1]) * r2 + idx[:, 2]]
-        active = ~done & (k < k_end)
-        emit = active & (g == 0) & inbox
         # skipped sample k + i advances <= (i + 1) * rate + 1 axis slices,
         # all within the certified g - 1: m * rate <= g - 2
         adv = torch.clamp(torch.floor((g.float() - 2.0) / rate).to(torch.int32), min=1)
+        return (g == 0) & inbox, adv
+
+    return k_end, cand
+
+
+def walk(k_end: torch.Tensor, cand, n_samples: int, n_steps: int, count_rounds: bool = False):
+    """The round loop of both plain versions (one candidate per ray and
+    round): a ray at k emits k if cand says so and moves by its advance,
+    until k >= k_end.  Returns (k_idx, complete[, active rounds])."""
+    k = torch.zeros_like(k_end)
+    done = torch.zeros(k_end.shape, dtype=torch.bool, device=k_end.device)
+    ys, rounds = [], 0
+    for _ in range(n_steps):
+        kk = torch.clamp(k, max=n_samples - 1)
+        emits, adv = cand(kk)
+        active = ~done & (k < k_end)
         k_next = torch.where(active, k + adv, k)
         done = done | (k_next >= k_end)
-        ys.append(torch.where(emit, kk, -1))
+        ys.append(torch.where(active & emits, kk, -1))
         if count_rounds:
             rounds += int(active.sum())
         k = k_next
     k_idx = torch.stack(ys, dim=1)
     return (k_idx, done, rounds) if count_rounds else (k_idx, done)
+
+
+def skip_march_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, t_min: torch.Tensor, t_exit: torch.Tensor,
+    step_size: float, n_samples: int, aabb, skip_grid: torch.Tensor, jitter_seed, n_steps: int,
+    count_rounds: bool = False,
+):
+    """The plain version: the JAX package's round loop in its op order.
+    With `count_rounds` it also returns the rounds in which a ray was still
+    active (the work this input needs)."""
+    _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps)
+    k_end, cand = aabb_candidates(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb, skip_grid,
+                                  jitter_seed)
+    return walk(k_end, cand, n_samples, n_steps, count_rounds)
 
 
 def _seed_words(jitter_seed, dev) -> Optional[torch.Tensor]:
@@ -228,6 +253,11 @@ def _seed_words(jitter_seed, dev) -> Optional[torch.Tensor]:
     else:
         seed = torch.tensor([int(s) for s in jitter_seed], dtype=torch.int64, device=dev)
     return torch.stack([seed[0], seed[-1]]).contiguous()
+
+
+def _outputs(n_rays: int, n_steps: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev),
+            torch.empty(n_rays, dtype=torch.bool, device=dev))
 
 
 def skip_march(
@@ -251,26 +281,33 @@ def skip_march(
     if cuda_lib.runs_plain("skip_march", rays_o, rays_d, t_min, t_exit, skip_grid):
         return skip_march_plain(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb,
                                 skip_grid, jitter_seed, n_steps)
+    args, k_idx, complete, _ = c_args_aabb(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb,
+                                           skip_grid, jitter_seed, n_steps)
+    if rays_o.shape[0]:
+        cuda_lib.library().call("tn_skip_march", *args, cuda_lib.stream_of(rays_o))
+        skip_march.launches += 1
+    return k_idx, complete
+
+
+def c_args_aabb(rays_o, rays_d, t_min, t_exit, step_size, n_samples, aabb, skip_grid, jitter_seed,
+                n_steps) -> tuple:
+    """(the arguments of the C entry `tn_skip_march` before the stream,
+    k_idx, complete, seed): CUDA inputs, checked here, new outputs, and the
+    jitter words' tensor (or None) the arguments point into, which must
+    outlive every launch with them."""
     _check(rays_o, rays_d, t_min, t_exit, skip_grid, n_steps)
     n_rays = rays_o.shape[0]
     cuda_lib.check_cuda_inputs("skip_march", torch.float32, (n_rays, 3), rays_o, rays_d)
     cuda_lib.check_cuda_inputs("skip_march", torch.float32, (n_rays,), t_min, t_exit)
     cuda_lib.check_cuda_inputs("skip_march", torch.int32, skip_grid.shape, skip_grid)
-    dev = rays_o.device
-    seed = _seed_words(jitter_seed, dev)
+    seed = _seed_words(jitter_seed, rays_o.device)
     _, r0, r1, r2 = skip_grid.shape
     lo, hi, w = _aabb_arrays(aabb, (r0, r1, r2))
-    k_idx = torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev)
-    complete = torch.empty(n_rays, dtype=torch.bool, device=dev)
-    if n_rays:
-        cuda_lib.library().call(
-            "tn_skip_march", rays_o.data_ptr(), rays_d.data_ptr(), t_min.data_ptr(), t_exit.data_ptr(),
-            skip_grid.data_ptr(), seed.data_ptr() if seed is not None else None, n_rays, r0, r1, r2, n_samples, float(np.float32(step_size)),
-            n_steps, *(float(v) for v in (*lo, *hi, *w)),
-            k_idx.data_ptr(), complete.data_ptr(), cuda_lib.stream_of(rays_o),
-        )
-        skip_march.launches += 1
-    return k_idx, complete
+    k_idx, complete = _outputs(n_rays, n_steps, rays_o.device)
+    return (rays_o.data_ptr(), rays_d.data_ptr(), t_min.data_ptr(), t_exit.data_ptr(), skip_grid.data_ptr(),
+            seed.data_ptr() if seed is not None else None, n_rays, r0, r1, r2, n_samples,
+            float(np.float32(step_size)), n_steps, *(float(v) for v in (*lo, *hi, *w)),
+            k_idx.data_ptr(), complete.data_ptr()), k_idx, complete, seed
 
 
 skip_march.launches = 0
@@ -315,17 +352,13 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
 
 
-def skip_march_unbounded_plain(
-    rays_o: torch.Tensor, rays_d: torch.Tensor, marcher, contraction, skip_grid: torch.Tensor,
-    jitter_seed, n_steps: int, count_rounds: bool = False,
-):
-    """The plain version: the JAX package's round loop
-    (`tinynerf_tpu/core/skipmarch.py:skip_march_unbounded`) in its op order.
+def unbounded_candidates(rays_o, rays_d, marcher, contraction, skip_grid, jitter_seed):
+    """The unbounded march's per-candidate functions, as `aabb_candidates`
+    (k_end = n_samples for every ray), in the op order of the JAX package's
+    round loop (`tinynerf_tpu/core/skipmarch.py:skip_march_unbounded`).
     Every constant is an f32 0-dim tensor on the rays' device: a CPU scalar
-    divisor would turn CUDA's division into a product with its reciprocal.
-    With `count_rounds` it also returns the rounds in which a ray was still
-    active."""
-    _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps)
+    divisor would turn CUDA's division into a product with its reciprocal."""
+    _check_unbounded(rays_o, rays_d, contraction, skip_grid, 1)
     dev = rays_o.device
     n_rays, n_samples = rays_o.shape[0], marcher.n_samples
     r0, r1, r2 = skip_grid.shape
@@ -348,11 +381,7 @@ def skip_march_unbounded_plain(
     t_star = -(rays_o[:, 0] * rays_d[:, 0] + rays_o[:, 1] * rays_d[:, 1] + rays_o[:, 2] * rays_d[:, 2])
     n_perp = _norm3(rays_o + rays_d * t_star[:, None])
 
-    k = torch.zeros(n_rays, dtype=torch.int32, device=dev)
-    done = torch.zeros(n_rays, dtype=torch.bool, device=dev)
-    ys, rounds = [], 0
-    for _ in range(n_steps):
-        kk = torch.clamp(k, max=n_samples - 1)
+    def cand(kk):
         # the dense march's t: t_of_x(k * step_x), then + u * delta
         t_lo = t_of_x(kk.float() * step_x)
         t = t_lo
@@ -364,8 +393,6 @@ def skip_march_unbounded_plain(
         idx = torch.clamp(torch.round((cpos + 1.0) * 0.5 * res), min=0.0)
         idx = torch.minimum(idx, res).long()
         g = flat[(idx[:, 0] * r1 + idx[:, 1]) * r2 + idx[:, 2]]
-        active = ~done & (k < n_samples)
-        emit = active & (g == 0)
         # the contracted-empty radius rho = (g - 1) w_c; jittered skipped
         # samples stay within t_{k+m} - t_k of this one, whose contracted
         # displacement is at most L (t_{k+m} - t_k): safe while t_{k+m} <=
@@ -382,15 +409,22 @@ def skip_march_unbounded_plain(
         l_inv = torch.where(n_eff >= 2.25, torch.maximum(1.0 / f_m0, c["inv_lip"]), c["inv_lip"])
         t_safe = t_lo + torch.clamp((rho - c["w_c"]) * l_inv, min=0.0)
         k_safe = torch.floor(torch.minimum(x_of_t(t_safe), c["x_last"]) / step_x).to(torch.int32)
-        adv = torch.clamp(k_safe - kk, min=1)
-        k_next = torch.where(active, k + adv, k)
-        done = done | (k_next >= n_samples)
-        ys.append(torch.where(emit, kk, -1))
-        if count_rounds:
-            rounds += int(active.sum())
-        k = k_next
-    k_idx = torch.stack(ys, dim=1)
-    return (k_idx, done, rounds) if count_rounds else (k_idx, done)
+        return g == 0, torch.clamp(k_safe - kk, min=1)
+
+    return torch.full((n_rays,), n_samples, dtype=torch.int32, device=dev), cand
+
+
+def skip_march_unbounded_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, marcher, contraction, skip_grid: torch.Tensor,
+    jitter_seed, n_steps: int, count_rounds: bool = False,
+):
+    """The plain version: the JAX package's round loop
+    (`tinynerf_tpu/core/skipmarch.py:skip_march_unbounded`) in its op order.
+    With `count_rounds` it also returns the rounds in which a ray was still
+    active."""
+    _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps)
+    k_end, cand = unbounded_candidates(rays_o, rays_d, marcher, contraction, skip_grid, jitter_seed)
+    return walk(k_end, cand, marcher.n_samples, n_steps, count_rounds)
 
 
 def skip_march_unbounded(
@@ -408,24 +442,28 @@ def skip_march_unbounded(
     if cuda_lib.runs_plain("skip_march_unbounded", rays_o, rays_d, skip_grid):
         return skip_march_unbounded_plain(rays_o, rays_d, marcher, contraction, skip_grid,
                                           jitter_seed, n_steps)
+    args, k_idx, complete, _ = c_args_unbounded(rays_o, rays_d, marcher, contraction, skip_grid, jitter_seed,
+                                                n_steps)
+    if rays_o.shape[0]:
+        cuda_lib.library().call("tn_skip_march_unbounded", *args, cuda_lib.stream_of(rays_o))
+        skip_march_unbounded.launches += 1
+    return k_idx, complete
+
+
+def c_args_unbounded(rays_o, rays_d, marcher, contraction, skip_grid, jitter_seed, n_steps) -> tuple:
+    """(the arguments of the C entry `tn_skip_march_unbounded` before the
+    stream, k_idx, complete, seed), as `c_args_aabb`."""
     _check_unbounded(rays_o, rays_d, contraction, skip_grid, n_steps)
     n_rays = rays_o.shape[0]
     cuda_lib.check_cuda_inputs("skip_march_unbounded", torch.float32, (n_rays, 3), rays_o, rays_d)
     cuda_lib.check_cuda_inputs("skip_march_unbounded", torch.int32, skip_grid.shape, skip_grid)
-    dev = rays_o.device
-    seed = _seed_words(jitter_seed, dev)
+    seed = _seed_words(jitter_seed, rays_o.device)
     c = _unbounded_constants(marcher, skip_grid)
-    k_idx = torch.empty(n_rays, n_steps, dtype=torch.int32, device=dev)
-    complete = torch.empty(n_rays, dtype=torch.bool, device=dev)
-    if n_rays:
-        cuda_lib.library().call(
-            "tn_skip_march_unbounded", rays_o.data_ptr(), rays_d.data_ptr(), skip_grid.data_ptr(),
-            seed.data_ptr() if seed is not None else None, n_rays, skip_grid.shape[0], marcher.n_samples,
-            n_steps, *(float(c[k]) for k in ("step_x", "rng", "near", "x_last", "w_c", "inv_sqrt3", "inv_lip")),
-            k_idx.data_ptr(), complete.data_ptr(), cuda_lib.stream_of(rays_o),
-        )
-        skip_march_unbounded.launches += 1
-    return k_idx, complete
+    k_idx, complete = _outputs(n_rays, n_steps, rays_o.device)
+    return (rays_o.data_ptr(), rays_d.data_ptr(), skip_grid.data_ptr(), seed.data_ptr() if seed is not None else None,
+            n_rays, skip_grid.shape[0], marcher.n_samples, n_steps,
+            *(float(c[k]) for k in ("step_x", "rng", "near", "x_last", "w_c", "inv_sqrt3", "inv_lip")),
+            k_idx.data_ptr(), complete.data_ptr()), k_idx, complete, seed
 
 
 skip_march_unbounded.launches = 0

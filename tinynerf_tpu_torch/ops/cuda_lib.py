@@ -49,6 +49,7 @@ _SIGNATURES = {
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
     "tn_skip_march_unbounded": (_P, _P, _P, _P, _I, _I, _I, _I) + (_F,) * 7 + (_P, _P, _P),
+    "tn_skip_lanes": (_I,),  # returns the lanes per ray both marches take, not an error code
 }
 
 
