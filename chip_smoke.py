@@ -43,7 +43,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    channel counts take its generic path, its `copy_` yardstick timed
    only (torch's cast saturates); all three outputs also on a plane 4
    bytes off a 16-byte boundary (the generic path), and each output's
-   share of its bound printed; and the
+   share of its bound printed; the quad build of K-Planes'
+   `fwd_mode="fusedfine"` fused fine table [513, 513, 96] (its vector path
+   at F = 96, and its generic path from 4 bytes off 16) in bf16, f32 and
+   float8, byte-equal to its plain version and timed beside its bound; and the
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
    jitter, k_idx and complete equal to its plain version's (and the skip
@@ -170,15 +173,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 13. determinism at full width, K-Planes and Cobafa: one deterministic step
    twice from one saved state (loss, every gradient, parameter and Adam
    moment bit-equal), and one 800x800 view served twice (packed on the skip
-   march behind the shell occupancy, the dense fallback), bit-equal.
+   march behind the shell occupancy, the dense fallback), bit-equal;
+14. the fields' other lookup layouts at full width (`LAYOUTS`): K-Planes
+   `lookup_mode` "quad", "mixed", "plain" and `fwd_mode="fusedfine"`,
+   Cobafa "mixed" and "plain".  Each: one deterministic step (2048 rays,
+   f32 compute) against the layout that computes the same values from the
+   same seeded parameters and batch (loss LAYOUT_LOSS_RTOL, each table
+   gradient LAYOUT_GRAD_RTOL_OF_MAX of its max, Cobafa's bit-equal; the
+   fused-fine one 1e-1, and its backward bit-equal to the per-scale
+   layout's for one cotangent, LAYOUT_SAME_BACKWARD) and
+   against itself again (bit-equal); `train()` for LAYOUT_TRAIN_STEPS steps
+   with the layout's options (finite losses; kernel 7 nine times per field
+   call in "quad", three in "fusedfine", never in the others; kernels 4
+   and 5 in every backward; no kernel of another layout); one 800x800 view
+   served (packed on the skip march behind the shell occupancy, the dense
+   fallback), finite, against the reference layout's view (bit-equal where
+   the values are the same, the fused-fine view within the packed-vs-dense
+   limits).
 
-Each of phases 3-13 sets every kernel's launch count to 0 just before it
+Each of phases 3-14 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after (phase 11(a) in each
 rank's process, around `train()`; phase 12 around each tool); the
 comparisons with the plain versions and phase 11's deterministic and
 ungrouped steps are not counted.  The last two lines are a JSON
-record of the kernels (launches summed over phases 3-13, and by phase;
-the float8 quad build in a row of its own) and
+record of the kernels (launches summed over phases 3-14, and by phase;
+the float8 quad build in a row of its own, the fused fine table's builds
+under the quad build's "fine_table") and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no jax, no Pillow and no network.
 """
@@ -569,7 +589,7 @@ def check_training_kernels(dev, results: dict) -> dict:
     n, n_cells, f, nc = 819_200, 512 * 512, 96, 4
     cell_np, zero_np = accumulation_problem(rng, n, n_cells)
     cell = t(cell_np)
-    w_window = table_grad.default_window(dev, n_cells, n, nc * f)
+    w_window = table_grad.default_window(dev, nc * f)
     keys, idx_bits, window_bits, _ = table_grad.window_keys(cell, n_cells, w_window)
     bit_range = dict(begin_bit=idx_bits, end_bit=idx_bits + window_bits)
     out = bitonic.sort_i32(keys, **bit_range)
@@ -781,7 +801,7 @@ def check_fixed_order_kernels(dev, results: dict) -> dict:
     def plain_grads():  # the window sort, then oct_accumulate_plain
         grads = []
         for c, w, g, nc in cases:
-            w_window = table_grad.default_window(dev, nc, n, 8 * g.shape[1], oct_rows=True)
+            w_window = table_grad.default_window(dev, 8 * g.shape[1], oct_rows=True)
             nc_pad = -(-nc // w_window) * w_window
             perm, _ = table_grad.sort_windows(c.to(torch.int32)[None], nc_pad, w_window)
             grads.append(table_grad.oct_accumulate_plain(g, w, c, perm[0], nc_pad)[:nc])
@@ -1006,6 +1026,51 @@ def check_quad_build(dev):
     return {"quad_build": {**entry["bf16"],
                            **{f"f32_out_{k}": v for k, v in entry["f32"].items() if k != "max_abs_err"}},
             "quad_build_fp8": entry["fp8"]}
+
+
+def check_fine_table_build(dev) -> dict:
+    """Kernel 7 on the fused fine table of K-Planes' `fwd_mode="fusedfine"`
+    ([513, 513, 96]: one projection's three scales of 32 upsampled, as
+    `ops/interp.py:fused_fine_table` makes it from seeded planes for each
+    gather type) in bf16, f32 and float8: its vector path and, on a copy 4
+    bytes off a 16-byte boundary, its generic path, both byte-equal to the
+    plain build; timed beside the bound (the f32 table read once, the quad
+    table written once) and the `copy_` yardstick.  Returns the quad
+    build's "fine_table" record."""
+    from tinynerf_tpu_torch.models import make_model
+    from tinynerf_tpu_torch.ops import interp, octbuild
+
+    field = make_model("kplanes", device="meta")[0]
+    gen = torch.Generator(dev).manual_seed(5)
+    planes = [torch.rand(scale[0].shape, device=dev, generator=gen) for scale in field.planes]
+    out = {}
+    for out_dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.float8_e4m3fn, "fp8")):
+        fine = interp.fused_fine_table(planes, out_dtype)
+        if tuple(fine.shape) != (513, 513, 96) or not octbuild.quad_vector_loads(fine):
+            raise AssertionError(f"fused fine table {tuple(fine.shape)} does not take the vector path")
+        plain = octbuild.build_quad_plain(fine, out_dtype)
+        off = torch.empty(1 + fine.numel(), device=dev)[1:].view(fine.shape)
+        off.copy_(fine)
+        if octbuild.quad_vector_loads(off):
+            raise AssertionError("a table 4 bytes off a 16-byte boundary was given the vector path")
+        for path, table in (("vector", fine), ("generic", off)):
+            if not _bytes_equal(octbuild.build_quad(table, out_dtype), plain):
+                raise AssertionError(f"quad build ({label}) of the fused fine table, {path} path, is not "
+                                     f"byte-equal to plain")
+        del plain
+        print(f"kernel quad build {label} of the fused fine table [513, 513, 96]: vector and generic paths "
+              f"byte-equal to the plain build")
+        out_bytes = 512 * 512 * 4 * 96 * torch.empty((), dtype=out_dtype).element_size()
+        t = time_pair(f"kernel quad build {label}, the fused fine table [513, 513, 96]",
+                      lambda: octbuild.build_quad(fine, out_dtype), lambda: octbuild.build_quad_plain(fine, out_dtype),
+                      bound(nbytes(fine) + out_bytes), lambda: quad_yardstick(fine, out_dtype))
+        t["generic_device_ms"] = device_ms(lambda: octbuild.build_quad(off, out_dtype))
+        _share(f"kernel quad build {label}, the fused fine table", t)
+        print(f"kernel quad build {label}, the fused fine table, generic path: device "
+              f"{_ms(t['generic_device_ms'])}")
+        out[label] = dict(max_abs_err=0.0, **t)
+        del fine, off
+    return {"fine_table": out}
 
 
 def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march_args, round_flops: int,
@@ -1992,6 +2057,252 @@ def run_determinism(tmp: str, card: str) -> dict:
     return launches
 
 
+# phase 14, the fields' other lookup layouts at full width: each layout
+# against the layout that computes the same values from the same seeded
+# parameters and batch: K-Planes' default (fused) lookup with the f32
+# table-gradient payload (f32 gathers for "plain", which gathers f32), its
+# per-scale forward for "fusedfine" (compared at f32 gathers, where neither
+# rounds a midpoint, and the f32 payload, whose rounding a last-bit
+# difference of a cotangent cannot flip; trained and served at the
+# defaults: bf16 gathers, the bf16 payload), Cobafa's oct
+# lookup (f32 gathers for "plain").  name: (method, the layout's options,
+# the reference's options, options of both for the comparison)
+LAYOUTS = {
+    "kplanes_quad": ("kplanes", dict(lookup_mode="quad"), dict(bwd_impl="sorted"), {}),
+    "kplanes_mixed": ("kplanes", dict(lookup_mode="mixed"), dict(bwd_impl="sorted"), {}),
+    "kplanes_plain": ("kplanes", dict(lookup_mode="plain"), dict(gather_dtype="float32", bwd_impl="sorted"), {}),
+    "kplanes_fusedfine": ("kplanes", dict(fwd_mode="fusedfine"), {},
+                          dict(gather_dtype="float32", bwd_impl="sorted")),
+    "cobafa_mixed": ("cobafa", dict(lookup_mode="mixed"), {}, {}),
+    "cobafa_plain": ("cobafa", dict(lookup_mode="plain"), dict(gather_dtype="float32"), {}),
+}
+LAYOUT_TRAIN_STEPS = 8
+# the step against its reference, f32 compute: the forwards gather the same
+# rounded corners and lerp them in the same order (K-Planes' fused-fine
+# midpoints at f32 round once more), so the losses agree to f32 sums; the
+# table gradients are the same terms summed in another order (per plane
+# against the fine grid and its pullback; Cobafa's the same oct route):
+# each table leaf to 1e-4 of its max, Cobafa's bit-equal.  The served view
+# of the same values is bit-equal; the fused-fine view (bf16, its
+# midpoints rounded once more) within the packed-vs-dense limits
+LAYOUT_LOSS_RTOL, LAYOUT_GRAD_RTOL_OF_MAX = 1e-6, 1e-4
+LAYOUT_EXACT = ("cobafa_mixed", "cobafa_plain")
+# the fused-fine forward differs from the per-scale one in the last f32
+# bits, so the step's cotangents do (the decoders' gradients by 1.4e-5 of
+# their max), and the plane gradients, small sums of many such terms, by
+# 3.0e-2 of theirs (PERF.md §6, the lookup layouts): held to 1e-1 there, and the backward
+# itself, the per-scale one, bit-equal for one cotangent per piece of the
+# lookup alone (LAYOUT_SAME_BACKWARD)
+LAYOUT_GRAD_RTOL_OF_MAX_FUSEDFINE = 1e-1
+LAYOUT_SAME_BACKWARD = ("kplanes_fusedfine",)
+LAYOUT_VIEW_LIMITS = {"kplanes_fusedfine": (PACKED_DENSE_MAX_ABS, PACKED_DENSE_MEAN_ABS)}
+# the kernel 7 builds per field call: nine planes, or one fused fine table
+# per projection; the K-Planes backwards: one sort and one accumulation per
+# plane (quad, mixed, plain) or per step (fused); Cobafa's one per grid
+QUAD_BUILDS_PER_CALL = {"kplanes_quad": 9, "kplanes_fusedfine": 3}
+BACKWARD_LAUNCHES_PER_STEP = {"kplanes_quad": 9, "kplanes_mixed": 9, "kplanes_plain": 9, "kplanes_fusedfine": 1,
+                              "cobafa_mixed": 7, "cobafa_plain": 7}
+
+
+def _layout_renderer(method: str, options: dict, pool):
+    """A full-width renderer of seeded parameters (the same for every
+    layout) with the field options set."""
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+
+    cfg = TrainConfig(method=method, seed=0)
+    renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda")
+    for k, v in options.items():
+        setattr(renderer.field, k, v)
+    return cfg, renderer
+
+
+def _layout_step(method: str, options: dict, pool, batch) -> dict:
+    """One deterministic step at f32 compute, the all-occupied grid: the
+    loss and every gradient leaf."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg, renderer = _layout_renderer(method, options, pool)
+    renderer.compute_dtype = torch.float32
+    step = make_train_step(renderer, make_optimizer(cfg, renderer), cfg, cfg.batch_size, deterministic=True)
+    m = step(renderer.occupancy.init_state("cuda"), *batch)
+    torch.cuda.synchronize()
+    out = {"loss": m["loss"].clone()}
+    out.update({str(path): g.clone() for path, g in tree_leaves_with_path(m["grads"])})
+    del step, renderer
+    return out
+
+
+def _same_fused_backward(pool, gen) -> bool:
+    """The K-Planes fused lookup alone (`multiscale_lookup_multiproj`, f32
+    gathers, the f32 payload) at a training cap of random points, one
+    cotangent per piece: whether the table gradients under the per-scale
+    and the fused-fine forwards are bit-equal (one backward serves both)."""
+    from tinynerf_tpu_torch.models.kplanes import DIMENSION_PAIRS
+    from tinynerf_tpu_torch.ops.interp import FWD_IMPLS, multiscale_lookup_multiproj
+    from tinynerf_tpu_torch.train import TrainConfig
+
+    _, renderer = _layout_renderer("kplanes", {}, pool)
+    n = TrainConfig().sample_cap
+    x = torch.rand(n, 3, device="cuda", generator=gen) * 2.0 - 1.0
+    tables = [[scale[p] for scale in renderer.field.planes] for p in range(len(DIMENSION_PAIRS))]
+    coords = [x[:, [i, j]] for i, j in DIMENSION_PAIRS]
+    cots = [torch.randn(n, t.shape[-1], device="cuda", generator=gen) for ts in tables for t in ts]
+    grads = []
+    for fwd_impl in FWD_IMPLS:
+        out = multiscale_lookup_multiproj(tables, coords, torch.float32, "sorted", fwd_impl=fwd_impl)
+        loss = sum((piece * c).sum() for piece, c in zip((q for proj in out for q in proj), cots))
+        grads.append(torch.autograd.grad(loss, [t for ts in tables for t in ts]))
+    return all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def _layout_view(method: str, options: dict, pool, poses, tmp: str) -> np.ndarray:
+    """One 800x800 view served by `infer` (packed on the skip march behind
+    the shell occupancy, the dense fallback) from the seeded parameters."""
+    from tinynerf_tpu_torch.train import InferStats, infer, make_render_chunk, make_render_chunk_packed
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    cfg, renderer = _layout_renderer(method, options, pool)
+    shell = make_shell_occupancy(renderer.occupancy, device="cuda")
+    st = InferStats()
+    infer(renderer, shell, poses, [0], tmp, "layout", chunk=cfg.batch_size,
+          render_chunk_fn=make_render_chunk(renderer),
+          packed_fn=make_render_chunk_packed(renderer, cfg.batch_size * cfg.eval_samples_per_ray, march="skip"),
+          stats=st, grid_args=(renderer.skip_grid(shell),), write=False)
+    del renderer
+    return st.images[0]
+
+
+def _layout_kernels(name: str, method: str) -> tuple:
+    """The kernels a layout's train() must launch: the renderer's, kernels
+    4 and 5 (Cobafa's two largest grids by key and value, its oct
+    accumulation and fold) and kernel 7 where the layout builds tables."""
+    table = ("sort", "sort_pairs", "oct_accumulate", "oct_fold") if method == "cobafa" else ("sort", "accumulate")
+    return ("segscan", "segscan_bwd", "segment_sum") + table + (
+        ("quad_build",) if name in QUAD_BUILDS_PER_CALL else ())
+
+
+def _layout_absent(name: str, method: str) -> tuple:
+    if method == "cobafa":
+        return ("oct_build", "accumulate", "quad_build")
+    return ("oct_build", "oct_accumulate", "oct_fold") + (() if name in QUAD_BUILDS_PER_CALL else ("quad_build",))
+
+
+def run_layouts(tmp: str, card: str) -> dict:
+    """Phase 14: K-Planes "quad", "mixed", "plain" and "fusedfine" and
+    Cobafa "mixed" and "plain" at full width (TrainConfig defaults, 2048
+    rays drawn over four generated 800x800 views).  Each: its deterministic
+    step against the reference layout's (LAYOUTS) and against itself again
+    (bit-equal); `train()` for LAYOUT_TRAIN_STEPS steps through the
+    registry with the layout's options (counts zeroed just before, read
+    just after): a finite loss, kernel 7 as many times per field call as
+    the layout builds tables, kernels 4 and 5 in every backward, and no
+    kernel of another layout; one 800x800 view served, finite, against the
+    reference layout's view of the same parameters (LAYOUT_VIEW_LIMITS).
+    Returns label ->
+    kernel -> launches."""
+    import tinynerf_tpu_torch.train.loop as loop_mod
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.models import CobafaFeatureField, KPlanesFeatureField
+    from tinynerf_tpu_torch.train import TrainConfig, train
+    from tinynerf_tpu_torch.utils import make_spheres_data, make_spheres_pose_set
+
+    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    poses = make_spheres_pose_set(n_views=1, res=800, seed=0)
+    gen = torch.Generator("cuda").manual_seed(11)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:TrainConfig().batch_size]
+    batch = tuple(a[rays].contiguous() for a in pool.arrays())
+    launches, views = {}, {}
+    for name, (method, options, ref_options, compare_at) in LAYOUTS.items():
+        t0 = time.perf_counter()
+        # the step against the reference's, and against itself
+        ours = _layout_step(method, {**options, **compare_at}, pool, batch)
+        again = _layout_step(method, {**options, **compare_at}, pool, batch)
+        ref = _layout_step(method, {**ref_options, **compare_at}, pool, batch)
+        not_repeated = [k for k in ours if not torch.equal(ours[k], again[k])]
+        loss_err = abs(float(ours["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+        tables = [k for k in ours if any(t in k for t in ("planes", "basis", "coef"))]
+        grad_err = max(float((ours[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+                       for k in tables)
+        exact = name in LAYOUT_EXACT
+        grad_rtol = 0.0 if exact else (LAYOUT_GRAD_RTOL_OF_MAX_FUSEDFINE if name in LAYOUT_SAME_BACKWARD
+                                       else LAYOUT_GRAD_RTOL_OF_MAX)
+        print(f"phase 14 {name}: deterministic step [2048 rays x 400, f32] against {ref_options or 'the default'}"
+              f"{' at ' + str(compare_at) if compare_at else ''}: loss {float(ours['loss']):.9f} vs "
+              f"{float(ref['loss']):.9f} (relative {loss_err:.3e}, limit {0.0 if exact else LAYOUT_LOSS_RTOL:g}), "
+              f"{len(tables)} table gradients: max |diff| / leaf max {grad_err:.3e} "
+              f"(limit {grad_rtol:g}); "
+              f"the step again: {len(not_repeated)} of {len(ours)} tensors not bit-equal [{card}]")
+        if not_repeated:
+            raise AssertionError(f"phase 14 {name}: the step does not repeat itself bit for bit: {not_repeated[:8]}")
+        if not (loss_err <= (0.0 if exact else LAYOUT_LOSS_RTOL) and grad_err <= grad_rtol):
+            raise AssertionError(f"phase 14 {name}: the step disagrees with its reference layout's")
+        del ours, again, ref
+        if name in LAYOUT_SAME_BACKWARD:
+            same = _same_fused_backward(pool, gen)
+            print(f"phase 14 {name}: the fused lookup's table gradients for one cotangent per piece at "
+                  f"{TrainConfig().sample_cap} random points, bit-equal to the per-scale forward's: {same} [{card}]")
+            if not same:
+                raise AssertionError(f"phase 14 {name}: its backward is not the per-scale forward's")
+
+        # train() through the registry with the layout's options
+        field_cls = KPlanesFeatureField if method == "kplanes" else CobafaFeatureField
+        orig_make, orig_apply = loop_mod.make_model, field_cls.apply_pieces
+        calls = [0]
+
+        def apply_pieces(self, *a, **kw):
+            calls[0] += 1
+            return orig_apply(self, *a, **kw)
+
+        cfg = TrainConfig(method=method, output=f"{tmp}/{name}", steps=LAYOUT_TRAIN_STEPS, seed=0)
+        loop_mod.make_model = lambda m, **kw: orig_make(m, **kw, **options)
+        field_cls.apply_pieces = apply_pieces
+        try:
+            zero_counts()
+            out = train(cfg, pool, device="cuda")
+            counts = read_counts(f"phase 14 {name} train()", _layout_kernels(name, method),
+                                 _layout_absent(name, method))
+        finally:
+            loop_mod.make_model, field_cls.apply_pieces = orig_make, orig_apply
+        launches[f"14_{name}_train"] = counts
+        losses = np.array([m.loss for m in out["train_metrics"]])
+        field = out["renderer"].field
+        ms = out["elapsed_s"] / LAYOUT_TRAIN_STEPS * 1e3
+        del out
+        want_builds = QUAD_BUILDS_PER_CALL.get(name, 0) * calls[0]
+        sorts = counts["sort"] + counts["sort_pairs"]
+        accums = counts["accumulate"] + counts["oct_accumulate"]
+        per_step = BACKWARD_LAUNCHES_PER_STEP[name] * LAYOUT_TRAIN_STEPS
+        print(f"phase 14 {name} train(): {LAYOUT_TRAIN_STEPS} steps, losses {np.round(losses, 5).tolist()}, "
+              f"{ms:.2f} ms/step (host clock, occupancy update at step 0 included), {calls[0]} field calls, "
+              f"{counts['quad_build']} quad builds (want {want_builds}), {sorts} sorts and {accums} "
+              f"accumulations (want at least {per_step}) [{card}]")
+        if not (losses.shape == (LAYOUT_TRAIN_STEPS,) and np.isfinite(losses).all()):
+            raise AssertionError(f"phase 14 {name}: train() losses {losses}")
+        if any(getattr(field, k) != v for k, v in options.items()):
+            raise AssertionError(f"phase 14 {name}: train() did not build the field with {options}")
+        if counts["quad_build"] != want_builds or sorts < per_step or accums < per_step:
+            raise AssertionError(f"phase 14 {name}: kernel launches do not match the layout: {counts}")
+        del field
+
+        # one view, beside the reference layout's of the same parameters
+        view = _layout_view(method, options, pool, poses, tmp)
+        key = (method, tuple(sorted(ref_options.items())))
+        if key not in views:
+            views[key] = _layout_view(method, ref_options, pool, poses, tmp)
+        diff = np.abs(view - views[key])
+        max_abs, mean_abs = LAYOUT_VIEW_LIMITS.get(name, (0.0, 0.0))
+        print(f"phase 14 {name}: one 800x800 view served (packed on the skip march, dense fallback): max abs "
+              f"{diff.max():.3e}, mean abs {diff.mean():.3e} from the reference layout's view (limits {max_abs:g}, "
+              f"{mean_abs:g}); {time.perf_counter() - t0:.1f} s for the layout [{card}]")
+        if not (view.shape == (800, 800, 3) and np.isfinite(view).all()):
+            raise AssertionError(f"phase 14 {name}: the served view is not finite or not 800x800")
+        if not (diff.max() <= max_abs and diff.mean() <= mean_abs):
+            raise AssertionError(f"phase 14 {name}: the served view disagrees with the reference layout's")
+        torch.cuda.empty_cache()
+    return launches
+
+
 # phase 12, the port's four tools through their main(argv), as a user runs
 # them.  (c) trains K-Planes with the JAX tool's defaults (spheres, 12 views
 # at 100, batch 1024 x 128, f32) for QUALITY_STEPS steps: the occupancy
@@ -2162,6 +2473,7 @@ def main() -> None:
         check_fixed_order_kernels(dev, kern)
         kern.update(check_oct_build(dev))
         kern.update(check_quad_build(dev))
+        kern["quad_build"].update(check_fine_table_build(dev))
         kern.update(check_skip_march(dev))
         kern.update(check_skip_march_unbounded(dev, ns_root))
         for key in ("skip_march", "skip_march_unbounded"):
@@ -2177,6 +2489,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(run_determinism(tmp, card))
         print(f"phase 13 (determinism): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(run_layouts(tmp, card))
+        print(f"phase 14 (layouts): {time.perf_counter() - t0:.1f} s")
 
     # the quad build's counter counts every launch; its float8 launches
     # have a row of their own

@@ -160,7 +160,7 @@ def test_oct_table_grad_plain_matches_jax_oct_bwd(case, monkeypatch):
     ref = np.asarray(ref)
     np.testing.assert_allclose(t.grad.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
     n_cells = int(np.prod([r - 1 for r in shape[:3]]))
-    window = w_window or table_grad.default_window(torch.device("cpu"), n_cells, n, 8 * shape[-1], False)
+    window = w_window or table_grad.default_window(torch.device("cpu"), 8 * shape[-1], False)
     fits = table_grad.window_keys_fit(-(-n_cells // window) * window, window, n)
     assert calls["pairs"] == (0 if fits else 1)
     assert fits == (case != "coef_l6_33_key_bits")

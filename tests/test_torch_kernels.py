@@ -3,9 +3,12 @@ the wrappers' device dispatch: the packed and dense weights and their
 backwards, the per-ray segment sum, the radix sort (keys, and key-value
 pairs), the windowed table-gradient accumulation, Cobafa's oct gradient
 (the accumulation through the sort's permutation) and its fold onto the
-grid, the oct and quad cell-pack builds and both skip marches (AABB and
+grid, the oct and quad cell-pack builds (the quad build also at the
+fused fine table's 96 channels) and both skip marches (AABB and
 unbounded); and that a training step and a served chunk repeat themselves
-bit for bit.
+bit for bit, in every lookup layout of both fields, and that a K-Planes
+step at batch 8192 takes the key-value sort and the accumulation kernel
+and no `index_add`.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -450,7 +453,7 @@ def test_windowed_accumulate_kernel_matches_plain(cuda_device, payload):
         g, w4, cell = (x.to(cuda_device) for x in _accum_case(rng, p, n, f, n_cells, skew))
         # the JAX package's window, and the one the trainer picks on the card
         # (64 cells at 96 features: the tile fits one block, keys of 32 bits)
-        for w_window in sorted({256, table_grad.default_window(cuda_device, n_cells, n, 4 * f)}):
+        for w_window in sorted({256, table_grad.default_window(cuda_device, 4 * f)}):
             n_cells_pad = -(-n_cells // w_window) * w_window
             perm, offsets = table_grad.sort_by_window(cell, n_cells_pad, w_window)
             for pi in range(p):  # the partition groups every window's samples
@@ -820,7 +823,29 @@ def test_quad_build_kernel_tables_off_16_bytes(cuda_device, out_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(17, 33, 32), (9, 9, 12), (5, 40, 3)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("out_dtype", QUAD_OUT)
+@pytest.mark.parametrize("f", [64, 96])
+def test_quad_build_kernel_wide_rows(cuda_device, out_dtype, f):
+    """F = 64 and 96 (the fused fine table of three 32-channel scales),
+    the vector path and, from a buffer's second value, the generic path:
+    bit-equal as bytes to the plain build, float8 over values beyond its
+    range too."""
+    rng = np.random.default_rng(f)
+    shape = (17, 33, f)
+    table = T((rng.normal(size=shape) * 2.0 ** rng.integers(-12, 10, shape)).astype(np.float32)).to(cuda_device)
+    assert octbuild.quad_vector_loads(table)
+    flat = torch.empty(1 + table.numel(), device=cuda_device)
+    off = flat[1:].view(shape)
+    off.copy_(table)
+    assert not octbuild.quad_vector_loads(off)
+    for t in (table, off):
+        out, plain = _quad_case(t, out_dtype)
+        assert _bytes_equal(out, plain), (tuple(t.shape), t.data_ptr() % 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(17, 33, 32), (9, 9, 12), (5, 40, 3), (9, 9, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
 def test_quad_build_kernel_float8_boundaries_at_every_chunk_position(cuda_device, shape):
     """JAX's float8 boundaries (+-448, +-464, +-464.0001, +-inf, NaN, 2^-10)
     at every position of a 16-value output chunk: table value k is boundary
@@ -981,8 +1006,17 @@ def test_skip_march_unbounded_kernel_ray_counts_and_grids(cuda_device, n_rays, k
 # run to run); full-width fields at the TrainConfig defaults (2048 rays x
 # 400 samples, bf16 compute), K-Planes with both table-gradient payloads
 
-DET_FIELDS = {"kplanes_bf16": ("kplanes", "auto"), "kplanes_f32": ("kplanes", "sorted"),
-              "cobafa": ("cobafa", None), "vanilla": ("vanilla", None)}
+# and, besides the defaults, every other lookup layout of both fields
+# (each backward through the window sort and the accumulation kernels)
+DET_FIELDS = {"kplanes_bf16": ("kplanes", {}), "kplanes_f32": ("kplanes", dict(bwd_impl="sorted")),
+              "kplanes_scatter": ("kplanes", dict(bwd_impl="scatter")),
+              "kplanes_quad": ("kplanes", dict(lookup_mode="quad")),
+              "kplanes_mixed": ("kplanes", dict(lookup_mode="mixed")),
+              "kplanes_mixed_bf16_scatter": ("kplanes", dict(lookup_mode="mixed", scatter_dtype="bfloat16")),
+              "kplanes_plain": ("kplanes", dict(lookup_mode="plain")),
+              "kplanes_fusedfine": ("kplanes", dict(fwd_mode="fusedfine")),
+              "cobafa": ("cobafa", {}), "cobafa_mixed": ("cobafa", dict(lookup_mode="mixed")),
+              "cobafa_plain": ("cobafa", dict(lookup_mode="plain")), "vanilla": ("vanilla", {})}
 DET_RUNS = 3
 
 
@@ -998,14 +1032,14 @@ def det_pool():
     return pool, tuple(a[order].contiguous() for a in pool.arrays())
 
 
-def _det_world(name, pool):
-    from tinynerf_tpu_torch.train import TrainConfig, build_renderer, make_optimizer
+def _det_world(name, pool, **cfg_kw):
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
 
-    method, bwd_impl = DET_FIELDS[name]
-    cfg = TrainConfig(method=method, seed=0)
+    method, options = DET_FIELDS[name]
+    cfg = TrainConfig(method=method, seed=0, **cfg_kw)
     renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda")
-    if bwd_impl is not None:
-        renderer.field.bwd_impl = bwd_impl
+    for k, v in options.items():
+        setattr(renderer.field, k, v)
     return cfg, renderer
 
 
@@ -1030,7 +1064,6 @@ def test_train_step_repeats_bit_for_bit(det_pool, name, march):
     loss, every gradient, and every parameter and moment after the update
     bit-equal.  Dense: the all-occupied grid, 2048 rays; skip: the shell
     occupancy (cells to skip), 16 x 2048 rays."""
-    from tinynerf_tpu_torch.convert import tree_leaves_with_path
     from tinynerf_tpu_torch.train import make_optimizer, make_train_step
     from tinynerf_tpu_torch.utils import make_shell_occupancy
 
@@ -1045,6 +1078,18 @@ def test_train_step_repeats_bit_for_bit(det_pool, name, march):
         n_cand = cfg.batch_size
         args = (renderer.occupancy.init_state("cuda"),)
     step = make_train_step(renderer, opt, cfg, n_cand, deterministic=True, march=march)
+    runs = _repeated_steps(step, opt, args, arrays)
+    assert float(runs[0]["loss"]) > 0 and np.isfinite(float(runs[0]["loss"]))
+    assert any(float(v.abs().max()) > 0 for k, v in runs[0].items() if k.startswith("grad "))
+    diffs = _differences(runs)
+    assert not diffs, f"{name} {march}: {len(diffs)} tensors differ run to run: {diffs[:12]}"
+
+
+def _repeated_steps(step, opt, args, arrays) -> list:
+    """DET_RUNS runs of `step` from the optimizer's state after a first
+    step: the loss, every gradient, parameter and moment of each."""
+    from tinynerf_tpu_torch.convert import tree_leaves_with_path
+
     step(*args, *arrays)
     start = [t.detach().clone() for t in (*opt.params, *opt.mu, *opt.nu)]
     count = opt.count
@@ -1061,15 +1106,50 @@ def test_train_step_repeats_bit_for_bit(det_pool, name, march):
         for label, tensors in (("param", opt.params), ("mu", opt.mu), ("nu", opt.nu)):
             run.update({f"{label} {path}": t.detach().clone() for path, t in zip(opt.paths, tensors)})
         runs.append(run)
-    assert float(runs[0]["loss"]) > 0 and np.isfinite(float(runs[0]["loss"]))
-    assert any(float(v.abs().max()) > 0 for k, v in runs[0].items() if k.startswith("grad "))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd_impl", ["auto", "scatter"])
+def test_kplanes_batch_8192_step_takes_the_kernels_and_repeats(det_pool, monkeypatch, bwd_impl):
+    """A full-width K-Planes step at batch_size=8192 (cap 3,276,800: 4096
+    windows of 64 cells and 22 index bits pass 32 key bits) launches the
+    key-value sort and the accumulation kernel, calls no `index_add` on a
+    CUDA tensor, and repeats bit for bit; "scatter" (JAX's f32 scatter
+    values) takes the same kernels with the f32 payload."""
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+
+    pool, arrays = det_pool
+    cfg, renderer = _det_world("kplanes_bf16", pool, batch_size=8192)
+    renderer.field.bwd_impl = bwd_impl
+    calls = []
+    for name in ("index_add_", "index_add"):
+        orig = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=orig, _name=name, **kw):
+            if self.is_cuda:
+                calls.append(_name)
+            return _orig(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    opt = make_optimizer(cfg, renderer)
+    step = make_train_step(renderer, opt, cfg, cfg.batch_size, deterministic=True)
+    batch = tuple(a[: cfg.batch_size] for a in arrays)
+    cuda_lib.zero_launch_counts()
+    runs = _repeated_steps(step, opt, (renderer.occupancy.init_state("cuda"),), batch)
+    counts = cuda_lib.launch_counts()
+    assert counts["sort_pairs"] >= 1 + DET_RUNS and counts["accumulate"] >= 1 + DET_RUNS, counts
+    assert counts["sort"] == 0, counts  # the packed keys do not fit: no packed-key sort
+    assert not calls, f"index_add on a CUDA tensor: {calls[:4]}"
+    assert np.isfinite(float(runs[0]["loss"]))
+    assert any(float(v.abs().max()) > 0 for k, v in runs[0].items() if k.startswith("grad") and "planes" in k)
     diffs = _differences(runs)
-    assert not diffs, f"{name} {march}: {len(diffs)} tensors differ run to run: {diffs[:12]}"
+    assert not diffs, f"batch 8192 ({bwd_impl}): {len(diffs)} tensors differ run to run: {diffs[:12]}"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("march", ["dense", "skip"])
-@pytest.mark.parametrize("name", ["kplanes_bf16", "cobafa", "vanilla"])
+@pytest.mark.parametrize("name", ["kplanes_bf16", "kplanes_fusedfine", "cobafa", "cobafa_plain", "vanilla"])
 def test_served_chunk_repeats_bit_for_bit(det_pool, name, march):
     """One 2048-ray packed serving chunk (64 samples per ray, the shell
     occupancy), rendered DET_RUNS times: colors, flags and counts bit-equal."""

@@ -62,7 +62,7 @@ def _payload_route(g, w, cell, n_cells_pad, w_window):
 def test_oct_accumulate_plain_bit_equal_to_payload_route(case):
     shape, n, w_window = OCT_CASES[case]
     n_cells = int(np.prod([r - 1 for r in shape[:3]]))
-    w_window = w_window or table_grad.default_window(torch.device("cpu"), n_cells, n, 8 * shape[-1], oct_rows=True)
+    w_window = w_window or table_grad.default_window(torch.device("cpu"), 8 * shape[-1], oct_rows=True)
     n_cells_pad = -(-n_cells // w_window) * w_window
     cell, w, g = _oct_inputs(shape, n, 3)
     cell32 = cell.to(torch.int32)
@@ -152,12 +152,12 @@ def test_oct_window_and_sort_rule_at_full_width():
         r0, r1, r2, f = p.shape
         n_cells = (r0 - 1) * (r1 - 1) * (r2 - 1)
         for dev in ("cpu", "cuda"):
-            assert table_grad.default_window(torch.device(dev), n_cells, n, 8 * f, oct_rows=True) == 256
+            assert table_grad.default_window(torch.device(dev), 8 * f, oct_rows=True) == 256
         if not table_grad.window_keys_fit(-(-n_cells // 256) * 256, 256, n):
             pairs.append(r0)
     assert sorted(pairs) == [108, 128]
     # K-Planes' rule is the one it had: windows of 64 cells on the card
-    assert table_grad.default_window(torch.device("cuda"), 512 * 512, n, 4 * 96) == 64
+    assert table_grad.default_window(torch.device("cuda"), 4 * 96) == 64
 
 
 def test_oct_wrappers_take_cpu_or_cuda_tensors_only():

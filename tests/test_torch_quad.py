@@ -186,7 +186,7 @@ def fast_div(x: int, d: int) -> int:
 
 def build_quad_blocks(table: np.ndarray, out_dtype, band: int, lines: int, vec: bool) -> np.ndarray:
     """The kernel's grid over one f32 table [r0, r1, F].  Vector path (F =
-    32): block (j band, i band) stages table lines i0 .. i0 + lines from
+    32, 64 or 96): block (j band, i band) stages table lines i0 .. i0 + lines from
     cell j0 on (runs of (band + 1) F values, float4 by float4, padded
     apart), then copies whole 16-byte chunks of its rows from there, each
     from one corner pair's run.  Generic path: a block per i and band of j,
@@ -212,7 +212,7 @@ def build_quad_blocks(table: np.ndarray, out_dtype, band: int, lines: int, vec: 
                         if ch == f:
                             ch, corner = 0, corner + 1
         return out.reshape(m0 * m1, 4 * f)
-    assert f == 32
+    assert f in VECTOR_F
     run4 = (band + 1) * f // 4
     nbytes = run4 * 4 * size
     nbytes += (64 + 128 - nbytes % 128) % 128
@@ -244,10 +244,13 @@ def build_quad_blocks(table: np.ndarray, out_dtype, band: int, lines: int, vec: 
     return out.reshape(m0 * m1, 4 * f)
 
 
-# F = 32 (the vector path's width) square and not, then other F (the
+# the vector path's widths: every K-Planes plane (32) and the fused fine
+# table of three scales (96)
+VECTOR_F = (32, 64, 96)
+# F = 32 square and not, the other vector widths, then other F (the
 # generic path only)
-MODEL_SHAPES = [(9, 9, 32), (5, 17, 32), (17, 4, 32), (5, 7, 12), (6, 5, 4), (4, 6, 8), (5, 7, 3), (2, 2, 2),
-                (9, 17, 6)]
+MODEL_SHAPES = [(9, 9, 32), (5, 17, 32), (17, 4, 32), (5, 9, 96), (4, 6, 64), (5, 7, 12), (6, 5, 4), (4, 6, 8),
+                (5, 7, 3), (2, 2, 2), (9, 17, 6)]
 
 
 @pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -264,7 +267,7 @@ def test_quad_kernel_model_bit_equal_to_plain_and_jax(shape, out_dtype):
     ref = np.asarray(joctbuild.build_quad_ref(jnp.asarray(table), jdt[out_dtype])).view(BITS[out_dtype])
     np.testing.assert_array_equal(plain_bits, ref)
     launch = {(1, 1), (3, 2), (octbuild.QUAD_BAND, octbuild.QUAD_LINES)}
-    for vec in (True, False) if shape[2] == 32 else (False,):
+    for vec in (True, False) if shape[2] in VECTOR_F else (False,):
         for band, lines in sorted(launch):
             np.testing.assert_array_equal(build_quad_blocks(table, out_dtype, band, lines, vec), plain_bits)
 

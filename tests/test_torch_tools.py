@@ -15,10 +15,13 @@ the CPU at a tiny size, against the JAX package on the same inputs.
     `--march skip`, the skip march's emitted samples and complete fraction,
     JAX's exactly for the same rays and jitter words;
   * quality_run: the `TrainConfig` that `tools/quality_run.py` builds from
-    the same flags, field by field; the JAX tool's line formats; a loss
-    that falls over a few steps;
-  * profile_field: every piece of both fields timed, and Cobafa's sorted
-    oct gradient within 1e-5 of the `index_add_` it replaced;
+    the same flags, field by field, and the field options its registry
+    wrapper gives the field (`--lookup`, `--fwd-mode`, `--gather-dtype`,
+    `--init-range`); the JAX tool's line formats; a loss that falls over a
+    few steps; a few steps in each lookup layout;
+  * profile_field: every piece of both fields timed, in each layout, and
+    Cobafa's sorted oct gradient within 1e-5 of the `index_add_` it
+    replaced;
   * analyze_runs: the run counts of the JAX tool's table, exactly, on the
     points the JAX tool marched (fed to the port's packing and counting:
     the two packages' jitter draws differ).
@@ -305,3 +308,109 @@ def test_quality_run_matmul_precision_flag(tmp_path, capsys):
     assert got["matmul_precision"] == "medium" and len(got["losses"]) == 2
     assert "deviations=[matmul=medium]" in capsys.readouterr().out
     assert torch.get_float32_matmul_precision() == before
+
+
+LAYOUT_FLAGS = {
+    "quad": ["--lookup", "quad"],
+    "mixed": ["--lookup", "mixed", "--gather-dtype", "float8"],
+    "plain": ["--lookup", "plain", "--init-range", "0.5,1.5"],
+    "fusedfine": ["--fwd-mode", "fusedfine", "--bwd-mode", "scatter"],
+    "cobafa_mixed": ["--method", "cobafa", "--lookup", "mixed"],
+    "cobafa_plain": ["--method", "cobafa", "--lookup", "plain", "--gather-dtype", "float32"],
+}
+FIELD_OPTION_NAMES = ("lookup_mode", "fwd_mode", "gather_dtype", "scatter_dtype", "init_range")
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUT_FLAGS))
+def test_quality_run_layout_options_match_jax_tool(layout, monkeypatch, tmp_path):
+    """The field the JAX tool's registry wrapper builds (caught where the
+    tool calls `train`) and the one the port tool's wrapper builds, option
+    by option, and their `TrainConfig`s field by field."""
+    import tinynerf_tpu.models.registry as jregistry
+    import tinynerf_tpu.train as jtrain
+    import tinynerf_tpu.train.loop as jloop_mod
+    import tinynerf_tpu.utils.fixtures as jfixtures
+    import tinynerf_tpu_torch.models.registry as registry
+
+    caught = {}
+
+    class Caught(Exception):
+        pass
+
+    def fake_train(cfg, *a, **kw):
+        caught["cfg"] = cfg
+        caught["field"] = jloop_mod.make_model(cfg.method)[0]
+        raise Caught
+
+    real_scene = jfixtures.make_synthetic_scene
+    monkeypatch.setattr(jtrain, "train", fake_train)
+    monkeypatch.setattr(jfixtures, "make_synthetic_scene",
+                        lambda root, n_train, n_test, res, kind: real_scene(root, n_train=1, n_test=1, res=8, kind=kind))
+    # the JAX tool replaces both without restoring them: restored at teardown
+    monkeypatch.setattr(jregistry, "make_model", jregistry.make_model)
+    monkeypatch.setattr(jloop_mod, "make_model", jloop_mod.make_model)
+    monkeypatch.setattr(sys, "argv", ["quality_run.py", *LAYOUT_FLAGS[layout]])
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    import quality_run as jtool
+
+    with pytest.raises(Caught):
+        jtool.main()
+    args = quality_run_torch.parse_args(LAYOUT_FLAGS[layout])
+    ours = quality_run_torch.make_config(args, tmp_path / "exp")
+    ref = caught["cfg"]
+    for f in dataclasses.fields(ref):
+        if f.name != "output":
+            assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+    field = quality_run_torch.field_maker(args, registry.make_model)(ours.method, device="meta")[0]
+    jfield = caught["field"]
+    compared = [n for n in FIELD_OPTION_NAMES if hasattr(jfield, n) and hasattr(field, n)]
+    assert "lookup_mode" in compared
+    for name in compared:
+        assert getattr(field, name) == getattr(jfield, name), name
+    if "--bwd-mode" in LAYOUT_FLAGS[layout]:
+        assert field.bwd_impl == jfield.bwd_mode == "scatter"
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUT_FLAGS))
+def test_quality_run_trains_in_every_layout(layout, tmp_path, capsys):
+    """Two steps in each layout at a tiny size: finite losses, the layout
+    reached the field, and the RESULT line names the lookup as the JAX
+    tool's does."""
+    flags = LAYOUT_FLAGS[layout]
+    got = quality_run_torch.main([
+        "--device", "cpu", "--res", "16", "--n_train", "1", "--steps", "2", "--batch_size", "32",
+        "--n_samples", "16", "--field_scale", "0.07", "--eval-n", "1", "--output", str(tmp_path), *flags])
+    assert len(got["losses"]) == 2 and np.all(np.isfinite(got["losses"]))
+    lookup = flags[flags.index("--lookup") + 1] if "--lookup" in flags else None
+    assert got["lookup_mode"] == (lookup or "fused")
+    if "--fwd-mode" in flags:
+        assert got["fwd_mode"] == "fusedfine" and got["bwd_impl"] == "scatter"
+    assert f"lookup={lookup or 'default'} " in capsys.readouterr().out
+
+
+PROFILE_LAYOUTS = [("kplanes", ["--lookup", "quad"]), ("kplanes", ["--lookup", "mixed"]),
+                   ("kplanes", ["--lookup", "plain"]), ("kplanes", ["--fwd-mode", "fusedfine"]),
+                   ("cobafa", ["--lookup", "mixed"]), ("cobafa", ["--lookup", "plain"])]
+
+
+@pytest.mark.parametrize("method,flags", PROFILE_LAYOUTS, ids=lambda v: str(v))
+def test_profile_field_times_every_layout(method, flags):
+    """Each layout's forward, its backward alone and both timed; the fused
+    fine tables' build and gathers with `--fwd-mode fusedfine`, the nine
+    quad builds in quad, and the fused backward's pieces for both fused
+    forwards."""
+    got = profile_field_torch.main(["--method", method, "--cap", "3000", "--n", "1", "--field_scale", "0.1",
+                                    "--device", "cpu", *flags])
+    pieces = got["pieces"]
+    for name in ("field fwd", "field bwd"):
+        assert pieces[name]["ms"] > 0 and pieces[name]["device_ms"] is None
+    if "fusedfine" in flags:
+        assert got["lookup"] == "fused" and got["fwd_mode"] == "fusedfine" and got["bwd_impl"] == "scatter"
+        for name in ("fwd: fused fine tables (x3 proj: upsampling + kernel 7)", "fwd: full value (fused fine, x3)",
+                     "bwd: windowed_accumulate (x3 proj, kernel 5)"):
+            assert pieces[name]["ms"] > 0
+        assert "fwd: quad builds (x3 proj, kernel 7)" not in pieces
+    else:
+        assert got["lookup"] == flags[-1]
+        assert ("fwd: quad builds (x3 proj, kernel 7)" in pieces) == (flags[-1] == "quad")
+        assert not any(k.startswith("bwd:") or k.startswith("oct build") for k in pieces)

@@ -365,17 +365,19 @@ def test_bucket_and_march_policies_match_jax():
 
 def test_table_grad_impl_rules():
     """The table gradient's route: sorted bf16 on a CUDA device, the
-    scatter (the accumulation kernel's plain version) on the CPU or when the
-    packed keys overflow 31 bits (the JAX rule), and never on request on a
-    CUDA device."""
+    scatter (the accumulation kernel's plain version) on the CPU or, there,
+    when the packed keys overflow 31 bits (the JAX rule); on a CUDA device
+    never the scatter: no fallback where the packed keys overflow (the
+    key-value sort takes them), and "scatter" is the f32 payload's sorted
+    pipeline."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     n_cells = 512 * 512
     assert interp._resolve_bwd_impl("auto", cuda, n_cells, 819_200) == "sorted_bf16"
     assert interp._resolve_bwd_impl("auto", cpu, n_cells, 819_200) == "scatter"
     assert interp._resolve_bwd_impl("sorted", cpu, n_cells, 819_200) == "sorted"
-    assert interp._resolve_bwd_impl("sorted_bf16", cuda, n_cells, 1 << 22) == "scatter"
-    with pytest.raises(ValueError, match="CPU tensors only"):
-        interp._resolve_bwd_impl("scatter", cuda, n_cells, 819_200)
+    assert interp._resolve_bwd_impl("sorted_bf16", cpu, n_cells, 1 << 22) == "scatter"
+    assert interp._resolve_bwd_impl("sorted_bf16", cuda, n_cells, 1 << 22) == "sorted_bf16"
+    assert interp._resolve_bwd_impl("scatter", cuda, n_cells, 819_200) == "sorted"
     with pytest.raises(ValueError, match="unknown"):
         interp._resolve_bwd_impl("onehot", cpu, n_cells, 819_200)
 

@@ -67,7 +67,7 @@
 // (i, j) is one contiguous run of 2F table values, table[i+dx, j : j+2, :],
 // so the rows of cells (i, j0 .. j0+band-1) are read from lines i and i+1
 // from cell j0 on, and written as one contiguous run of the output.
-//   * vector path (F = 32 and the table on a 16-byte boundary, which the
+//   * vector path (F = 32, 64 or 96 and the table on a 16-byte boundary, which the
 //     wrapper checks and the entry point enforces): a block takes
 //     `lines` cells of i (blockIdx.y) by `band` cells of j (blockIdx.x), so
 //     no division finds a row.  It stages its lines + 1 table lines' runs
@@ -77,8 +77,12 @@
 //     at the default shape, where reading straight from global memory cast
 //     each value four times), then copies whole 16-byte chunks (8 bf16, 4
 //     f32 or 16 float8 values) to the output, each one 16-byte read of one
-//     corner pair's run.  It is written for F = 32, every K-Planes plane
-//     (a compile-time constant: the row and chunk splits are shifts);
+//     corner pair's run.  It is written for F a compile-time constant (the
+//     row and chunk splits are then shifts or multiplications): 32, every
+//     K-Planes plane, and 96, the fused fine table of fwd_mode="fusedfine"
+//     (three scales of 32 upsampled to 513^2, one table per projection:
+//     101 MB of f32 read, 201 MB of bf16 written, ~0.09 ms at 3.35 TB/s),
+//     and 64 between them;
 //   * generic path (any other F, or a table off a 16-byte boundary such as
 //     a view with a storage offset): value by value, a thread writing 4
 //     values (4, 8 or 16 bytes); a row of 4F values is F such chunks.
@@ -344,7 +348,6 @@ cudaError_t build_oct(const float* table, int r0, int r1, int r2, int f, int ban
 // --------------------------------------------------------------- quad build
 
 constexpr int kQuadMaxThreads = 512;
-constexpr unsigned kQuadF = 32;  // the vector path's channel count
 
 struct QuadGeom {
   unsigned r1, f;        // the table's j extent and channels
@@ -378,7 +381,7 @@ __device__ __forceinline__ void put4(uint16_t* dst, float4 v) {
 }
 __device__ __forceinline__ void put4(uint32_t* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
 
-// The vector path, F = 32 channels (every K-Planes plane).  Bits: uint8_t
+// The vector path, F = 32, 64 or 96 channels.  Bits: uint8_t
 // (float8), uint16_t (bf16) or uint32_t (f32) output.  The table starts on
 // a 16-byte boundary, so every 4 values of a line are one aligned float4.
 // One block writes the rows of cells (i0 .. i0 + lines - 1, j0 .. j0 +
@@ -387,11 +390,10 @@ __device__ __forceinline__ void put4(uint32_t* dst, float4 v) { *reinterpret_cas
 // rounded once, then copies whole 16-byte chunks from there, each one
 // 16-byte read of one corner pair's run (2F values are a whole number of
 // chunks); each (i, j) row's chunks are one contiguous run of the output.
-template <typename Bits>
+template <typename Bits, unsigned F>
 __global__ void __launch_bounds__(kQuadMaxThreads)
     quad_build_kernel(const float* __restrict__ table, const QuadGeom g, uint4* __restrict__ out) {
   extern __shared__ uint4 smem[];
-  constexpr unsigned F = kQuadF;
   constexpr unsigned kPer = 16 / sizeof(Bits);      // values of a chunk
   constexpr unsigned cpr = F * sizeof(Bits) / 4;    // chunks in a row of 4F values
   static_assert((2 * F) % kPer == 0, "a chunk lies in one corner pair's run");
@@ -454,18 +456,9 @@ __global__ void __launch_bounds__(kQuadMaxThreads)
   }
 }
 
-// vec: the table takes 16-byte loads (on 16 bytes, f % 4 == 0); with f = 32
-// the vector path, else the generic one.
-template <typename Bits>
-cudaError_t build_quad(const float* table, QuadGeom g, int threads, bool vec, void* out,
-                       cudaStream_t stream) {
-  if (!(vec && g.f == kQuadF)) {
-    using Store = typename Unit<4 * sizeof(Bits)>::type;
-    const dim3 grid((g.m1 + g.band - 1) / g.band, g.m0);
-    quad_build_any_kernel<Bits, Store><<<grid, threads, 0, stream>>>(table, g, static_cast<Store*>(out));
-    return cudaGetLastError();
-  }
-  g.run4 = (g.band + 1) * kQuadF / 4;
+template <typename Bits, unsigned F>
+cudaError_t launch_quad(const float* table, QuadGeom g, int threads, void* out, cudaStream_t stream) {
+  g.run4 = (g.band + 1) * F / 4;
   // runs 64 bytes apart in the banks (mod 128): a float8 row's two corner
   // pairs then read different banks
   unsigned bytes = g.run4 * 4 * sizeof(Bits);
@@ -477,11 +470,30 @@ cudaError_t build_quad(const float* table, QuadGeom g, int threads, bool vec, vo
   g.magic_run4 = (1ull << 32) / g.run4 + 1;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        quad_build_kernel<Bits>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        quad_build_kernel<Bits, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((g.m1 + g.band - 1) / g.band, (g.m0 + g.lines - 1) / g.lines);
-  quad_build_kernel<Bits><<<grid, threads, smem, stream>>>(table, g, static_cast<uint4*>(out));
+  quad_build_kernel<Bits, F><<<grid, threads, smem, stream>>>(table, g, static_cast<uint4*>(out));
+  return cudaGetLastError();
+}
+
+// vec: the table takes 16-byte loads (on 16 bytes, f % 4 == 0); with f = 32,
+// 64 or 96 the vector path, else the generic one.
+template <typename Bits>
+cudaError_t build_quad(const float* table, QuadGeom g, int threads, bool vec, void* out,
+                       cudaStream_t stream) {
+  if (vec) {
+    switch (g.f) {
+      case 32: return launch_quad<Bits, 32>(table, g, threads, out, stream);
+      case 64: return launch_quad<Bits, 64>(table, g, threads, out, stream);
+      case 96: return launch_quad<Bits, 96>(table, g, threads, out, stream);
+      default: break;
+    }
+  }
+  using Store = typename Unit<4 * sizeof(Bits)>::type;
+  const dim3 grid((g.m1 + g.band - 1) / g.band, g.m0);
+  quad_build_any_kernel<Bits, Store><<<grid, threads, 0, stream>>>(table, g, static_cast<Store*>(out));
   return cudaGetLastError();
 }
 
@@ -543,7 +555,7 @@ int tn_build_oct(const void* table, int r0, int r1, int r2, int f, int out_bf16,
 // float8_e4m3fn (out_bytes 1), bf16 (2) or f32 (4), contiguous and aligned to
 // 16 bytes.  vec != 0 says the table takes 16-byte loads: f % 4 == 0 and the
 // table on a 16-byte boundary (refused otherwise: nothing reads misaligned);
-// with f = 32 that is the vector path, else, and for vec == 0, the generic
+// with f = 32, 64 or 96 that is the vector path, else, and for vec == 0, the generic
 // path.  A block of `threads` threads (32 .. 512) writes the rows of up to
 // `lines` cells of i (the vector path; the generic path one) by `band`
 // cells of j.

@@ -1,24 +1,39 @@
 """K-Planes feature field (arXiv 2301.10241).
 
-Counterpart of `KPlanesFeatureField` in `tinynerf_tpu/models/kplanes.py`
-with its default lookup (fused, per-scale forward): n_scales x 3
-axis-aligned planes (xy, xz, yz), feature-last `[r, r, F]`, init U(lo, hi)
-(`init_range`, U(0, 1) by default);
-per scale the feature is the PRODUCT of the three bilinear lookups, in
-projection order.  Each lookup builds its plane's cell-packed quad table
-in `gather_dtype` ("bfloat16", the default, "float8" for float8_e4m3fn or
-"float32"; `ops/octbuild.py:build_quad`, a CUDA kernel on the card: nine
-builds per field call) and gathers one 4F row per sample, lerped in f32.
-All lookups run under one autograd Function
-(`ops/interp.py:multiscale_lookup_multiproj`), whose backward takes every
-table gradient on the finest grid through the sorted-window pipeline (on a
-CUDA device) or a scatter (on the CPU); with `shard_bwd_group` set (the
-data-parallel step sets it under `shard_bwd`) that backward splits its
-pullback over the group's ranks.  The TV and L1 regularizers are here, and
-their row-partitioned partials, whose sum over blocks is the full loss
-(the sharded-table step gives each rank one block).  The explicit
+Counterpart of `KPlanesFeatureField` in `tinynerf_tpu/models/kplanes.py`:
+n_scales x 3 axis-aligned planes (xy, xz, yz), feature-last `[r, r, F]`,
+init U(lo, hi) (`init_range`, U(0, 1) by default); per scale the feature is
+the PRODUCT of the three bilinear lookups, in projection order.  The JAX
+field's lookup options, with its defaults (`ops/interp.py` has each
+lookup):
+
+  * `lookup_mode` "fused" (the default): all lookups under one autograd
+    Function (`multiscale_lookup_multiproj`), whose backward takes every
+    table gradient on the finest grid through the sorted-window pipeline
+    (on a CUDA device; how, by `bwd_impl`) or a scatter (on the CPU); with
+    `shard_bwd_group` set (the data-parallel step sets it under
+    `shard_bwd`) that backward splits its pullback over the group's ranks.
+    Its forward by `fwd_mode`: "perscale" (the default) builds each plane's
+    quad table (`build_quad`, a CUDA kernel on the card: nine builds per
+    field call) and gathers one 4F row per sample; "fusedfine" builds one
+    fused fine table per projection (three builds per field call) and
+    gathers one [4 x n_scales F] row;
+  * "quad": one quad table and one 4F row gather per plane, each plane's
+    gradient through the cell route (`bilinear_lookup_quad`);
+  * "mixed": four corner-row gathers per plane from the plane rounded to
+    `gather_dtype`, the gradient summed in f32 and, with `scatter_dtype`
+    "bfloat16", rounded once to bf16 (`bilinear_lookup_mixed`);
+  * "plain": f32 corner gathers (`bilinear_lookup`; `gather_dtype` unused).
+
+`gather_dtype` is "bfloat16" (the default), "float8" for float8_e4m3fn or
+"float32"; the lerps are f32.  Every table gradient sums in a fixed order
+on the card.  The TV and L1 regularizers are here, and their
+row-partitioned partials, whose sum over blocks is the full loss (the
+sharded-table step gives each rank one block).  The explicit
 (bilinear-form) opacity and color decoders are here for parity with the
-JAX package; `train()` wires the vanilla decoders.
+JAX package; `train()` wires the vanilla decoders.  Unlike the JAX field,
+which takes any other name for f32 or its default, an unknown option
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +43,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.interp import multiscale_lookup_multiproj
+from ..ops.interp import (
+    FWD_IMPLS, bilinear_lookup, bilinear_lookup_mixed, bilinear_lookup_quad, multiscale_lookup_multiproj,
+)
 from ..ops.trunc_exp import truncated_exp
 from .encodings import posenc_dim, positional_encoding
 from .mlp import MLP, linear_apply, mlp_apply_split, mlp_apply_split_per_ray
@@ -41,6 +58,13 @@ GATHER_DTYPE = torch.bfloat16
 # the field's gather_dtype names, as `tinynerf_tpu/models/kplanes.py` maps
 # them (any other name is f32 there; here it raises)
 GATHER_DTYPES = {"bfloat16": GATHER_DTYPE, "float8": torch.float8_e4m3fn, "float32": torch.float32}
+LOOKUP_MODES = ("fused", "quad", "mixed", "plain")
+SCATTER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_option(name: str, value: str, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name} must be one of {sorted(allowed)}, got {value!r}")
 
 
 class KPlanesFeatureField(nn.Module):
@@ -54,16 +78,21 @@ class KPlanesFeatureField(nn.Module):
         resolutions: Tuple[int, ...] = (129, 257, 513),
         init_range: Tuple[float, float] = (0.0, 1.0),
         gather_dtype: str = "bfloat16",
+        lookup_mode: str = "fused",
+        scatter_dtype: str = "float32",
+        fwd_mode: str = "perscale",
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
         super().__init__()
-        if gather_dtype not in GATHER_DTYPES:
-            raise ValueError(f"gather_dtype must be one of {sorted(GATHER_DTYPES)}, got {gather_dtype!r}")
         self.feature_dim_per_plane = feature_dim_per_plane
         self.resolutions = tuple(resolutions)
         self.init_range = tuple(init_range)
         self.gather_dtype = gather_dtype
+        self.lookup_mode = lookup_mode
+        self.scatter_dtype = scatter_dtype  # "mixed" only
+        self.fwd_mode = fwd_mode  # "fused" only
+        self._check_options()
         lo, hi = self.init_range
         # planes[s][p]: scale s, projection p (DIMENSION_PAIRS order)
         self.planes = nn.ModuleList()
@@ -74,34 +103,53 @@ class KPlanesFeatureField(nn.Module):
                 t.uniform_(lo, hi, generator=generator)
                 scale.append(nn.Parameter(t.to(device)))
             self.planes.append(scale)
-        # a `parallel.DataGroup` while a data-parallel step splits the
-        # backward's pullback over its ranks (the JAX `shard_bwd_axis`)
+        # a `parallel.DataGroup` while a data-parallel step splits the fused
+        # backward's pullback over its ranks (the JAX `shard_bwd_axis`; the
+        # other modes' gradients need no split)
         self.shard_bwd_group = None
-        # how the backward accumulates the table gradient (`ops/interp.py`
-        # `bwd_impl`): "auto" is the sorted windows with the bf16 payload
-        # on a CUDA device, "sorted" the same with the f32 payload
+        # how the fused backward accumulates the table gradient (the JAX
+        # `bwd_mode`, `ops/interp.py` `_resolve_bwd_impl`): "auto" is the
+        # sorted windows with the bf16 payload on a CUDA device, "sorted"
+        # the same with the f32 payload, and "scatter" JAX's f32 scatter
+        # values (on a CUDA device the f32 payload's pipeline)
         self.bwd_impl = "auto"
 
     @property
     def feature_dim(self) -> int:
         return self.feature_dim_per_plane * len(self.resolutions)
 
+    def _check_options(self) -> None:
+        check_option("gather_dtype", self.gather_dtype, GATHER_DTYPES)
+        check_option("lookup_mode", self.lookup_mode, LOOKUP_MODES)
+        check_option("scatter_dtype", self.scatter_dtype, SCATTER_DTYPES)
+        check_option("fwd_mode", self.fwd_mode, FWD_IMPLS)
+
     def apply_pieces(self, x: torch.Tensor, compute_dtype=torch.float32) -> tuple:
         """x: [..., 3] in [-1, 1] -> per-scale features ([..., F] x n_scales),
         not concatenated: the decoders' split first layers take them as is."""
-        n_scales = len(self.resolutions)
-        per_proj = multiscale_lookup_multiproj(
-            [[self.planes[s][p] for s in range(n_scales)] for p in range(len(DIMENSION_PAIRS))],
-            [x[..., [i, j]] for (i, j) in DIMENSION_PAIRS],
-            GATHER_DTYPES[self.gather_dtype],
-            bwd_impl=self.bwd_impl,
-            shard_group=self.shard_bwd_group,
-        )
+        self._check_options()
+        gd = GATHER_DTYPES[self.gather_dtype]
+        coords = [x[..., [i, j]] for (i, j) in DIMENSION_PAIRS]
+        if self.lookup_mode == "fused":
+            n_scales = len(self.resolutions)
+            per_proj = multiscale_lookup_multiproj(
+                [[self.planes[s][p] for s in range(n_scales)] for p in range(len(DIMENSION_PAIRS))],
+                coords, gd, bwd_impl=self.bwd_impl, shard_group=self.shard_bwd_group, fwd_impl=self.fwd_mode,
+            )
+            by_scale = [[pieces[s] for pieces in per_proj] for s in range(n_scales)]
+        else:
+            if self.lookup_mode == "quad":
+                lookup = lambda p, c: bilinear_lookup_quad(p, c, gd)
+            elif self.lookup_mode == "mixed":
+                lookup = lambda p, c: bilinear_lookup_mixed(p, c, gd, SCATTER_DTYPES[self.scatter_dtype])
+            else:
+                lookup = bilinear_lookup
+            by_scale = [[lookup(plane, c) for plane, c in zip(scale, coords)] for scale in self.planes]
         features = []
-        for s in range(n_scales):
+        for values in by_scale:
             acc = None
-            for pieces in per_proj:
-                acc = pieces[s] if acc is None else acc * pieces[s]
+            for v in values:
+                acc = v if acc is None else acc * v
             features.append(acc.to(compute_dtype))
         return tuple(features)
 

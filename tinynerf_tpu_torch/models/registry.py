@@ -36,8 +36,12 @@ def make_model(
     with the channels, frequencies and MLP width unchanged.
 
     `field_kw` go to the field's constructor as they are (the JAX tools
-    `dataclasses.replace` the field with them): K-Planes and Cobafa take
-    `init_range` and `gather_dtype`; the vanilla field takes none."""
+    `dataclasses.replace` the field with them): K-Planes takes
+    `init_range`, `gather_dtype`, `lookup_mode`, `scatter_dtype` and
+    `fwd_mode`; Cobafa `init_range`, `gather_dtype`, `lookup_mode`,
+    `scatter_dtype`, `dropout_p` and `mlp_init_mode`; the vanilla field
+    `init_mode`.  None changes a parameter's shape, so `convert.py` carries
+    parameters across every layout."""
     s = float(field_scale)
     if method == "vanilla":
         field = VanillaFeatureField(

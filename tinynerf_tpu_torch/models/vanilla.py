@@ -5,7 +5,7 @@ autograd (the clamped exp's through `ops/trunc_exp.py`):
 
   * `VanillaFeatureField`: posenc(n_freqs) -> MLP(hidden, layers), the
     features the MLP's last layer (`feature_dim = hidden_features`);
-    train() takes (10, 256, 8) with He init;
+    train() takes (10, 256, 8) with He init (`init_mode`);
   * `OpacityDecoder`: MLP(dim -> 64 -> 1) then truncated_exp(x - 1) >= 0;
   * `ColorDecoder`: [posenc(d) | d | features] -> MLP -> sigmoid, the
     concat computed as a split first layer.
@@ -34,16 +34,17 @@ class VanillaFeatureField(nn.Module):
 
     def __init__(
         self, n_freqs: int = 10, hidden_features: int = 256, hidden_layers: int = 8,
-        generator: Optional[torch.Generator] = None, device=None,
+        init_mode: str = "he", generator: Optional[torch.Generator] = None, device=None,
     ):
-        """He init (the JAX field's default `init_mode`): it keeps the
+        """`init_mode` (the JAX field's): "he", the default, keeps the
         positional signal alive through the 10-layer stack, where the
-        reference's init decays it ~3x per layer."""
+        reference's init ("torch") decays it ~3x per layer."""
         super().__init__()
         self.n_freqs = n_freqs
         self.hidden_features = hidden_features
+        self.init_mode = init_mode
         self.mlp = MLP(posenc_dim(3, n_freqs), hidden_features, hidden_layers,
-                       generator=generator, device=device, init="he")
+                       generator=generator, device=device, init=init_mode)
 
     @property
     def feature_dim(self) -> int:

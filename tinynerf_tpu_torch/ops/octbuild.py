@@ -136,7 +136,7 @@ def quad_vector_loads(table: torch.Tensor) -> bool:
 def build_quad(table: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """`[r0, r1, F]` f32 -> `[(r0-1)(r1-1), 4F]` of `out_dtype` (bf16, f32
     or float8_e4m3fn): the kernel on a CUDA tensor (its vector path where
-    F = 32 and `quad_vector_loads`, else its generic path), the plain
+    F is 32, 64 or 96 and `quad_vector_loads`, else its generic path), the plain
     version on a CPU tensor."""
     if cuda_lib.runs_plain("build_quad", table):
         return build_quad_plain(table, out_dtype)

@@ -183,20 +183,21 @@ windowed_accumulate.launches = 0
 KEY_BITS = 32  # of the packed sort keys: window id over sample index
 
 
-def default_window(device: torch.device, n_cells: int, n: int, width: int, oct_rows: bool = False) -> int:
+def default_window(device: torch.device, width: int, oct_rows: bool = False) -> int:
     """The window the pipeline sorts by: OCT_WINDOW cells for Cobafa's oct
     rows (`oct_rows`, `oct_accumulate`) on every device; otherwise 256
     cells, the JAX package's, on the CPU, and on a CUDA device the largest
     power of two <= OWNER_WINDOW whose f32 tile [W, width] fits the tile
     kernel's smallest block shape, so that one block reads each sample once
     (and up to 4 corners x 96 values, or 8 corners of up to 64 values in
-    all, are summed in registers), as long as the packed keys still fit."""
+    all, are summed in registers, in a fixed order), at any number of cells
+    and samples: where the packed keys of those windows do not fit,
+    `table_grad_sorted` sorts by key and value."""
     if oct_rows:
         return OCT_WINDOW
     w = 256
     if device.type == "cuda":
-        while (w > 1 and (w > OWNER_WINDOW or w * width * 4 > ACCUM_SHAPES[0][0])
-               and _bits(-(-n_cells // (w // 2))) + _bits(n) <= KEY_BITS):
+        while w > 1 and (w > OWNER_WINDOW or w * width * 4 > ACCUM_SHAPES[0][0]):
             w //= 2
     return w
 
@@ -342,7 +343,7 @@ def table_grad_sorted(
     p, n, f_dim = g.shape
     nc = w_corners.shape[-1]
     if w_window is None:
-        w_window = default_window(g.device, n_cells, n, nc * f_dim)
+        w_window = default_window(g.device, nc * f_dim)
     n_cells_pad = -(-n_cells // w_window) * w_window
     sort = sort_by_window if window_keys_fit(n_cells_pad, w_window, n) else sort_by_window_pairs
     perm, offsets = sort(cell, n_cells_pad, w_window)

@@ -4,7 +4,8 @@ by one (tinynerf_tpu_torch): the port's counterpart of
 `tools/profile_field.py`.
 
     python3 tools/profile_field_torch.py [--method kplanes|cobafa] [--cap 819200] [--n 10]
-        [--gather-dtype bfloat16|float8|float32] [--pad 0.0] [--device cpu]
+        [--lookup fused|quad|mixed|plain (K-Planes) | auto|quad|mixed|plain (Cobafa)]
+        [--fwd-mode perscale|fusedfine] [--gather-dtype bfloat16|float8|float32] [--pad 0.0] [--device cpu]
 
 `profile_step_torch.py` splits the step into stages; this splits the
 largest of them, the field's forward and backward, into its operations, in
@@ -15,13 +16,16 @@ of the points the packed buffer's pad tail (every pad at point 0, with a
 zero cotangent), the cells a converged step's backward sees.
 
   * K-Planes (planes 129/257/513 x 3 x 32, `--gather-dtype`, default the
-    field's bfloat16): the nine quad builds (kernel 7); build + gather
-    (`ops/interp.py: _quad_lookup_fwd_value`); the `_cell_2d` recompute; the
-    contribution w x g of one projection, and `pack_payload` of the three
-    (`ops/table_grad.py`); `sort_by_window` (kernel 4); the permutation
-    gather of the packed rows; `windowed_accumulate` (kernel 5);
-    `_fine_from_quad`; `_pullback_scales`; the whole `_MultiProj.backward`;
-    the field's forward + backward.
+    field's bfloat16), in the fused lookup (the default): the nine quad
+    builds (kernel 7) and build + gather (`ops/interp.py:
+    _quad_lookup_fwd_value`), or with `--fwd-mode fusedfine` the three fused
+    fine tables (`fused_fine_table`'s upsampling and kernel 7) and their
+    gathers; the `_cell_2d` recompute; the contribution w x g of one
+    projection, and `pack_payload` of the three (`ops/table_grad.py`);
+    `sort_by_window` (kernel 4); the permutation gather of the packed rows;
+    `windowed_accumulate` (kernel 5); `_fine_from_quad`;
+    `_pullback_scales`; the whole `_MultiProj.backward`.  In `--lookup`
+    quad, the nine quad builds; in mixed and plain, the field alone.
   * Cobafa (basis grids 32..128^3, coefficients 64^3 x 6, bf16 corners):
     the oct build (kernel 6) per grid and for all grids; all grids'
     gathers; the backward of all grids, whole (`_TrilinearOct.backward`'s
@@ -32,10 +36,13 @@ zero cotangent), the cells a converged step's backward sees.
     the payload route of the register kernel's flat layout (pack, sorted
     copy, `windowed_accumulate` in windows of 64 cells on the card), each
     with the eight shifted adds (all three held to 1e-5 of the largest
-    gradient); the field's forward + backward (dropout on).
+    gradient); in `--lookup` mixed and plain, the field alone.
 
-Left out, as TPU layouts the port does not carry: `fwd_mode="fusedfine"`,
-`scatter_add_rows` alone and the oct build's stack A/B form.  Each piece
+Every layout ends with the field's forward (`field fwd`), its backward
+alone (`field bwd`, autograd of one forward's graph, kept), and both (for
+Cobafa with dropout on), on bf16 compute.
+Left out, as TPU layouts the port does not carry: `scatter_add_rows` alone
+and the oct build's stack A/B form.  Each piece
 prints its ms per call (CUDA events over `--n` calls after one warm-up;
 host clock on the CPU), its device time per call (the profiler's kernel
 times over max(`--n`, 10) more calls; "not measured" on the CPU or where
@@ -128,6 +135,21 @@ def _points(cap: int, f_dim: int, pad: float, device):
     return torch.from_numpy(x).to(device), torch.from_numpy(g).to(device)
 
 
+def time_field(field, x, timeit, **kw) -> None:
+    """The field's forward, its backward alone (autograd of one forward's
+    graph, kept) and both, on bf16 compute; `kw` to the field's call."""
+    import torch
+
+    params = list(field.parameters())
+    loss = lambda: (field(x, torch.bfloat16, **kw).float() ** 2).sum()
+    timeit("field fwd", lambda: field(x, torch.bfloat16, **kw))
+    graph = loss()
+    timeit("field bwd", lambda: torch.autograd.grad(graph, params, retain_graph=True))
+    del graph
+    timeit("field fwd+bwd (incl product rule)" if "dropout_seed" not in kw else "field fwd+bwd (dropout on)",
+           lambda: torch.autograd.grad(loss(), params))
+
+
 def profile_kplanes(args, device, timeit) -> dict:
     import torch
 
@@ -137,8 +159,9 @@ def profile_kplanes(args, device, timeit) -> dict:
     from tinynerf_tpu_torch.ops import table_grad as TG
     from tinynerf_tpu_torch.ops.octbuild import build_quad
 
+    lookup = args.lookup or "fused"
     field = make_model("kplanes", field_scale=args.field_scale, generator=torch.Generator().manual_seed(0),
-                       device=device, gather_dtype=args.gather_dtype)[0]
+                       device=device, gather_dtype=args.gather_dtype, lookup_mode=lookup, fwd_mode=args.fwd_mode)[0]
     gd = GATHER_DTYPES[args.gather_dtype]
     n_scales, cap = len(field.resolutions), args.cap
     r_fine, f_tot = max(field.resolutions), field.feature_dim
@@ -146,47 +169,57 @@ def profile_kplanes(args, device, timeit) -> dict:
     x, g = _points(cap, f_tot, args.pad, device)
     tables = [[field.planes[s][p].detach() for s in range(n_scales)] for p in range(len(DIMENSION_PAIRS))]
     coords = [x[:, [i, j]].contiguous() for i, j in DIMENSION_PAIRS]
-    print(f"kplanes: cap={cap} f_tot={f_tot} r_fine={r_fine} gather={args.gather_dtype} pad={args.pad}", flush=True)
+    print(f"kplanes: cap={cap} f_tot={f_tot} r_fine={r_fine} gather={args.gather_dtype} lookup={lookup} "
+          f"fwd_mode={args.fwd_mode} pad={args.pad}", flush=True)
+    extra = {"lookup": lookup, "fwd_mode": args.fwd_mode}
 
     # ---- forward pieces
-    timeit("fwd: quad builds (x3 proj, kernel 7)", lambda: [build_quad(t, gd) for ts in tables for t in ts])
-    timeit("fwd: full value (build+gather, x3)",
-           lambda: [I._quad_lookup_fwd_value(t, c, gd) for ts, c in zip(tables, coords) for t in ts])
+    if lookup in ("fused", "quad") and args.fwd_mode == "perscale":
+        timeit("fwd: quad builds (x3 proj, kernel 7)", lambda: [build_quad(t, gd) for ts in tables for t in ts])
+        timeit("fwd: full value (build+gather, x3)",
+               lambda: [I._quad_lookup_fwd_value(t, c, gd) for ts, c in zip(tables, coords) for t in ts])
+    elif lookup == "fused":
+        timeit("fwd: fused fine tables (x3 proj: upsampling + kernel 7)",
+               lambda: [build_quad(I.fused_fine_table(ts, gd), gd) for ts in tables])
+        timeit("fwd: full value (fused fine, x3)",
+               lambda: [I._fused_fine_pieces(ts, c, gd) for ts, c in zip(tables, coords)])
 
     # ---- backward pieces, as _MultiProj.backward takes them
-    cw = timeit("bwd: _cell_2d x3 (recompute)", lambda: [I._cell_2d(c, r_fine, r_fine) for c in coords])
-    cells = torch.stack([c.reshape(cap) for c, _ in cw])
-    ws = torch.stack([w.reshape(cap, 4) for _, w in cw])
-    gs = torch.stack([g] * len(coords))
-    timeit("bwd: contrib build (w x g, 1 proj)", lambda: (ws[0][:, :, None] * g[:, None, :]).reshape(cap, 4 * f_tot))
-    impl = I._resolve_bwd_impl(field.bwd_impl, device, n_cells, cap)
-    payload = torch.bfloat16 if impl == "sorted_bf16" else torch.float32
-    w_window = TG.default_window(device, n_cells, cap, 4 * f_tot)
-    n_cells_pad = -(-n_cells // w_window) * w_window
-    packed = timeit(f"bwd: pack_payload ({str(payload)[6:]}, x3 proj)",
-                    lambda: TG.pack_payload(gs, ws, cells, w_window, payload))
-    perm, offsets = timeit(f"bwd: sort_by_window (x3 proj, kernel 4; windows of {w_window})",
-                           lambda: TG.sort_by_window(cells, n_cells_pad, w_window))
-    fp = packed.shape[-1]
-    gidx = (perm.long() + (torch.arange(len(coords), device=device) * cap)[:, None]).reshape(-1)
-    packed_s = timeit("bwd: permutation gather of the payload (x3 proj)",
-                      lambda: packed.reshape(-1, fp).index_select(0, gidx)).reshape(len(coords), cap, fp)
-    gq = timeit("bwd: windowed_accumulate (x3 proj, kernel 5)",
-                lambda: TG.windowed_accumulate(packed_s, offsets, f_tot, 4, n_cells_pad, w_window))
-    gq0 = gq[0, :n_cells]
-    fine = timeit("bwd: _fine_from_quad (1 proj)", lambda: I._fine_from_quad(gq0, r_fine, f_tot))
-    timeit("bwd: _pullback_scales (1 proj)", lambda: I._pullback_scales(fine, tables[0]))
-    f_plane = field.feature_dim_per_plane
-    grads = [g[:, s * f_plane : (s + 1) * f_plane] for _ in coords for s in range(n_scales)]
-    ctx = SimpleNamespace(saved_tensors=(*coords, *(t for ts in tables for t in ts)),
-                          meta=(field.bwd_impl, None, len(coords), n_scales))
-    timeit(f"bwd: whole _MultiProj.backward (x3 proj, {impl})", lambda: I._MultiProj.backward(ctx, *grads))
+    if lookup == "fused":
+        cw = timeit("bwd: _cell_2d x3 (recompute)", lambda: [I._cell_2d(c, r_fine, r_fine) for c in coords])
+        cells = torch.stack([c.reshape(cap) for c, _ in cw])
+        ws = torch.stack([w.reshape(cap, 4) for _, w in cw])
+        gs = torch.stack([g] * len(coords))
+        timeit("bwd: contrib build (w x g, 1 proj)",
+               lambda: (ws[0][:, :, None] * g[:, None, :]).reshape(cap, 4 * f_tot))
+        impl = I._resolve_bwd_impl(field.bwd_impl, device, n_cells, cap)
+        payload = torch.bfloat16 if impl == "sorted_bf16" else torch.float32
+        w_window = TG.default_window(device, 4 * f_tot)
+        n_cells_pad = -(-n_cells // w_window) * w_window
+        packed = timeit(f"bwd: pack_payload ({str(payload)[6:]}, x3 proj)",
+                        lambda: TG.pack_payload(gs, ws, cells, w_window, payload))
+        perm, offsets = timeit(f"bwd: sort_by_window (x3 proj, kernel 4; windows of {w_window})",
+                               lambda: TG.sort_by_window(cells, n_cells_pad, w_window))
+        fp = packed.shape[-1]
+        gidx = (perm.long() + (torch.arange(len(coords), device=device) * cap)[:, None]).reshape(-1)
+        packed_s = timeit("bwd: permutation gather of the payload (x3 proj)",
+                          lambda: packed.reshape(-1, fp).index_select(0, gidx)).reshape(len(coords), cap, fp)
+        gq = timeit("bwd: windowed_accumulate (x3 proj, kernel 5)",
+                    lambda: TG.windowed_accumulate(packed_s, offsets, f_tot, 4, n_cells_pad, w_window))
+        gq0 = gq[0, :n_cells]
+        fine = timeit("bwd: _fine_from_quad (1 proj)", lambda: I._fine_from_quad(gq0, r_fine, f_tot))
+        timeit("bwd: _pullback_scales (1 proj)", lambda: I._pullback_scales(fine, tables[0]))
+        f_plane = field.feature_dim_per_plane
+        grads = [g[:, s * f_plane : (s + 1) * f_plane] for _ in coords for s in range(n_scales)]
+        ctx = SimpleNamespace(saved_tensors=(*coords, *(t for ts in tables for t in ts)),
+                              meta=(field.bwd_impl, None, len(coords), n_scales))
+        timeit(f"bwd: whole _MultiProj.backward (x3 proj, {impl})", lambda: I._MultiProj.backward(ctx, *grads))
+        del cw, cells, ws, gs, packed, perm, offsets, packed_s, gq, gq0, fine, ctx
+        extra.update(bwd_impl=impl, w_window=w_window)
 
-    # ---- the field's forward + backward (the product of the projections)
-    params = list(field.parameters())
-    timeit("field fwd+bwd (incl product rule)",
-           lambda: torch.autograd.grad((field(x, torch.bfloat16).float() ** 2).sum(), params))
-    return {"bwd_impl": impl, "w_window": w_window}
+    # ---- the field's forward, backward and both (the product of the projections)
+    time_field(field, x, timeit)
+    return extra
 
 
 def profile_cobafa(args, device, timeit) -> dict:
@@ -198,13 +231,18 @@ def profile_cobafa(args, device, timeit) -> dict:
     from tinynerf_tpu_torch.ops import table_grad as TG
     from tinynerf_tpu_torch.ops.octbuild import build_oct, oct_fold, oct_fold_plain
 
+    lookup = args.lookup or "auto"
     field = make_model("cobafa", field_scale=args.field_scale, generator=torch.Generator().manual_seed(0),
-                       device=device)[0]
+                       device=device, lookup_mode=lookup)[0]
     gd, cap = GATHER_DTYPE, args.cap
     x, _ = _points(cap, 1, args.pad, device)
     n_pad = int(round(args.pad * cap))
     print(f"cobafa: cap={cap} basis_res={field.basis_res} channels={field.channels} "
-          f"coef_res={field.coef_res} pad={args.pad}", flush=True)
+          f"coef_res={field.coef_res} lookup={lookup} pad={args.pad}", flush=True)
+    words = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device=device)
+    if lookup in ("mixed", "plain"):  # the oct pieces below are the oct layout's
+        time_field(field, x, timeit, dropout_seed=words)
+        return {"lookup": lookup}
     grids = [("coef", field.coef.detach())] + [
         (f"basis{i}(r={b.shape[0]},c={b.shape[-1]})", b.detach()) for i, b in enumerate(field.basis)]
     for name, grid in grids:
@@ -275,11 +313,8 @@ def profile_cobafa(args, device, timeit) -> dict:
         raise AssertionError(f"profile_field_torch: the sorted oct gradient disagrees with index_add_ ({err})")
     del new, old, payload
 
-    params = list(field.parameters())
-    words = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device=device)
-    timeit("field fwd+bwd (dropout on)",
-           lambda: torch.autograd.grad((field(x, torch.bfloat16, dropout_seed=words).float() ** 2).sum(), params))
-    return {"bwd_sorted_vs_index_add": err}
+    time_field(field, x, timeit, dropout_seed=words)
+    return {"lookup": lookup, "bwd_sorted_vs_index_add": err}
 
 
 def main(argv=None) -> dict:
@@ -289,6 +324,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--n", type=int, default=10)
     ap.add_argument("--gather-dtype", dest="gather_dtype", default="bfloat16",
                     choices=["bfloat16", "float8", "float32"], help="K-Planes' quad tables")
+    ap.add_argument("--lookup", default=None, choices=[None, "fused", "auto", "quad", "mixed", "plain"],
+                    help="the field's lookup_mode (default: the field's, fused / auto)")
+    ap.add_argument("--fwd-mode", dest="fwd_mode", default="perscale", choices=["perscale", "fusedfine"],
+                    help="K-Planes' fused forward")
     ap.add_argument("--pad", type=float, default=0.0, help="share of the points that are pads")
     ap.add_argument("--field_scale", type=float, default=1.0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -132,7 +132,7 @@ def main() -> None:
     cell_np, zero_np = accumulation_problem(rng, n, n_cells, w_window)
     cell = torch.from_numpy(cell_np).to(dev)
 
-    w_window = args.window or table_grad.default_window(dev, n_cells, n, nc * f)
+    w_window = args.window or table_grad.default_window(dev, nc * f)
     report(f"sort_by_window [3, {n}] cells, {n_cells // w_window} windows of {w_window}",
            lambda: table_grad.sort_by_window(cell, n_cells, w_window), args.runs)
     keys = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, (3, n), dtype=np.int64).astype(np.int32)).to(dev)

@@ -5,6 +5,7 @@ generated analytic scene and report test PSNR; the port's counterpart of
 so that logs of the two compare.
 
     python3 tools/quality_run_torch.py [--method kplanes] [--steps 300]
+        [--lookup fused|quad|mixed|plain] [--fwd-mode perscale|fusedfine]
         [--gather-dtype bfloat16|float8|float32] [--init-range 0,1]
         [--bwd-mode auto|sorted|scatter] [--eval-every 256] [--device cpu]
 
@@ -14,13 +15,12 @@ trains with `train()` and prints the JAX tool's `RESULT`, `TIME-TO-*dB`
 and `TIMELINE` lines, and one more: `MARCH`, how many of the steps took the
 skip march and the first that did.  The field options reach the field as
 the JAX tool passes them, through a wrapper of the `make_model` that
-`train/loop.py` calls (restored on return): `--gather-dtype` and
-`--init-range` for K-Planes and Cobafa (Cobafa gathers f32 for anything but
-bfloat16), `--bwd-mode` as the K-Planes field's `bwd_impl` ("sorted" is the
-f32 table-gradient payload; "scatter" runs on CPU tensors only, so the port
-refuses it on a card).  The JAX tool's `--lookup` (but its default, fused)
-and `--fwd-mode fusedfine` pick TPU layouts of the same values, which the
-port leaves out (ROADMAP.md Queue 1 item 4), so they are not offered.
+`train/loop.py` calls (restored on return): `--lookup`, `--gather-dtype`
+and `--init-range` for K-Planes and Cobafa (Cobafa gathers f32 for anything
+but bfloat16, and refuses `--lookup fused`, which the JAX field runs as
+"plain"), `--fwd-mode` for K-Planes, and `--bwd-mode` as the K-Planes
+field's `bwd_impl` ("sorted" is the f32 table-gradient payload; "scatter",
+JAX's f32 scatter values, is on a card the same f32 sums in a fixed order).
 `--matmul-precision` (highest, high or medium; not the JAX tool's) sets
 `torch.set_float32_matmul_precision` for the run and restores it after:
 "medium" lets f32 matmuls take bf16 passes, as a TPU's f32 matmuls do by
@@ -42,7 +42,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 
 # the fields that take the JAX tool's field options (the vanilla field none)
-FIELD_OPTIONS = {"kplanes": ("gather_dtype", "init_range"), "cobafa": ("gather_dtype", "init_range")}
+FIELD_OPTIONS = {"kplanes": ("lookup_mode", "fwd_mode", "gather_dtype", "init_range"),
+                 "cobafa": ("lookup_mode", "gather_dtype", "init_range")}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -52,6 +53,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch_size", type=int, default=1024)
     ap.add_argument("--n_samples", type=int, default=128)
+    ap.add_argument("--lookup", default=None, choices=[None, "fused", "quad", "mixed", "plain"])
+    ap.add_argument("--fwd-mode", default=None, choices=[None, "perscale", "fusedfine"],
+                    help="kplanes fused-mode forward gather shape")
     ap.add_argument("--bwd-mode", default=None, choices=[None, "auto", "scatter", "sorted"],
                     help="kplanes table-gradient accumulation")
     ap.add_argument("--eval-every", type=int, default=None, help="eval cadence for the time-to-PSNR timeline")
@@ -114,6 +118,30 @@ def make_config(args: argparse.Namespace, output: Path):
     return cfg
 
 
+def field_maker(args: argparse.Namespace, make_model):
+    """`make_model` with the flags' field options passed to the fields that
+    take them (FIELD_OPTIONS) and `--bwd-mode` set as K-Planes' `bwd_impl`."""
+    field_kw = {}
+    if args.lookup:
+        field_kw["lookup_mode"] = args.lookup
+    if args.fwd_mode:
+        field_kw["fwd_mode"] = args.fwd_mode
+    if args.gather_dtype:
+        field_kw["gather_dtype"] = args.gather_dtype
+    if args.init_range:
+        lo, hi = (float(v) for v in args.init_range.split(","))
+        field_kw["init_range"] = (lo, hi)
+
+    def wrapped(method, **mk_kw):
+        kw = {k: v for k, v in field_kw.items() if k in FIELD_OPTIONS.get(method, ())}
+        field, sd, rd = make_model(method, **mk_kw, **kw)
+        if args.bwd_mode and hasattr(field, "bwd_impl"):
+            field.bwd_impl = args.bwd_mode
+        return field, sd, rd
+
+    return wrapped
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
 
@@ -130,20 +158,8 @@ def main(argv=None) -> dict:
                                  kind=args.scene)
     cfg = make_config(args, root / "exp")
 
-    field_kw = {}
-    if args.gather_dtype:
-        field_kw["gather_dtype"] = args.gather_dtype
-    if args.init_range:
-        lo, hi = (float(v) for v in args.init_range.split(","))
-        field_kw["init_range"] = (lo, hi)
     orig = loop_mod.make_model
-
-    def make_model(method, **mk_kw):
-        kw = {k: v for k, v in field_kw.items() if k in FIELD_OPTIONS.get(method, ())}
-        field, sd, rd = orig(method, **mk_kw, **kw)
-        if args.bwd_mode and hasattr(field, "bwd_impl"):
-            field.bwd_impl = args.bwd_mode
-        return field, sd, rd
+    make_model = field_maker(args, orig)
 
     print(f"scene={scene} output={cfg.output} device={device} ({card})")
     train_rays = RayPool(parse_nerf_synthetic(scene, "train"))
@@ -181,7 +197,7 @@ def main(argv=None) -> dict:
     if args.matmul_precision:
         dev.append(f"matmul={args.matmul_precision}")
     print(
-        f"RESULT scene={args.scene} method={args.method} lookup=default "
+        f"RESULT scene={args.scene} method={args.method} lookup={args.lookup or 'default'} "
         f"gather={args.gather_dtype or 'default'} dtype={args.dtype} steps={args.steps} "
         f"deviations=[{','.join(dev) or 'none'}] "
         f"loss {first_loss:.4f}->{last_loss:.5f} "
@@ -209,6 +225,8 @@ def main(argv=None) -> dict:
         "timeline": timeline, "time_to": time_to,
         "march_steps": marches, "first_skip_step": out["first_skip_step"],
         "gather_dtype": getattr(out["renderer"].field, "gather_dtype", None),
+        "lookup_mode": getattr(out["renderer"].field, "lookup_mode", None),
+        "fwd_mode": getattr(out["renderer"].field, "fwd_mode", None),
         "bwd_impl": getattr(out["renderer"].field, "bwd_impl", None),
         "matmul_precision": args.matmul_precision or precision,
     }
