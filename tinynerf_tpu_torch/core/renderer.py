@@ -55,6 +55,7 @@ from ..models.cobafa import CobafaFeatureField
 from ..ops.hashrng import hash_u01
 from ..ops.segscan import compute_weights_packed, segment_sum
 from ..ops.weights_dense import compute_weights_dense
+from ..utils.trace import span
 from .contraction import ContractionAABB, ContractionMip360
 from .marching import RayMarcherAABB, RayMarcherUnbounded
 from .occupancy import OccupancyGrid, OccupancyState
@@ -187,8 +188,9 @@ class NerfRenderer(nn.Module):
         checkpointed."""
         if not self.supports_skip_march:
             raise ValueError("this renderer does not support skip marching")
-        occ = occ_state.grid > self.occupancy._threshold(occ_state)
-        return make_skip_grid_iso(occ) if isinstance(self.marcher, RayMarcherUnbounded) else make_skip_grid(occ)
+        with span("occupancy.skip_grid"):
+            occ = occ_state.grid > self.occupancy._threshold(occ_state)
+            return make_skip_grid_iso(occ) if isinstance(self.marcher, RayMarcherUnbounded) else make_skip_grid(occ)
 
     def _march_skip(self, rays_o, rays_d, skip_grid, jitter_seed=None):
         """Skip-marching front half: the candidate grid [R, skip_steps] whose
@@ -232,21 +234,24 @@ class NerfRenderer(nn.Module):
         self, occ_state: Optional[OccupancyState], rays_o: torch.Tensor,
         rays_d: torch.Tensor, jitter_seed=None, dropout_seed=None,
     ) -> RenderOutput:
-        cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
-        feats = self._field_apply(cpos, dropout_seed)
-        sigmas = self.sigma_decoder(feats, self.compute_dtype)
-        w = self._weights_dense(sigmas, deltas, maskf)
-        dirs = rays_d[:, None, :].expand(cpos.shape)
-        rgbs = self.rgb_decoder(feats, dirs, self.compute_dtype)
-        acc_rgb = torch.sum(w[..., None] * rgbs, dim=-2)
-        opacity = torch.sum(w, dim=-1)
-        return RenderOutput(
-            rgb=self._composite(acc_rgb, opacity),
-            opacity=opacity,
-            ray_valid=torch.ones(rays_o.shape[0], dtype=torch.float32, device=rays_o.device),
-            n_samples=maskf.sum().long(),
-            n_complete=torch.full((), rays_o.shape[0], device=rays_o.device),
-        )
+        with span("render.march"):
+            cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
+        with span("render.field"):
+            feats = self._field_apply(cpos, dropout_seed)
+        with span("render.decode"):
+            sigmas = self.sigma_decoder(feats, self.compute_dtype)
+            w = self._weights_dense(sigmas, deltas, maskf)
+            dirs = rays_d[:, None, :].expand(cpos.shape)
+            rgbs = self.rgb_decoder(feats, dirs, self.compute_dtype)
+            acc_rgb = torch.sum(w[..., None] * rgbs, dim=-2)
+            opacity = torch.sum(w, dim=-1)
+            return RenderOutput(
+                rgb=self._composite(acc_rgb, opacity),
+                opacity=opacity,
+                ray_valid=torch.ones(rays_o.shape[0], dtype=torch.float32, device=rays_o.device),
+                n_samples=maskf.sum().long(),
+                n_complete=torch.full((), rays_o.shape[0], device=rays_o.device),
+            )
 
     # --------------------------------------------------------- packed path
 
@@ -263,63 +268,66 @@ class NerfRenderer(nn.Module):
         candidates from the skip march over `skip_grid` (`skip_grid()` of
         the occupancy state); rays that exhaust its round budget are flagged
         invalid."""
-        n_rays = rays_o.shape[0]
-        if march == "skip":
-            if skip_grid is None:
-                raise ValueError("march='skip' needs a skip_grid")
-            cpos, deltas, maskf, complete = self._march_skip(rays_o, rays_d, skip_grid, jitter_seed)
-            n_samples = self.skip_steps  # the candidate grid's width
-        elif march == "dense":
-            cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
-            complete = None
-            n_samples = self.marcher.n_samples
-        else:
-            raise ValueError(f"unknown march {march!r}")
-        total = n_rays * n_samples
-        dev = rays_o.device
-        maskb = maskf > 0.0
-        # --- compaction: the first `cap` valid samples in ray-major order
-        is_pad, safe_idx, seg_ids = compact(maskb, cap)
-        cpos_cap = cpos.reshape(total, 3)[safe_idx]
-        ray_of = torch.where(is_pad, 0, seg_ids)
+        with span("render.march"):
+            n_rays = rays_o.shape[0]
+            if march == "skip":
+                if skip_grid is None:
+                    raise ValueError("march='skip' needs a skip_grid")
+                cpos, deltas, maskf, complete = self._march_skip(rays_o, rays_d, skip_grid, jitter_seed)
+                n_samples = self.skip_steps  # the candidate grid's width
+            elif march == "dense":
+                cpos, deltas, maskf = self._march(rays_o, rays_d, occ_state, jitter_seed)
+                complete = None
+                n_samples = self.marcher.n_samples
+            else:
+                raise ValueError(f"unknown march {march!r}")
+            total = n_rays * n_samples
+            dev = rays_o.device
+            maskb = maskf > 0.0
+            # --- compaction: the first `cap` valid samples in ray-major order
+            is_pad, safe_idx, seg_ids = compact(maskb, cap)
+            cpos_cap = cpos.reshape(total, 3)[safe_idx]
+            ray_of = torch.where(is_pad, 0, seg_ids)
 
         # --- the field and decoders run on exactly `cap` samples
-        feats_cap = self._field_apply(cpos_cap, dropout_seed)
-        sigma_cap = self.sigma_decoder(feats_cap, self.compute_dtype)
+        with span("render.field"):
+            feats_cap = self._field_apply(cpos_cap, dropout_seed)
+        with span("render.decode"):
+            sigma_cap = self.sigma_decoder(feats_cap, self.compute_dtype)
 
-        # --- transmittance directly on the packed layout: segment k is ray
-        # k; the pad tail (id n_rays) lies outside the n_rays segments and
-        # gets weight 0, as its valid = 0 gives
-        valid_cap = 1.0 - is_pad.float()
-        delta_cap = deltas.reshape(total)[safe_idx]
-        seg32 = seg_ids.to(torch.int32)
-        w_cap = compute_weights_packed(
-            sigma_cap.float().contiguous(), delta_cap.contiguous(), valid_cap,
-            seg32, self.early_termination, n_segments=n_rays,
-        )
+            # --- transmittance directly on the packed layout: segment k is ray
+            # k; the pad tail (id n_rays) lies outside the n_rays segments and
+            # gets weight 0, as its valid = 0 gives
+            valid_cap = 1.0 - is_pad.float()
+            delta_cap = deltas.reshape(total)[safe_idx]
+            seg32 = seg_ids.to(torch.int32)
+            w_cap = compute_weights_packed(
+                sigma_cap.float().contiguous(), delta_cap.contiguous(), valid_cap,
+                seg32, self.early_termination, n_segments=n_rays,
+            )
 
-        if rgb_dir_branch == "ray":
-            rgbs_cap = self.rgb_decoder.apply_per_ray(feats_cap, rays_d, ray_of, self.compute_dtype)
-        else:
-            rgbs_cap = self.rgb_decoder(feats_cap, rays_d[ray_of], self.compute_dtype)
+            if rgb_dir_branch == "ray":
+                rgbs_cap = self.rgb_decoder.apply_per_ray(feats_cap, rays_d, ray_of, self.compute_dtype)
+            else:
+                rgbs_cap = self.rgb_decoder(feats_cap, rays_d[ray_of], self.compute_dtype)
 
-        # --- per-ray reduction: one segment sum of (w * rgb, w), in a fixed
-        # order on the card; the pad tail (id n_rays) is dropped
-        sums = segment_sum(torch.cat([w_cap[:, None] * rgbs_cap, w_cap[:, None]], dim=1), seg32, n_rays)
-        acc_rgb, opacity = sums[:, :3], sums[:, 3]
+            # --- per-ray reduction: one segment sum of (w * rgb, w), in a fixed
+            # order on the card; the pad tail (id n_rays) is dropped
+            sums = segment_sum(torch.cat([w_cap[:, None] * rgbs_cap, w_cap[:, None]], dim=1), seg32, n_rays)
+            acc_rgb, opacity = sums[:, :3], sums[:, 3]
 
-        # --- rays whose samples spilled past `cap`, or whose skip march ran
-        # out of rounds, are flagged; zero-sample rays render exact bg and
-        # always stay valid
-        counts = maskb.sum(dim=-1)
-        ends = torch.cumsum(counts, dim=0)
-        ray_valid = ((ends <= cap) | (counts == 0)).float()
-        if complete is not None:
-            ray_valid = ray_valid * complete.float()
-        return RenderOutput(
-            rgb=self._composite(acc_rgb, opacity),
-            opacity=opacity,
-            ray_valid=ray_valid,
-            n_samples=torch.clamp(counts.sum(), max=cap),
-            n_complete=complete.sum() if complete is not None else torch.full((), n_rays, device=dev),
-        )
+            # --- rays whose samples spilled past `cap`, or whose skip march ran
+            # out of rounds, are flagged; zero-sample rays render exact bg and
+            # always stay valid
+            counts = maskb.sum(dim=-1)
+            ends = torch.cumsum(counts, dim=0)
+            ray_valid = ((ends <= cap) | (counts == 0)).float()
+            if complete is not None:
+                ray_valid = ray_valid * complete.float()
+            return RenderOutput(
+                rgb=self._composite(acc_rgb, opacity),
+                opacity=opacity,
+                ray_valid=ray_valid,
+                n_samples=torch.clamp(counts.sum(), max=cap),
+                n_complete=complete.sum() if complete is not None else torch.full((), n_rays, device=dev),
+            )

@@ -52,6 +52,7 @@ from . import table_grad
 from .bitonic import packed_bits_ok
 from .octbuild import CORNERS_3D, _cast, build_oct, build_quad, oct_fold
 from .table_grad import default_window, table_grad_sorted
+from ..utils.trace import span
 
 
 def _to_index_space(c: torch.Tensor, res: int) -> torch.Tensor:
@@ -419,50 +420,51 @@ class _MultiProj(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        bwd_impl, shard_group, n_proj, n_scales = ctx.meta
-        saved = ctx.saved_tensors
-        coords, tables = saved[:n_proj], saved[n_proj:]
-        by_proj = [tables[p * n_scales : (p + 1) * n_scales] for p in range(n_proj)]
-        r_fine = max(t.shape[0] for t in by_proj[0])
-        f_tot = sum(t.shape[-1] for t in by_proj[0])
-        n_cells = (r_fine - 1) * (r_fine - 1)
-        n = coords[0][..., 0].numel()
-        impl = _resolve_bwd_impl(bwd_impl, coords[0].device, n_cells, n)
+        with span("field.table_grad"):
+            bwd_impl, shard_group, n_proj, n_scales = ctx.meta
+            saved = ctx.saved_tensors
+            coords, tables = saved[:n_proj], saved[n_proj:]
+            by_proj = [tables[p * n_scales : (p + 1) * n_scales] for p in range(n_proj)]
+            r_fine = max(t.shape[0] for t in by_proj[0])
+            f_tot = sum(t.shape[-1] for t in by_proj[0])
+            n_cells = (r_fine - 1) * (r_fine - 1)
+            n = coords[0][..., 0].numel()
+            impl = _resolve_bwd_impl(bwd_impl, coords[0].device, n_cells, n)
 
-        cells, ws, gs = [], [], []
-        for p in range(n_proj):
-            cell, w = _cell_2d(coords[p], r_fine, r_fine)
-            cells.append(cell.reshape(n))
-            ws.append(w.reshape(n, 4))
-            pieces = [
-                grads[p * n_scales + s] if grads[p * n_scales + s] is not None
-                else torch.zeros_like(coords[p][..., :1]).expand(*coords[p].shape[:-1], t.shape[-1])
-                for s, t in enumerate(by_proj[p])
-            ]
-            gs.append(torch.cat(pieces, dim=-1).reshape(n, f_tot).float())
-
-        if impl.startswith("sorted"):
-            gq_all = table_grad_sorted(
-                torch.stack(gs), torch.stack(ws), torch.stack(cells), n_cells,
-                payload_dtype=torch.bfloat16 if impl == "sorted_bf16" else torch.float32,
-            )
-            gq_by_proj = [gq_all[p] for p in range(n_proj)]
-        else:
-            # the CPU's scatter (never on a CUDA device: `_resolve_bwd_impl`),
-            # one per projection, corner-major rows [c0(f_tot), .., c3]
-            gq_by_proj = [
-                torch.zeros(n_cells, 4 * f_tot, dtype=torch.float32, device=gs[p].device)
-                .index_add_(0, cells[p], (ws[p][:, :, None] * gs[p][:, None, :]).reshape(n, 4 * f_tot))
-                for p in range(n_proj)
-            ]
-        if shard_group is not None:
-            table_grads = _sharded_pullback(gq_by_proj, by_proj, r_fine, f_tot, shard_group)
-        else:
-            table_grads = []
+            cells, ws, gs = [], [], []
             for p in range(n_proj):
-                fine = _fine_from_quad(gq_by_proj[p], r_fine, f_tot)
-                table_grads.extend(_pullback_scales(fine, by_proj[p]))
-        return (None,) * 6 + (None,) * n_proj + tuple(table_grads)
+                cell, w = _cell_2d(coords[p], r_fine, r_fine)
+                cells.append(cell.reshape(n))
+                ws.append(w.reshape(n, 4))
+                pieces = [
+                    grads[p * n_scales + s] if grads[p * n_scales + s] is not None
+                    else torch.zeros_like(coords[p][..., :1]).expand(*coords[p].shape[:-1], t.shape[-1])
+                    for s, t in enumerate(by_proj[p])
+                ]
+                gs.append(torch.cat(pieces, dim=-1).reshape(n, f_tot).float())
+
+            if impl.startswith("sorted"):
+                gq_all = table_grad_sorted(
+                    torch.stack(gs), torch.stack(ws), torch.stack(cells), n_cells,
+                    payload_dtype=torch.bfloat16 if impl == "sorted_bf16" else torch.float32,
+                )
+                gq_by_proj = [gq_all[p] for p in range(n_proj)]
+            else:
+                # the CPU's scatter (never on a CUDA device: `_resolve_bwd_impl`),
+                # one per projection, corner-major rows [c0(f_tot), .., c3]
+                gq_by_proj = [
+                    torch.zeros(n_cells, 4 * f_tot, dtype=torch.float32, device=gs[p].device)
+                    .index_add_(0, cells[p], (ws[p][:, :, None] * gs[p][:, None, :]).reshape(n, 4 * f_tot))
+                    for p in range(n_proj)
+                ]
+            if shard_group is not None:
+                table_grads = _sharded_pullback(gq_by_proj, by_proj, r_fine, f_tot, shard_group)
+            else:
+                table_grads = []
+                for p in range(n_proj):
+                    fine = _fine_from_quad(gq_by_proj[p], r_fine, f_tot)
+                    table_grads.extend(_pullback_scales(fine, by_proj[p]))
+            return (None,) * 6 + (None,) * n_proj + tuple(table_grads)
 
 
 def multiscale_lookup_multiproj(
@@ -561,7 +563,8 @@ class _QuadLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
-        return _cell_route_grad(g, coords, ctx.table_shape), None, None
+        with span("field.table_grad"):
+            return _cell_route_grad(g, coords, ctx.table_shape), None, None
 
 
 def bilinear_lookup_quad(table: torch.Tensor, coords: torch.Tensor,
@@ -592,10 +595,11 @@ class _CornerLookup(torch.autograd.Function):
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
         shape, scatter_dtype = ctx.meta
-        grad = _cell_route_grad(g, coords, shape)
-        if scatter_dtype == torch.bfloat16:
-            grad = grad.to(torch.bfloat16).float()
-        return grad, None, None, None
+        with span("field.table_grad"):
+            grad = _cell_route_grad(g, coords, shape)
+            if scatter_dtype == torch.bfloat16:
+                grad = grad.to(torch.bfloat16).float()
+            return grad, None, None, None
 
 
 SCATTER_DTYPES = (torch.float32, torch.bfloat16)
@@ -702,11 +706,12 @@ class _TrilinearOct(torch.autograd.Function):
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
         r0, r1, r2, f = ctx.table_shape
-        cell, w = _cell_3d(coords, r0, r1, r2)
-        n = cell.numel()
-        m = (r0 - 1, r1 - 1, r2 - 1)
-        gq = oct_table_grad(g.reshape(n, f), w.reshape(n, 8), cell.reshape(n), m[0] * m[1] * m[2])
-        return oct_fold(gq, (r0, r1, r2, f)), None, None
+        with span("field.table_grad"):
+            cell, w = _cell_3d(coords, r0, r1, r2)
+            n = cell.numel()
+            m = (r0 - 1, r1 - 1, r2 - 1)
+            gq = oct_table_grad(g.reshape(n, f), w.reshape(n, 8), cell.reshape(n), m[0] * m[1] * m[2])
+            return oct_fold(gq, (r0, r1, r2, f)), None, None
 
 
 def trilinear_lookup_oct(

@@ -62,6 +62,7 @@ from ..models.registry import make_model
 from ..parallel import zero
 from ..parallel.mesh import DataGroup, shard_rays
 from ..utils.image import save_png
+from ..utils.trace import span
 from .checkpoint import ScaleByAdamState, latest_checkpoint, load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .metrics import EvalMetrics, TrainMetrics, eval_metrics
@@ -352,31 +353,39 @@ def make_train_step(
     use_skip = march == "skip"
 
     def step(occ_state, *rest):
+        with span("train_step"):
+            return body(occ_state, *rest)
+
+    def body(occ_state, *rest):
         skip_grid = rest[0] if use_skip else None
         pool_o, pool_d, pool_rgb, *gen = rest[1:] if use_skip else rest
         generator = gen[0] if gen else None
-        if deterministic:
-            rays_o, rays_d, rgbs = pool_o[:n_cand], pool_d[:n_cand], pool_rgb[:n_cand]
-            jitter_seed = dropout_seed = None
-        else:
-            rays_o, rays_d, rgbs = sample_ray_batch(generator, pool_o, pool_d, pool_rgb, n_cand)
-            words = torch.randint(0, 2**32, (4,), generator=generator, device=pool_o.device)
-            jitter_seed, dropout_seed = words[:2], words[2:]
+        with span("train_step.batch"):
+            if deterministic:
+                rays_o, rays_d, rgbs = pool_o[:n_cand], pool_d[:n_cand], pool_rgb[:n_cand]
+                jitter_seed = dropout_seed = None
+            else:
+                rays_o, rays_d, rgbs = sample_ray_batch(generator, pool_o, pool_d, pool_rgb, n_cand)
+                words = torch.randint(0, 2**32, (4,), generator=generator, device=pool_o.device)
+                jitter_seed, dropout_seed = words[:2], words[2:]
         out = renderer.render_packed(occ_state, rays_o, rays_d, cap,
                                      jitter_seed=jitter_seed, dropout_seed=dropout_seed,
                                      march=march, skip_grid=skip_grid)
-        per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
-        num = torch.sum(per_ray_mse * out.ray_valid)
-        den = torch.sum(out.ray_valid)
-        loss = num * (1.0 / torch.clamp(den, min=1.0))
-        if has_reg:
-            reg = cfg.tv_reg_alpha * field_.loss_tv()
-            if cfg.l1_reg_alpha != 0.0:
-                reg = reg + cfg.l1_reg_alpha * field_.loss_l1()
-            loss = loss + reg
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        optimizer.step(grads)
+        with span("train_step.loss"):
+            per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
+            num = torch.sum(per_ray_mse * out.ray_valid)
+            den = torch.sum(out.ray_valid)
+            loss = num * (1.0 / torch.clamp(den, min=1.0))
+            if has_reg:
+                reg = cfg.tv_reg_alpha * field_.loss_tv()
+                if cfg.l1_reg_alpha != 0.0:
+                    reg = reg + cfg.l1_reg_alpha * field_.loss_l1()
+                loss = loss + reg
+        with span("train_step.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with span("train_step.adam"):
+            optimizer.step(grads)
         metrics = {"loss": loss.detach(), "rays_used": den, "fill": out.n_samples.float() / cap,
                    "complete_frac": out.n_complete.float() / n_cand}
         if deterministic:
@@ -448,34 +457,42 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
         return [torch.zeros_like(p) if g is None else g.contiguous() for p, g in zip(params, grads)]
 
     def step(occ_state, *rest):
+        with span("train_step"):
+            return body(occ_state, *rest)
+
+    def body(occ_state, *rest):
         skip_grid = rest[0] if use_skip else None
         pool_o, pool_d, pool_rgb, *gen = rest[1:] if use_skip else rest
-        if deterministic:
-            rays_o, rays_d, rgbs = pool_o[:local_cand], pool_d[:local_cand], pool_rgb[:local_cand]
-            jitter_seed = dropout_seed = None
-        else:
-            rays_o, rays_d, rgbs = sample_ray_batch(gen[0], pool_o, pool_d, pool_rgb, local_cand)
-            words = torch.randint(0, 2**32, (4,), generator=gen[0], device=pool_o.device)
-            jitter_seed, dropout_seed = words[:2], words[2:]
+        with span("train_step.batch"):
+            if deterministic:
+                rays_o, rays_d, rgbs = pool_o[:local_cand], pool_d[:local_cand], pool_rgb[:local_cand]
+                jitter_seed = dropout_seed = None
+            else:
+                rays_o, rays_d, rgbs = sample_ray_batch(gen[0], pool_o, pool_d, pool_rgb, local_cand)
+                words = torch.randint(0, 2**32, (4,), generator=gen[0], device=pool_o.device)
+                jitter_seed, dropout_seed = words[:2], words[2:]
         if bwd_group is not None:
             field_.shard_bwd_group = bwd_group
         try:
             out = renderer.render_packed(occ_state, rays_o, rays_d, local_cap,
                                          jitter_seed=jitter_seed, dropout_seed=dropout_seed,
                                          march=march, skip_grid=skip_grid)
-            per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
-            num = torch.sum(per_ray_mse * out.ray_valid)
-            den = torch.sum(out.ray_valid)
-            reg = regularizer(sharded) if has_reg else None
-            # [num, den, samples, complete rays, regularizer block]: one sum
-            stats = torch.stack([num.detach(), den, out.n_samples.float(), out.n_complete.float(),
-                                 reg.detach() if sharded and has_reg else torch.zeros_like(den)])
-            group.all_reduce_sum(stats)
+            with span("train_step.loss"):
+                per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
+                num = torch.sum(per_ray_mse * out.ray_valid)
+                den = torch.sum(out.ray_valid)
+                reg = regularizer(sharded) if has_reg else None
+                # [num, den, samples, complete rays, regularizer block]: one sum
+                stats = torch.stack([num.detach(), den, out.n_samples.float(), out.n_complete.float(),
+                                     reg.detach() if sharded and has_reg else torch.zeros_like(den)])
+            with span("train_step.all_reduce"):
+                group.all_reduce_sum(stats)
             scale = 1.0 / torch.clamp(stats[1], min=1.0)
             objective = num * scale
             if sharded and has_reg:
                 objective = objective + reg
-            grads = grads_of(objective)
+            with span("train_step.backward"):
+                grads = grads_of(objective)
         finally:
             if bwd_group is not None:
                 field_.shard_bwd_group = None
@@ -483,17 +500,23 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
         if sharded:
             if has_reg:
                 loss = loss + stats[4]
-            gview = [v for _, v in tree_leaves_with_path(
-                zero.reduce_grads(optimizer.as_tree(grads), table_keys, group))]
-            optimizer.step(gview)
+            with span("train_step.all_reduce"):
+                gview = [v for _, v in tree_leaves_with_path(
+                    zero.reduce_grads(optimizer.as_tree(grads), table_keys, group))]
+            with span("train_step.adam"):
+                optimizer.step(gview)
             if deterministic:
-                full = zero.unview(optimizer.as_tree(gview), optimizer.tree, table_keys, group)
+                with span("train_step.all_reduce"):
+                    full = zero.unview(optimizer.as_tree(gview), optimizer.tree, table_keys, group)
         else:
-            grads = [group.all_reduce_sum(g) for g in grads]
+            with span("train_step.all_reduce"):
+                grads = [group.all_reduce_sum(g) for g in grads]
             if has_reg:
                 loss = loss + reg.detach()
-                grads = [g + r for g, r in zip(grads, grads_of(reg))]
-            optimizer.step(grads)
+                with span("train_step.backward"):
+                    grads = [g + r for g, r in zip(grads, grads_of(reg))]
+            with span("train_step.adam"):
+                optimizer.step(grads)
             if deterministic:
                 full = optimizer.as_tree(grads)
         metrics = {"loss": loss, "rays_used": stats[1], "fill": stats[2] / cfg.sample_cap,
@@ -516,17 +539,19 @@ def make_occupancy_update(renderer: NerfRenderer, group: Optional[DataGroup] = N
     occ = renderer.occupancy
     if group is None or not group.grouped:
         def update(occ_state, generator=None):
-            return occ.update(occ_state, renderer.sigma_fn, generator)
+            with span("occupancy.sweep"):
+                return occ.update(occ_state, renderer.sigma_fn, generator)
 
         return update
     if occ.size[0] % group.world:
         raise ValueError(f"occupancy resolution {occ.size[0]} does not split over {group.world} ranks")
 
     def update_sharded(occ_state, generator=None):
-        jitter = torch.rand((*occ.size, 3), generator=generator, device=occ_state.grid.device)
-        slab = occ.update_slab(occ_state, renderer.sigma_fn, jitter, group.rank, group.world)
-        grid = group.all_gather(slab)
-        return OccupancyState(grid=grid, mean=grid.mean())
+        with span("occupancy.sweep"):
+            jitter = torch.rand((*occ.size, 3), generator=generator, device=occ_state.grid.device)
+            slab = occ.update_slab(occ_state, renderer.sigma_fn, jitter, group.rank, group.world)
+            grid = group.all_gather(slab)
+            return OccupancyState(grid=grid, mean=grid.mean())
 
     return update_sharded
 
@@ -638,50 +663,56 @@ def infer(
     rendered: List[np.ndarray] = []
     for i in indices:
         t0 = time.perf_counter()
-        item = dataset[i]
-        K = dataset.img_intrinsics(i)
-        rays_o = torch.from_numpy(np.asarray(item["rays_o"], np.float32).reshape(-1, 3))
-        rays_d = torch.from_numpy(np.asarray(item["rays_d"], np.float32).reshape(-1, 3))
-        n = rays_o.shape[0]
-        n_pad = (-n) % chunk
-        rays_o = torch.cat([rays_o.to(device), torch.zeros(n_pad, 3, device=device)])
-        rays_d = torch.cat([rays_d.to(device), pad_d.expand(n_pad, 3)])
-        with torch.inference_mode():
-            # queue every chunk before reading any back (the host then waits
-            # once per chunk for its overflow flags, not per launch)
-            chunks = []
-            for k in range(0, rays_o.shape[0], chunk):
-                o_c, d_c = rays_o[k : k + chunk], rays_d[k : k + chunk]
-                if packed_fn is not None:
-                    chunks.append((*packed_fn(occ_state, o_c, d_c, *grid_args), o_c, d_c))
-                else:
-                    chunks.append((render_chunk_fn(occ_state, o_c, d_c), None, None, None, o_c, d_c))
-            outs, bad_o, bad_d, bad_at = [], [], [], []
-            for k, (rgb, ok, n_samples, n_complete, o_c, d_c) in enumerate(chunks):
-                if ok is not None:
-                    bad = torch.nonzero(~ok).flatten()
-                    if stats is not None:
-                        stats.packed_samples += int(n_samples)
-                        stats.fallback_rays += bad.numel()
-                        stats.incomplete_rays += o_c.shape[0] - int(n_complete)
-                    if bad.numel():
-                        bad_o.append(o_c[bad])
-                        bad_d.append(d_c[bad])
-                        bad_at.append(k * chunk + bad)
-                outs.append(rgb)
-            flat = torch.cat(outs)
-            if bad_at:
-                # the image's rays that the packed path flagged, re-rendered
-                # densely in full chunks: one dense chunk per `chunk` such
-                # rays, not one per packed chunk that flagged any
-                o_b, d_b, at = torch.cat(bad_o), torch.cat(bad_d), torch.cat(bad_at)
-                for a in range(0, at.numel(), chunk):
-                    nb = min(chunk, at.numel() - a)
-                    o_p = torch.zeros(chunk, 3, device=device)
-                    d_p = pad_d.expand(chunk, 3).clone()
-                    o_p[:nb], d_p[:nb] = o_b[a : a + nb], d_b[a : a + nb]
-                    flat[at[a : a + nb]] = render_chunk_fn(occ_state, o_p, d_p)[:nb]
-            img = flat[:n].reshape(K.h, K.w, 3).cpu().numpy()
+        with span("serve.view"):
+            item = dataset[i]
+            K = dataset.img_intrinsics(i)
+            with span("serve.upload"):
+                rays_o = torch.from_numpy(np.asarray(item["rays_o"], np.float32).reshape(-1, 3))
+                rays_d = torch.from_numpy(np.asarray(item["rays_d"], np.float32).reshape(-1, 3))
+                n = rays_o.shape[0]
+                n_pad = (-n) % chunk
+                rays_o = torch.cat([rays_o.to(device), torch.zeros(n_pad, 3, device=device)])
+                rays_d = torch.cat([rays_d.to(device), pad_d.expand(n_pad, 3)])
+            with torch.inference_mode():
+                # queue every chunk before reading any back (the host then
+                # waits once per chunk for its overflow flags, not per launch)
+                chunks = []
+                with span("serve.enqueue"):
+                    for k in range(0, rays_o.shape[0], chunk):
+                        o_c, d_c = rays_o[k : k + chunk], rays_d[k : k + chunk]
+                        if packed_fn is not None:
+                            chunks.append((*packed_fn(occ_state, o_c, d_c, *grid_args), o_c, d_c))
+                        else:
+                            chunks.append((render_chunk_fn(occ_state, o_c, d_c), None, None, None, o_c, d_c))
+                outs, bad_o, bad_d, bad_at = [], [], [], []
+                for k, (rgb, ok, n_samples, n_complete, o_c, d_c) in enumerate(chunks):
+                    if ok is not None:
+                        with span("serve.readback"):
+                            bad = torch.nonzero(~ok).flatten()
+                            if stats is not None:
+                                stats.packed_samples += int(n_samples)
+                                stats.fallback_rays += bad.numel()
+                                stats.incomplete_rays += o_c.shape[0] - int(n_complete)
+                        if bad.numel():
+                            bad_o.append(o_c[bad])
+                            bad_d.append(d_c[bad])
+                            bad_at.append(k * chunk + bad)
+                    outs.append(rgb)
+                flat = torch.cat(outs)
+                if bad_at:
+                    # the image's rays that the packed path flagged, re-rendered
+                    # densely in full chunks: one dense chunk per `chunk` such
+                    # rays, not one per packed chunk that flagged any
+                    with span("serve.fallback"):
+                        o_b, d_b, at = torch.cat(bad_o), torch.cat(bad_d), torch.cat(bad_at)
+                        for a in range(0, at.numel(), chunk):
+                            nb = min(chunk, at.numel() - a)
+                            o_p = torch.zeros(chunk, 3, device=device)
+                            d_p = pad_d.expand(chunk, 3).clone()
+                            o_p[:nb], d_p[:nb] = o_b[a : a + nb], d_b[a : a + nb]
+                            flat[at[a : a + nb]] = render_chunk_fn(occ_state, o_p, d_p)[:nb]
+                with span("serve.image"):
+                    img = flat[:n].reshape(K.h, K.w, 3).cpu().numpy()
         if stats is not None:
             stats.seconds.append(time.perf_counter() - t0)
             stats.rays.append(n)
@@ -820,7 +851,8 @@ class BucketEstimator:
             self.just_refreshed = False
             return
         self.just_refreshed = True
-        fill_v, rays_v = float(fill), float(rays_used)
+        with span("train.readback"):
+            fill_v, rays_v = float(fill), float(rays_used)
         if rays_v > 0:
             self.avg_samples_per_ray = max(1.0, fill_v * self.cfg.sample_cap / rays_v)
         self._since = 0
@@ -870,7 +902,8 @@ class MarchPolicy:
         prev, self._pending = self._pending, complete_frac
         if prev is None:
             return None
-        val = float(prev)
+        with span("train.readback"):
+            val = float(prev)
         if val < self.COMPLETE_MIN:
             self.suspended = True
             self._pending = None
@@ -1017,7 +1050,8 @@ def train(
         if not pending:
             return
         # one device -> host copy for the whole batch of scalars
-        host = torch.stack([torch.stack([v.float() for v in rec]) for rec in pending]).cpu()
+        with span("train.readback"):
+            host = torch.stack([torch.stack([v.float() for v in rec]) for rec in pending]).cpu()
         for loss_v, occ_v, _, rays_v in host.tolist():
             train_metrics.append(TrainMetrics(loss=loss_v, occupancy=occ_v))
             rays_used += rays_v
