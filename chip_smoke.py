@@ -189,14 +189,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    served (packed on the skip march behind the shell occupancy, the dense
    fallback), finite, against the reference layout's view (bit-equal where
    the values are the same, the fused-fine view within the packed-vs-dense
-   limits).
+   limits);
+15. the packed serving chunk as one CUDA graph, at the benchmark's
+   K-Planes serving shape (TrainConfig defaults, 800x800 views in chunks
+   of 2048 rays, 64 packed samples a ray on the skip march behind the
+   shell occupancy, the dense fallback): a warm-up view (one capture),
+   then GRAPH_VIEWS views through the graph, each packed call under
+   `torch.cuda.set_sync_debug_mode("error")` (no sync, no capture), then
+   the same views with the packed chunk run eagerly: every pixel and every
+   `InferStats` count equal, 313 replays a view; RECORDED_CHUNKS of view
+   1 replayed and run eagerly under the profiler: the kernel records of
+   each hand-written kernel (PACKED_KERNELS, counted by name) equal on
+   both sides and none above the eager chunks' wrapper counts (the
+   profiler loses records; what it missed is printed), and no wrapper
+   run in the replayed chunks; the graph's views
+   peaking no higher than the eager views, and the graph holding under
+   GRAPH_HELD_BYTES allocated; both sides' seconds a view, and the bytes
+   the graph's private pool holds reserved.
 
-Each of phases 3-14 sets every kernel's launch count to 0 just before it
+Each of phases 3-15 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after (phase 11(a) in each
 rank's process, around `train()`; phase 12 around each tool); the
 comparisons with the plain versions and phase 11's deterministic and
-ungrouped steps are not counted.  The last two lines are a JSON
-record of the kernels (launches summed over phases 3-14, and by phase;
+ungrouped steps are not counted.  A packed chunk replayed from a CUDA
+graph launches through no wrapper: a serving phase counts the chunks it
+ran eagerly (the first one, the capture and the dense fallback), and
+phase 15 counts replayed chunks' kernels from the profiler's kernel
+records.  The last two lines are a JSON
+record of the kernels (launches summed over phases 3-15, and by phase;
 the float8 quad build in a row of its own, the fused fine table's builds
 under the quad build's "fine_table") and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -206,8 +226,10 @@ It needs no jax, no Pillow and no network.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
+import re
 import sys
 import tempfile
 import time
@@ -2303,6 +2325,167 @@ def run_layouts(tmp: str, card: str) -> dict:
     return launches
 
 
+# phase 15, the packed serving chunk as one CUDA graph against the eager
+# chunk, at the benchmark's K-Planes serving shape
+GRAPH_VIEWS = 3
+# what a captured chunk may keep allocated: its static rays and outputs
+# (~75 KB at 2048 rays), not cuBLAS's 32 MiB workspace for the capture stream
+GRAPH_HELD_BYTES = 1 << 20
+# the hand-written kernels of a packed chunk on the AABB skip march, by
+# launch counter (`ops/cuda_lib.py`): the pattern of each one's name in
+# the profiler's kernel records, demangled or not (kernel 1's forward is
+# segscan_kernel<1>; <0> is the segmented cumsum's)
+PACKED_KERNELS = {"segscan": r"segscan_kernel(<1>|ILi1E)", "segment_sum": r"segment_sum_kernel",
+                  "quad_build": r"quad_build(_any)?_kernel", "skip_march": r"march_kernel"}
+# the chunks of view 1 recorded on each side, in RECORD_WINDOWS profiler
+# windows a side.  The profiler on this card loses records: after the
+# earlier phases, every window missed its first chunk's skip march
+# (replayed and eager alike; a whole view's window once missed a dense
+# weights launch too), while phase 15 run alone recorded every launch.
+# So each side keeps its largest count of a kernel over its windows, the
+# two sides are held equal, and neither above the eager wrappers' counts.
+RECORDED_CHUNKS = range(150, 166)
+RECORD_WINDOWS = 3
+
+
+def recorded_launches(fn) -> tuple:
+    """fn() under the profiler: (the kernel records of each PACKED_KERNELS
+    entry, counted by name; whether a skip march was recorded before the
+    first segscan, i.e. the first chunk's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    starts = {k: [ev.time_range.start for ev in prof.events() if ev.device_type == dev and re.search(pat, ev.name)]
+              for k, pat in PACKED_KERNELS.items()}
+    first_march = bool(starts["skip_march"] and starts["segscan"]) and min(starts["skip_march"]) < min(starts["segscan"])
+    return {k: len(v) for k, v in starts.items()}, first_march
+
+
+def run_serve_graph(tmp: str, card: str) -> dict:
+    """Phase 15 (module docstring).  Returns label -> kernel -> launches."""
+    from tinynerf_tpu_torch.ops import cuda_lib
+    from tinynerf_tpu_torch.train import InferStats, TrainConfig, build_renderer, infer, make_render_chunk
+    from tinynerf_tpu_torch.train.loop import make_render_chunk_packed
+    from tinynerf_tpu_torch.utils import make_shell_occupancy, make_spheres_pose_set
+
+    cfg = TrainConfig(method="kplanes", seed=0)
+    poses = make_spheres_pose_set(n_views=1 + GRAPH_VIEWS, res=800, seed=0)
+    renderer = build_renderer(cfg, poses.scene_scale, poses.bg_color, device="cuda")
+    shell = make_shell_occupancy(renderer.occupancy, device="cuda")
+    grid = renderer.skip_grid(shell)
+    cap = cfg.batch_size * cfg.eval_samples_per_ray
+    views = list(range(1, 1 + GRAPH_VIEWS))
+    n_chunks = -(-800 * 800 // cfg.batch_size)
+    graphed = make_render_chunk_packed(renderer, cap, march="skip")
+
+    class Strict:
+        """`graphed` with every call under sync debug mode "error": after
+        the warm-up view each one replays, with no sync and no capture."""
+
+        captures = property(lambda self: graphed.captures)
+        replays = property(lambda self: graphed.replays)
+
+        def __call__(self, *args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return graphed(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    def eager(occ_state, rays_o, rays_d, *grid_args):
+        out = renderer.render_packed(occ_state, rays_o, rays_d, cap, rgb_dir_branch="ray", march="skip",
+                                     skip_grid=grid_args[0])
+        return out.rgb, out.ray_valid > 0.0, out.n_samples, out.n_complete
+
+    def serve(label: str, packed_fn, indices, required) -> tuple:
+        st = InferStats()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        infer(renderer, shell, poses, indices, tmp, label, chunk=cfg.batch_size,
+              render_chunk_fn=make_render_chunk(renderer), packed_fn=packed_fn, stats=st,
+              grid_args=(grid,), write=False)
+        return st, read_counts(f"phase 15 {label}", required, ("skip_march_unbounded",)), \
+            torch.cuda.max_memory_allocated()
+
+    item = poses[views[0]]
+    rays = [torch.from_numpy(np.asarray(item[k], np.float32).reshape(-1, 3)).cuda() for k in ("rays_o", "rays_d")]
+    chunks = [tuple(r[k * cfg.batch_size : (k + 1) * cfg.batch_size] for r in rays) for k in RECORDED_CHUNKS]
+
+    def recorded_chunks(label: str, packed_fn) -> tuple:
+        """RECORDED_CHUNKS through `packed_fn` under the profiler, in
+        RECORD_WINDOWS windows: (each kernel's largest count of records
+        in a window, the wrappers' counts in a window)."""
+        def run():
+            zero_counts()
+            with torch.inference_mode():
+                for o_c, d_c in chunks:
+                    packed_fn(shell, o_c, d_c, grid)
+
+        windows = [recorded_launches(run) for _ in range(RECORD_WINDOWS)]
+        counted = {k: cuda_lib.launch_counts()[k] for k in PACKED_KERNELS}
+        recorded = {k: max(w[0][k] for w in windows) for k in PACKED_KERNELS}
+        print(f"phase 15 {label}, {len(chunks)} chunks: kernel records by window {[w[0] for w in windows]}, the "
+              f"first chunk's skip march recorded {[w[1] for w in windows]}; wrapper counts {counted}")
+        return recorded, counted
+
+    reserved0 = torch.cuda.memory_reserved()
+    packed_kernels = march_kernels("kplanes", "aabb", "skip")
+    warm, _, _ = serve("warm-up view", graphed, [0], packed_kernels)
+    # the replays launch through no wrapper: the counts are the fallback's
+    ours, ours_counts, ours_peak = serve("graph", Strict(), views, ("weights_dense", "quad_build"))
+    ref, ref_counts, ref_peak = serve("eager", eager, views, packed_kernels)
+    eager_recorded, eager_counted = recorded_chunks("eager", eager)
+    graph_recorded, graph_counted = recorded_chunks("replayed", graphed)
+    gc.collect()  # earlier phases' garbage, apart from what the graph holds
+    torch.cuda.empty_cache()
+    with_pool, with_graph = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    del graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_bytes = with_pool - torch.cuda.memory_reserved()
+    held = with_graph - torch.cuda.memory_allocated()  # its static inputs and outputs
+    same_pixels = all(a.shape == (800, 800, 3) and np.array_equal(a, b) for a, b in zip(ours.images, ref.images))
+    fields = ("rays", "packed_samples", "fallback_rays", "incomplete_rays")
+    same_counts = all(getattr(ours, f) == getattr(ref, f) for f in fields)
+    same_launches = graph_recorded == eager_recorded and all(
+        0 < n <= eager_counted[k] for k, n in eager_recorded.items())
+    unrecorded = {k: eager_counted[k] - n for k, n in eager_recorded.items() if n != eager_counted[k]}
+    # no wrapper ran in the replayed chunks, nor for a packed chunk in the
+    # replayed views (their counts are the dense fallback's)
+    wrapperless = not (any(graph_counted.values()) or any(ours_counts[k] for k in ("segscan", "segment_sum",
+                                                                                  "skip_march")))
+    print(f"phase 15 K-Planes 800x800 views, chunks of {cfg.batch_size} x {cfg.eval_samples_per_ray} on the skip "
+          f"march: warm-up view {warm.graph_captures} capture, {warm.graph_replays} replays, "
+          f"{warm.seconds[0]:.4f} s; {GRAPH_VIEWS} views through the graph {ours.graph_captures} captures, "
+          f"{ours.graph_replays} replays, s/view {np.round(ours.seconds, 4).tolist()}, peak "
+          f"{ours_peak / 1e9:.3f} GB; eager s/view {np.round(ref.seconds, 4).tolist()}, peak {ref_peak / 1e9:.3f} "
+          f"GB; fallback rays {ours.fallback_rays} / {ref.fallback_rays}, packed samples {ours.packed_samples} / "
+          f"{ref.packed_samples}; pixels bit-equal {same_pixels}, counts equal {same_counts}; {len(chunks)} chunks' "
+          f"kernel records, replayed {graph_recorded}, eager {eager_recorded}, equal and within the eager "
+          f"wrappers' counts {eager_counted} {same_launches} (not recorded: {unrecorded or 'none'}); no wrapper ran "
+          f"in a replayed chunk {wrapperless}; "
+          f"the graph's pool {pool_bytes} bytes reserved (reserved before {reserved0}), {held} bytes allocated "
+          f"[{card}]")
+    if not (same_pixels and same_counts):
+        raise AssertionError("phase 15: the replayed views differ from the eager views")
+    if not (same_launches and wrapperless):
+        raise AssertionError("phase 15: the replayed chunks' kernel records differ from the eager chunks' launches")
+    if not (held < GRAPH_HELD_BYTES and ours_peak <= ref_peak):
+        raise AssertionError(f"phase 15: the graph holds {held} bytes allocated, or its views peaked at "
+                             f"{ours_peak} bytes against the eager views' {ref_peak}")
+    if not (warm.graph_captures == 1 and warm.graph_replays == n_chunks - 1 and ours.graph_captures == 0
+            and ours.graph_replays == GRAPH_VIEWS * n_chunks and ref.graph_replays == 0):
+        raise AssertionError(f"phase 15: captures / replays {warm.graph_captures} / {warm.graph_replays}, then "
+                             f"{ours.graph_captures} / {ours.graph_replays}; expected 1 / {n_chunks - 1}, then "
+                             f"0 / {GRAPH_VIEWS * n_chunks}")
+    del renderer, grid
+    torch.cuda.empty_cache()
+    return {"15_kplanes_serve_graph": ours_counts, "15_kplanes_serve_eager": ref_counts}
+
+
 # phase 12, the port's four tools through their main(argv), as a user runs
 # them.  (c) trains K-Planes with the JAX tool's defaults (spheres, 12 views
 # at 100, batch 1024 x 128, f32) for QUALITY_STEPS steps: the occupancy
@@ -2493,6 +2676,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(run_layouts(tmp, card))
         print(f"phase 14 (layouts): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(run_serve_graph(tmp, card))
+        print(f"phase 15 (serving graph): {time.perf_counter() - t0:.1f} s")
 
     # the quad build's counter counts every launch; its float8 launches
     # have a row of their own

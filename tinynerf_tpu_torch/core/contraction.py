@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.device import device_constant
+
 
 @dataclass(frozen=True)
 class ContractionMip360:
@@ -47,8 +49,8 @@ class ContractionAABB:
     aabb: Tuple[Tuple[float, float, float], Tuple[float, float, float]]
 
     def __call__(self, coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        lo = torch.tensor(self.aabb[0], dtype=coords.dtype, device=coords.device)
-        hi = torch.tensor(self.aabb[1], dtype=coords.dtype, device=coords.device)
+        lo = device_constant(self.aabb[0], coords.dtype, coords.device)
+        hi = device_constant(self.aabb[1], coords.dtype, coords.device)
         mask = torch.all((coords >= lo) & (coords <= hi), dim=-1).float()
         contracted = (coords - lo) / (hi - lo) * 2.0 - 1.0
         return contracted, mask

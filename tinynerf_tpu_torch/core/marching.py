@@ -12,6 +12,9 @@ Counterpart of `tinynerf_tpu/core/marching.py`, both [n_rays, n_samples]:
     to [near, far] and nudged 1e-4 steps inside the box), then n_samples
     uniform steps of ||aabb diagonal|| / n_samples.  Samples past the box
     are culled downstream by the contraction mask.
+
+The disparity grid and the box reach a device once (`grid_on`, through
+`utils/device.py` `device_constant`), not at every call.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils.device import device_constant
 
 
 @dataclass(frozen=True)
@@ -48,8 +53,14 @@ class RayMarcherUnbounded:
         t = f * np.float32(self.uniform_range) + np.float32(self.near)
         return t[:-1], t[1:] - t[:-1]
 
+    def grid_on(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`_grid()` on `device`, made there once (f32 values, exact
+        through Python floats)."""
+        t, deltas = (device_constant(tuple(a.tolist()), torch.float32, device) for a in self._grid())
+        return t, deltas
+
     def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        t, deltas = (torch.from_numpy(a).to(rays_o.device) for a in self._grid())
+        t, deltas = self.grid_on(rays_o.device)
         shape = (rays_o.shape[0], self.n_samples)
         return t.expand(shape), deltas.expand(shape)
 
@@ -70,7 +81,7 @@ class RayMarcherAABB:
     def entry_exit(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Slab-test (t_min clamped to [near, far] and nudged, t_exit)."""
         eps = 1e-9
-        box = torch.tensor(self.aabb, dtype=rays_o.dtype, device=rays_o.device)  # [2, 3]
+        box = device_constant(self.aabb, rays_o.dtype, rays_o.device)  # [2, 3]
         d_safe = torch.where(rays_d == 0.0, rays_d + eps, rays_d)
         t_planes = (box[:, None, :] - rays_o[None]) / d_safe[None]  # [2, R, 3]
         t_min = torch.amax(torch.amin(t_planes, dim=0), dim=-1)  # [R]

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.interp import trilinear_lookup
+from ..utils.device import device_constant
 
 # field evaluations per chunk of the update sweep (16 x-slices of a 128^2
 # plane): bounds the sigma field's activations to a few hundred MB
@@ -97,7 +98,7 @@ class OccupancyGrid:
         UPDATE_CHUNK_POINTS field evaluations."""
         _, r1, r2 = self.size
         dev = grid_slices.device
-        size_f = torch.tensor(self.size, dtype=torch.float32, device=dev)
+        size_f = device_constant(self.size, torch.float32, dev)
         yz = torch.stack(torch.meshgrid(
             torch.arange(r1, dtype=torch.float32, device=dev),
             torch.arange(r2, dtype=torch.float32, device=dev), indexing="ij"), dim=-1)

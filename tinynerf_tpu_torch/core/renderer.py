@@ -55,6 +55,7 @@ from ..models.cobafa import CobafaFeatureField
 from ..ops.hashrng import hash_u01
 from ..ops.segscan import compute_weights_packed, segment_sum
 from ..ops.weights_dense import compute_weights_dense
+from ..utils.device import device_constant
 from ..utils.trace import span
 from .contraction import ContractionAABB, ContractionMip360
 from .marching import RayMarcherAABB, RayMarcherUnbounded
@@ -202,7 +203,7 @@ class NerfRenderer(nn.Module):
                 rays_o, rays_d, self.marcher, self.contraction, skip_grid, jitter_seed, self.skip_steps)
             kk = torch.clamp(k_idx, min=0)
             # positions and steps from the dense march's own grid
-            t_grid, d_grid = (torch.from_numpy(a).to(rays_o.device) for a in self.marcher._grid())
+            t_grid, d_grid = self.marcher.grid_on(rays_o.device)
             t, deltas = t_grid[kk], d_grid[kk]
         else:
             t_min, t_exit = self.marcher.entry_exit(rays_o, rays_d)
@@ -224,7 +225,7 @@ class NerfRenderer(nn.Module):
 
     def _composite(self, weighted_rgb_sum, opacity):
         if self.bg_color is not None:
-            bg = torch.tensor(self.bg_color, dtype=torch.float32, device=opacity.device)
+            bg = device_constant(tuple(self.bg_color), torch.float32, opacity.device)
             return weighted_rgb_sum + bg * (1.0 - opacity[..., None])
         return weighted_rgb_sum
 

@@ -10,15 +10,16 @@ single f32 product per lane.
 
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
+
+from ..utils.device import device_constant
 
 
 def positional_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     """x: [..., d] -> [..., d * 2 * n_freqs]."""
-    freqs = torch.tensor(
-        (2.0 ** np.arange(n_freqs)) * np.pi, dtype=x.dtype, device=x.device
-    )
+    freqs = device_constant(tuple(2.0**k * math.pi for k in range(n_freqs)), x.dtype, x.device)
     xf = x[..., None] * freqs  # [..., d, K]
     enc = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)  # [..., d, 2K]
     return enc.reshape(*x.shape[:-1], x.shape[-1] * 2 * n_freqs)

@@ -129,7 +129,9 @@ class KPlanesFeatureField(nn.Module):
         not concatenated: the decoders' split first layers take them as is."""
         self._check_options()
         gd = GATHER_DTYPES[self.gather_dtype]
-        coords = [x[..., [i, j]] for (i, j) in DIMENSION_PAIRS]
+        # each pair copied by a stack: list indexing would copy its index
+        # list to the card at every call
+        coords = [torch.stack((x[..., i], x[..., j]), dim=-1) for (i, j) in DIMENSION_PAIRS]
         if self.lookup_mode == "fused":
             n_scales = len(self.resolutions)
             per_proj = multiscale_lookup_multiproj(

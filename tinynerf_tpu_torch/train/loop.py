@@ -573,6 +573,57 @@ def make_render_chunk(renderer: NerfRenderer, group: Optional[DataGroup] = None)
     return render_chunk_sharded
 
 
+def packed_graph_key(renderer: NerfRenderer, cap: int, march: str, occ_state, rays_o: torch.Tensor,
+                     grid: Tuple) -> tuple:
+    """What a captured packed chunk fixes: the rays' shape, dtype and
+    device, the cap, the march, the TF32 flag of the matrix products, the
+    renderer's options that the forward reads, and the storage a replay
+    reads by address: the skip grid's (the occupancy state's on the dense
+    march) and every parameter's.  A value written in place there is read
+    by the replay; a tensor replaced, or an option changed, changes the key.
+    The field's, the marcher's and the contraction's options, fixed when
+    they are built, are read at capture."""
+    if march == "skip":
+        state = (grid[0].data_ptr(), tuple(grid[0].shape))
+    elif occ_state is not None:
+        state = (occ_state.grid.data_ptr(), tuple(occ_state.grid.shape), occ_state.mean.data_ptr())
+    else:
+        state = None
+    bg = None if renderer.bg_color is None else tuple(renderer.bg_color)
+    options = (renderer.skip_steps, renderer.compute_dtype, renderer.remat_field, renderer.early_termination, bg)
+    return (tuple(rays_o.shape), rays_o.dtype, rays_o.device, cap, march,
+            torch.backends.cuda.matmul.allow_tf32, options, state,
+            tuple(p.data_ptr() for p in renderer.parameters()))
+
+
+class _ChunkGraph:
+    """One packed chunk captured as a CUDA graph: the rays copied into
+    static inputs, the graph replayed, clones of its static outputs
+    returned (a caller may queue many chunks before reading any).  A replay
+    launches through no kernel wrapper, so the wrappers' launch counters
+    count the capture and not the replays."""
+
+    def __init__(self, render: Callable, key: tuple, occ_state, rays_o, rays_d, grid: Tuple):
+        self.key = key
+        with torch.inference_mode(False):  # written in place by every later call
+            self.rays_o, self.rays_d = rays_o.clone(), rays_d.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outs = render(occ_state, self.rays_o, self.rays_d, *grid)
+        # cuBLAS made a 32 MiB workspace for the capture stream, which it
+        # would keep allocated for the life of the process.  Freed here, it
+        # stays reserved in the graph's private pool, where the replays use
+        # it: the pool's reserved bytes, and not the allocated ones, hold
+        # the serving chunk's working memory
+        torch._C._cuda_clearCublasWorkspaces()
+
+    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> tuple:
+        self.rays_o.copy_(rays_o)
+        self.rays_d.copy_(rays_d)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outs)
+
+
 def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "dense",
                              group: Optional[DataGroup] = None) -> Callable:
     """Fixed-capacity packed render of one ray chunk, the serving path, with
@@ -583,7 +634,15 @@ def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "den
     through the dense path, so packed serving is exact.  With a `group`
     (whose world size divides the chunk and `cap`) each rank packs its 1/N
     of the rays into cap / N samples, and every rank gets the gathered
-    colors and flags and the summed counts."""
+    colors and flags and the summed counts.
+
+    Without a group, on CUDA rays and with grad mode off, the chunk runs as
+    one CUDA graph: the first call for a `packed_graph_key` runs eagerly
+    (its result is returned) and captures the graph, every later call with
+    that key replays it, bit for bit the eager chunk.  One graph is kept,
+    the last key's, until `fn.release()` drops it and its memory pool.
+    `fn.captures` and `fn.replays` count both.  Anything else (the CPU, a
+    group's collectives, gradients) runs eagerly."""
     if march not in ("dense", "skip"):
         raise ValueError(f"unknown march {march!r}")
     grouped = group is not None and group.grouped
@@ -596,24 +655,47 @@ def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "den
                                      march=march, skip_grid=grid[0] if grid else None)
         return out.rgb, out.ray_valid > 0.0, out.n_samples, out.n_complete
 
-    if not grouped:
-        return render
+    if grouped:
+        def render_sharded(occ_state, rays_o, rays_d, *grid):
+            rgb, ok, n_samples, n_complete = render(occ_state, *shard_rays(group, rays_o, rays_d), *grid)
+            both = group.all_gather(torch.cat([rgb, ok.float()[:, None]], dim=1))
+            counts = group.all_reduce_sum(torch.stack([n_samples, n_complete]).long())
+            return both[:, :3], both[:, 3] > 0.0, counts[0], counts[1]
 
-    def render_sharded(occ_state, rays_o, rays_d, *grid):
-        rgb, ok, n_samples, n_complete = render(occ_state, *shard_rays(group, rays_o, rays_d), *grid)
-        both = group.all_gather(torch.cat([rgb, ok.float()[:, None]], dim=1))
-        counts = group.all_reduce_sum(torch.stack([n_samples, n_complete]).long())
-        return both[:, :3], both[:, 3] > 0.0, counts[0], counts[1]
+        return render_sharded
 
-    return render_sharded
+    live: List[_ChunkGraph] = []  # the last key's graph
+
+    def release() -> None:
+        if live:
+            torch.cuda.synchronize(live[0].rays_o.device)  # no replay of the graph still queued
+            live.clear()
+
+    def render_graphed(occ_state, rays_o, rays_d, *grid):
+        if not rays_o.is_cuda or torch.is_grad_enabled():
+            return render(occ_state, rays_o, rays_d, *grid)
+        key = packed_graph_key(renderer, local_cap, march, occ_state, rays_o, grid)
+        if live and live[0].key == key:
+            render_graphed.replays += 1
+            return live[0](rays_o, rays_d)
+        release()
+        out = render(occ_state, rays_o, rays_d, *grid)  # the warm-up
+        live.append(_ChunkGraph(render, key, occ_state, rays_o, rays_d, grid))
+        render_graphed.captures += 1
+        return out
+
+    render_graphed.captures = render_graphed.replays = 0
+    render_graphed.release = release
+    return render_graphed
 
 
 @dataclass
 class InferStats:
     """What `infer` did: per image its rendering (float, before the PNG's
     8-bit rounding), seconds on the host clock (synchronized) and ray count;
-    in total the packed samples, the rays re-rendered densely, and the rays
-    whose skip march ran out of rounds (padding rays included); and
+    in total the packed samples, the rays re-rendered densely, the rays
+    whose skip march ran out of rounds (padding rays included), and the
+    packed chunks captured as a CUDA graph and replayed from one; and
     `render_only`'s skip-grid build, seconds (synchronized)."""
 
     images: List[np.ndarray] = field(default_factory=list)
@@ -622,7 +704,15 @@ class InferStats:
     packed_samples: int = 0
     fallback_rays: int = 0
     incomplete_rays: int = 0
+    graph_captures: int = 0
+    graph_replays: int = 0
     skip_grid_seconds: float = 0.0
+
+
+def _graph_counts(packed_fn: Optional[Callable]) -> Tuple[int, int]:
+    """(captures, replays) of a packed chunk function; (0, 0) for one that
+    never captures (a group's, or none)."""
+    return getattr(packed_fn, "captures", 0), getattr(packed_fn, "replays", 0)
 
 
 def _renderer_device(renderer: NerfRenderer) -> torch.device:
@@ -677,6 +767,7 @@ def infer(
                 # queue every chunk before reading any back (the host then
                 # waits once per chunk for its overflow flags, not per launch)
                 chunks = []
+                graphs = _graph_counts(packed_fn)
                 with span("serve.enqueue"):
                     for k in range(0, rays_o.shape[0], chunk):
                         o_c, d_c = rays_o[k : k + chunk], rays_d[k : k + chunk]
@@ -684,6 +775,10 @@ def infer(
                             chunks.append((*packed_fn(occ_state, o_c, d_c, *grid_args), o_c, d_c))
                         else:
                             chunks.append((render_chunk_fn(occ_state, o_c, d_c), None, None, None, o_c, d_c))
+                if stats is not None:
+                    captures, replays = (b - a for a, b in zip(graphs, _graph_counts(packed_fn)))
+                    stats.graph_captures += captures
+                    stats.graph_replays += replays
                 outs, bad_o, bad_d, bad_at = [], [], [], []
                 for k, (rgb, ok, n_samples, n_complete, o_c, d_c) in enumerate(chunks):
                     if ok is not None:
@@ -1115,6 +1210,9 @@ def train(
                 chunk=cfg.batch_size, render_chunk_fn=render_chunk_fn, packed_fn=packed_chunk_fn,
                 grid_args=eval_grid_args(), write=lead,
             )
+            release = getattr(packed_chunk_fn, "release", None)
+            if release is not None:
+                release()  # training does not carry the eval's graph and its pool
             round_metrics = evaluate(eval_set, rendered, indices)
             eval_acc.extend(round_metrics)
             eval_timeline.append({

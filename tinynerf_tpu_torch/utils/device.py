@@ -1,8 +1,10 @@
 """The device a tool runs on: CUDA unless the caller asks for the CPU, and
-never the CPU in place of a card that is missing."""
+never the CPU in place of a card that is missing; and the forward's
+constants, made on a device once."""
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
@@ -31,3 +33,15 @@ def card_line(device: torch.device) -> str:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)`, made once per
+    (values, dtype, device) and kept: a constant the forward would otherwise
+    copy to the card at every call (a pageable copy and a stream sync, which
+    a CUDA graph cannot hold).  `values` is a tuple of numbers, or of such
+    tuples.  Made outside inference mode, so autograd may save it; callers
+    only read it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

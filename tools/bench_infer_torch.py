@@ -16,9 +16,12 @@ warm-up chunk, synchronized with `torch.cuda.synchronize()`, and prints
 ms per chunk, rays/s, the share of rays the packed paths render (`ok`; the
 rest would fall back to the dense path), the speedup of the faster packed
 path over dense, and how many times each of the port's CUDA kernels
-launched per path.  `main(argv)` returns those numbers.  Runs on the card
-unless `--device cpu` is given (then the kernels' plain versions run and
-every launch count is 0).
+launched through its wrapper per path.  On the card a packed path's
+timed chunks replay the CUDA graph that its warm-up chunk captured, which
+launches through no wrapper: its counts are the warm-up's and the
+capture's.  `main(argv)` returns those numbers.  Runs on the card unless
+`--device cpu` is given (then the kernels' plain versions run and every
+launch count is 0).
 """
 
 from __future__ import annotations
