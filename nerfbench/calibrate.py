@@ -6,8 +6,9 @@ own size on the card, one JSON line per seed:
 
 Per seed, against the float32 reference: the program as the configuration
 states it (the lower reading); the control one precision below bfloat16
-(the program with float8 gathers where it has that path, K-Planes; else
-the reference with float8_e4m3fn tables and products); and, for a training
+(the field file's `CONTROL`: the program with those field options, its
+float8 gathers, where the field has that path; else, `CONTROL` None, the
+reference with float8_e4m3fn tables and products); and, for a training
 cell, the planted fault of half the batch left out (the reference, its mean
 over the other half).  The benchmark's own runs never run this.
 """
@@ -28,7 +29,7 @@ import torch  # noqa: E402
 from nerfbench import cells, check, harness, scene  # noqa: E402
 from nerfbench.reference import nerf as reference  # noqa: E402
 
-FLOAT8 = {"gather_dtype": "float8"}
+REFERENCE_CONTROL = "reference, float8_e4m3fn tables and products"
 
 
 def program_train(config, traffic, seed, device, pool, field_kw=None) -> dict:
@@ -41,20 +42,22 @@ def program_train(config, traffic, seed, device, pool, field_kw=None) -> dict:
 
 
 def train_seed(config, traffic, seed, device) -> dict:
-    pool = scene.training_pool(seed, traffic, device)
-    grid, mean = scene.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
+    world = reference.scene_of(config)
+    pool = world.training_pool(seed, traffic, device)
+    grid, mean = world.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
     t0 = time.perf_counter()
     prog = program_train(config, traffic, seed, device, pool)
     t1 = time.perf_counter()
     params = scene.make_params(config, seed, device)
     ref = reference.train_steps(config, params, pool, grid, mean, prog["steps"], prec=config["compute"])
     t2 = time.perf_counter()
-    if config["field"]["kind"] == "kplanes":
-        control = program_train(config, traffic, seed, device, pool, FLOAT8)
-        control_kind = "program, float8 gathers"
+    control_kw = reference.field_of(config).CONTROL
+    if control_kw is not None:
+        control = program_train(config, traffic, seed, device, pool, control_kw)
+        control_kind = f"program, {control_kw}"
     else:
         control = reference.train_steps(config, params, pool, grid, mean, prog["steps"], prec="fp8")
-        control_kind = "reference, float8_e4m3fn tables and products"
+        control_kind = REFERENCE_CONTROL
     half = reference.train_steps(config, params, pool, grid, mean, prog["steps"], prec=config["compute"],
                                  half_batch=True)
     return {"seed": seed, "program": check.train_numbers(prog, ref), "control": check.train_numbers(control, ref),
@@ -81,26 +84,28 @@ def serve_images(config, traffic, seed, device, views, picks, field_kw=None):
 
 
 def serve_seed(config, traffic, seed, device) -> dict:
-    rays_o, rays_d = scene.test_views(seed, traffic, device)
+    world = reference.scene_of(config)
+    rays_o, rays_d = world.served_rays(traffic, device)
     views = cells.HostViews(rays_o, rays_d)
     picks = list(range(traffic["check_views"]))
     t0 = time.perf_counter()
     images, fallback = serve_images(config, traffic, seed, device, views, picks)
     t1 = time.perf_counter()
     params = scene.make_params(config, seed, device)
-    grid, mean = scene.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
+    grid, mean = world.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
     refs = [reference.render_view(config, params, torch.from_numpy(rays_o[v].reshape(-1, 3)).to(device),
                                   torch.from_numpy(rays_d[v].reshape(-1, 3)).to(device), grid, mean,
                                   prec=config["compute"]).cpu().numpy().reshape(rays_o[v].shape) for v in picks]
     t2 = time.perf_counter()
-    if config["field"]["kind"] == "kplanes":
-        control, _ = serve_images(config, traffic, seed, device, views, picks, FLOAT8)
-        control_kind = "program, float8 gathers"
+    control_kw = reference.field_of(config).CONTROL
+    if control_kw is not None:
+        control, _ = serve_images(config, traffic, seed, device, views, picks, control_kw)
+        control_kind = f"program, {control_kw}"
     else:
         control = [reference.render_view(config, params, torch.from_numpy(rays_o[v].reshape(-1, 3)).to(device),
                                          torch.from_numpy(rays_d[v].reshape(-1, 3)).to(device), grid, mean,
                                          prec="fp8").cpu().numpy().reshape(rays_o[v].shape) for v in picks]
-        control_kind = "reference, float8_e4m3fn tables and products"
+        control_kind = REFERENCE_CONTROL
     return {"seed": seed, "program": check.serve_numbers(images, refs), "control": check.serve_numbers(control, refs),
             "control_kind": control_kind, "program_s": t1 - t0, "reference_s": t2 - t1, "fallback_share": fallback,
             "mean_pixel": float(np.mean(refs))}

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import scene
+from .reference.nerf import scene_of
 
 
 def span(name: str, on: bool):
@@ -40,9 +41,7 @@ def build(config: dict, device: torch.device, field_kw: Optional[dict] = None):
     float8 gathers)."""
     from tinynerf_tpu_torch.train import TrainConfig, build_renderer
 
-    train = dict(config["train"])
-    train["aabb"] = tuple(tuple(float(v) for v in corner) for corner in train["aabb"])
-    cfg = TrainConfig(**train)
+    cfg = TrainConfig(**scene_of(config).train_keys(config["train"]))
     opt = config["optimizer"]
     stated = (cfg.effective_lr, cfg.effective_lr_tables or cfg.effective_lr, cfg.adam_eps, cfg.weight_decay)
     if not np.allclose(stated, (opt["lr"], opt["lr_tables"], opt["eps"], opt["weight_decay"]), rtol=1e-12):
@@ -64,10 +63,10 @@ def load_params(renderer: torch.nn.Module, params: Dict[str, torch.Tensor], n_pa
             p.copy_(params[name])
 
 
-def occupancy_state(kind: str, res: int, device):
+def occupancy_state(config: dict, kind: str, device):
     from tinynerf_tpu_torch.core.occupancy import OccupancyState
 
-    grid, mean = scene.occupancy_grid(kind, res, device)
+    grid, mean = scene_of(config).occupancy_grid(kind, config["train"]["occupancy_res"], device)
     return OccupancyState(grid=grid, mean=mean)
 
 
@@ -92,7 +91,7 @@ class TrainLoop:
         self.cfg, self.renderer = build(config, device, field_kw)
         load_params(self.renderer, params, config["params"])
         self.optimizer = make_optimizer(self.cfg, self.renderer)
-        self.occ = occupancy_state(traffic["occupancy"], self.cfg.occupancy_res, device)
+        self.occ = occupancy_state(config, traffic["occupancy"], device)
         self.policy = MarchPolicy(self.renderer.supports_skip_march, self.cfg.march, self.renderer.skip_steps)
         self.skip_grid = self.renderer.skip_grid(self.occ) if self.policy.can_skip else None
         self.occ_update = make_occupancy_update(self.renderer)
@@ -264,7 +263,7 @@ class ServeLoop:
         self.traffic, self.device, self.views = traffic, device, views
         self.cfg, self.renderer = build(config, device, field_kw)
         load_params(self.renderer, params, config["params"])
-        self.occ = occupancy_state(traffic["occupancy"], self.cfg.occupancy_res, device)
+        self.occ = occupancy_state(config, traffic["occupancy"], device)
         self.chunk = traffic["chunk"]
         self.packed = make_render_chunk_packed(
             self.renderer, self.chunk * traffic["packed_samples_per_ray"], march=traffic["march"])

@@ -6,9 +6,10 @@ and each output written once."""
 
 from __future__ import annotations
 
-import importlib.util
 import json
 from pathlib import Path
+
+from ..reference.nerf import module_at
 
 HERE = Path(__file__).resolve().parent
 
@@ -30,10 +31,7 @@ def forward_flops(counts: dict, direction_per_sample: bool) -> tuple:
 
 def kernel(name: str):
     """The byte model of kernel `name` (`counts/<name>.py`)."""
-    spec = importlib.util.spec_from_file_location(f"nerfbench_counts_{name}", HERE / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return module_at(HERE / f"{name}.py")
 
 
 def roofline(r, name: str):

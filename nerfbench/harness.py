@@ -3,17 +3,19 @@ BENCHMARK.json, the inputs made from the seed, set-up, the measured (or
 traced) window, the comparison with the reference, and the result line.
 
 A configuration is `configs/<name>.json` (as BENCHMARK.json's `file`
-says), a traffic mix `traffic/<name>.json` (its `kind` picks the training
-or the serving loop of `cells.py`), a per-layer metric
-`metrics/<name>.py` (`read(reading)` -> a number or None), a cell's
-limits `limits/<workload>.json`.  Adding a cell, a mix or a metric adds
-files and entries; no code here names one.
+says), with its field `fields/<kind>.py` and its scene
+`scenes/<scene_type>.py` (as the configuration names them); a traffic
+mix `traffic/<name>.json` (its `kind` picks the training or the serving
+loop of `cells.py`); a per-layer metric `metrics/<name>.py`
+(`read(reading)` -> a number or None); a cell's limits
+`limits/<workload>.json`.  Adding a cell, a configuration, a field kind,
+a scene type, a mix or a metric adds files and entries; no code here
+names one.
 """
 
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import subprocess
 import sys
@@ -68,11 +70,7 @@ def cell_metrics(bench: dict, workload: str):
 
 
 def metric_reader(name: str):
-    spec = importlib.util.spec_from_file_location(f"nerfbench_metric_{name.replace('.', '_')}",
-                                                  METRICS / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return reference.module_at(METRICS / f"{name}.py").read
 
 
 @dataclass
@@ -115,7 +113,8 @@ def power_limit(device: torch.device) -> str:
 
 
 def _train(config, traffic, seed, seconds, tracing, device, t_start):
-    pool = scene.training_pool(seed, traffic, device)
+    world = reference.scene_of(config)
+    pool = world.training_pool(seed, traffic, device)
     params0 = scene.make_params(config, seed, device)
     loop = cells.TrainLoop(config, traffic, seed, device, pool, params0)
     checked = cells.train_setup(loop, params0)
@@ -128,7 +127,7 @@ def _train(config, traffic, seed, seconds, tracing, device, t_start):
     del loop
     free_device()
     summary = trace.summarize(prof) if prof is not None else None
-    grid, mean = scene.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
+    grid, mean = world.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
     ref = reference.train_steps(config, scene.make_params(config, seed, device), pool, grid, mean, checked["steps"],
                                 prec=config["compute"])
     values = {"setup_s": setup_s, "train_rays_per_s": w["rays"] / w["seconds"], "peak_device_gb": peak / 1e9}
@@ -137,7 +136,8 @@ def _train(config, traffic, seed, seconds, tracing, device, t_start):
 
 
 def _serve(config, traffic, seed, seconds, tracing, device, t_start):
-    rays_o, rays_d = scene.test_views(seed, traffic, device)
+    world = reference.scene_of(config)
+    rays_o, rays_d = world.served_rays(traffic, device)
     loop = cells.ServeLoop(config, traffic, device, cells.HostViews(rays_o, rays_d),
                            scene.make_params(config, seed, device))
     loop.window(n_views=traffic["warmup_views"])
@@ -152,7 +152,7 @@ def _serve(config, traffic, seed, seconds, tracing, device, t_start):
     rng = np.random.default_rng(scene.stream_seed(seed, 3))
     picks = rng.choice(w["views"], size=min(traffic["check_views"], w["views"]), replace=False)
     params = scene.make_params(config, seed, device)
-    grid, mean = scene.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
+    grid, mean = world.occupancy_grid(traffic["occupancy"], config["train"]["occupancy_res"], device)
     refs, images = [], []
     for k in sorted(int(k) for k in picks):
         v = w["view_index"][k]

@@ -1,22 +1,28 @@
-"""Plain PyTorch reference of what the cells compute: the AABB march with its
-hash jitter, the occupancy cull, the fixed-capacity choice of the rays a
-step trains on, the K-Planes and CoBaFa fields, the shared decoders, the
-transmittance weights with early termination, compositing, the loss with
-K-Planes' total variation, its gradient by autograd and Adam.
+"""Plain PyTorch reference of what the cells compute: the fixed-capacity
+choice of the rays a step trains on, the shared decoders, the transmittance
+weights with early termination, compositing, the loss, its gradient by
+autograd and Adam, and the helpers that the field and scene files share.
 
-Written from the methods' published equations and the tinynerf
-conventions (align-corners grids, ray-major sample order), with TF32 off,
-in a precision `prec`: "f32" is the plain model; "bf16" the precision the
-configurations state (table values rounded to bfloat16 before the lerp,
-every matrix product of bfloat16 inputs summed in float32, and every
-layer's output and each feature vector rounded to bfloat16); "fp8" the
-same rounding points in float8_e4m3fn, the control one precision below.
-It imports neither JAX nor the program, and takes from the program
-nothing but the outputs it judges.
+A configuration's field is `fields/<config["field"]["kind"]>.py` (its
+parameters, features and extra loss terms) and its scene
+`scenes/<config["train"]["scene_type"]>.py` (its march, with the hash
+jitter and the occupancy cull); both are found by those names, so a new
+kind is a new file.  Written from the methods' published equations and
+the tinynerf conventions (align-corners grids, ray-major sample order),
+with TF32 off, in a precision `prec`: "f32" is the plain model; "bf16" the
+precision the configurations state (table values rounded to bfloat16
+before the lerp, every matrix product of bfloat16 inputs summed in
+float32, and every layer's output and each feature vector rounded to
+bfloat16); "fp8" the same rounding points in float8_e4m3fn, the control
+one precision below.  It imports neither JAX nor the program, and takes
+from the program nothing but the outputs it judges.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -24,6 +30,36 @@ import torch
 
 _M32 = 0xFFFFFFFF
 FP8_MAX = 448.0  # the largest finite float8_e4m3fn
+FIELDS = Path(__file__).resolve().parents[1] / "fields"
+SCENES = Path(__file__).resolve().parents[1] / "scenes"
+
+
+# ------------------------------------------------------------------ kinds
+
+
+@functools.lru_cache(maxsize=None)
+def module_at(path: Path):
+    """The Python file at `path`, loaded once: the benchmark's files found by
+    name (fields, scenes, metric readers, kernel byte models)."""
+    name = f"nerfbench_{path.parent.name}_{path.stem.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def field_of(config: dict):
+    """The file of the configuration's field kind, `fields/<kind>.py`:
+    `param_shapes(config)`, `features(...)`, `extra_loss(config, params)`,
+    `CONTROL` and `TINY`."""
+    return module_at(FIELDS / f"{config['field']['kind']}.py")
+
+
+def scene_of(config: dict):
+    """The file of the configuration's scene type, `scenes/<scene_type>.py`:
+    the generated scene's rays, the occupancy states, the reference's march
+    and the program's train keys."""
+    return module_at(SCENES / f"{config['train']['scene_type']}.py")
 
 
 # ------------------------------------------------------------------ hashing
@@ -105,6 +141,14 @@ def mlp(params: Dict[str, torch.Tensor], prefix: str, n_layers: int, pieces: Seq
     return x
 
 
+def mlp_shapes(prefix: str, dims: Sequence[int]) -> Dict[str, tuple]:
+    """Weight [in, out] and bias shapes of an MLP of widths `dims`, by the
+    program's module names: every weight, then every bias."""
+    shapes = {f"{prefix}.w.{i}": (a, b) for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+    shapes.update({f"{prefix}.b.{i}": (b,) for i, b in enumerate(dims[1:])})
+    return shapes
+
+
 def posenc(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     """Per coordinate [sin(2^k pi x) for k < n, cos(2^k pi x) for k < n]."""
     freqs = torch.tensor((2.0 ** np.arange(n_freqs)) * np.pi, dtype=x.dtype, device=x.device)
@@ -146,39 +190,7 @@ def trilinear(table: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# ------------------------------------------------------------------ fields
-
-
-def field_features(config: dict, params: Dict[str, torch.Tensor], x: torch.Tensor, prec: str,
-                   dropout_seed: Optional[torch.Tensor] = None, rows: Optional[torch.Tensor] = None) -> list:
-    """The feature vector at contracted positions x [n, 3], as its pieces
-    (their concatenation is the vector).  K-Planes: per scale the product of
-    the three planes' lookups, rounded.  CoBaFa: per level the basis grid at
-    sawtooth(f x) times the level's coefficient, dropout (keyed by the
-    sample's row and feature column), into the field MLP."""
-    field = config["field"]
-    if field["kind"] == "kplanes":
-        scales = []
-        for s in range(len(field["resolutions"])):
-            acc = None
-            for p, (a, b) in enumerate(field["pairs"]):
-                v = bilinear(rounded(params[f"field.planes.{s}.{p}"], prec), x[:, [a, b]])
-                acc = v if acc is None else acc * v
-            scales.append(rounded(acc, prec))
-        return scales
-    coefs = trilinear(rounded(params["field.coef"], prec), x)
-    feats, col = [], 0
-    for i, f in enumerate(field["freqs"]):
-        saw = 2.0 * torch.remainder(f * x, 1.0) - 1.0
-        y = trilinear(rounded(params[f"field.basis.{i}"], prec), saw) * coefs[:, i : i + 1]
-        if dropout_seed is not None:
-            p = field["dropout_p"]
-            cols = torch.arange(col, col + y.shape[1], device=x.device)
-            keep = hash_u01(dropout_seed, rows[:, None], cols[None, :]) >= p
-            y = torch.where(keep, y / (1.0 - p), 0.0)
-        feats.append(y)
-        col += y.shape[1]
-    return [mlp(params, "field.mlp", len(field["mlp"]) - 1, feats, prec)]
+# ------------------------------------------------------------------ decoders
 
 
 def decode(config: dict, params: Dict[str, torch.Tensor], feats: list, dirs: torch.Tensor, prec: str):
@@ -193,58 +205,7 @@ def decode(config: dict, params: Dict[str, torch.Tensor], feats: list, dirs: tor
     return sigma, rgb
 
 
-def tv_loss(config: dict, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """K-Planes' total variation, the mean over planes of the mean squared
-    neighbour differences along both plane axes."""
-    field = config["field"]
-    total, count = 0.0, 0
-    for s in range(len(field["resolutions"])):
-        for p in range(len(field["pairs"])):
-            plane = params[f"field.planes.{s}.{p}"]
-            r0, r1, f = plane.shape
-            v = plane.reshape(r0, r1 * f)
-            total = total + torch.mean((v[1:] - v[:-1]) ** 2) + torch.mean((v[:, f:] - v[:, :-f]) ** 2)
-            count += 1
-    return total / count
-
-
-# ------------------------------------------------------------------ march
-
-
-def step_size(aabb, n_samples: int) -> float:
-    lo, hi = np.array(aabb[0], np.float32), np.array(aabb[1], np.float32)
-    return float(np.linalg.norm(hi - lo) / n_samples)
-
-
-def march(rays_o: torch.Tensor, rays_d: torch.Tensor, train: dict, grid: torch.Tensor, grid_mean: torch.Tensor,
-          jitter_seed: Optional[torch.Tensor] = None):
-    """The AABB march: entry by the slab test (clamped to [near, 1e5] and
-    nudged 1e-4 steps in), n_samples uniform steps of |diagonal| / n, each
-    moved by u * step with the jitter hash; positions contracted to
-    [-1, 1]^3 and kept where inside the box and at an occupied voxel
-    (nearest, against min(mean, threshold)).  -> (x [R, S, 3], step, keep
-    [R, S] bool)."""
-    aabb, n = train["aabb"], train["n_samples"]
-    step = step_size(aabb, n)
-    box = torch.tensor(aabb, dtype=torch.float32, device=rays_o.device)
-    d_safe = torch.where(rays_d == 0.0, rays_d + 1e-9, rays_d)
-    planes = (box[:, None, :] - rays_o[None]) / d_safe[None]
-    t_min = torch.clamp(torch.amax(torch.amin(planes, dim=0), dim=-1), train["near"], 1e5)
-    t_min = t_min + np.float32(1e-4 * step).item()
-    t = t_min[:, None] + (torch.arange(n, dtype=torch.float32, device=rays_o.device) * np.float32(step).item())[None]
-    if jitter_seed is not None:
-        u = hash_u01(jitter_seed, torch.arange(t.shape[0], device=t.device)[:, None],
-                     torch.arange(n, device=t.device)[None, :])
-        t = t + u * torch.full_like(t, np.float32(step).item())
-    pos = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
-    inside = torch.all((pos >= box[0]) & (pos <= box[1]), dim=-1)
-    x = (pos - box[0]) / (box[1] - box[0]) * 2.0 - 1.0
-    r0, r1, r2 = grid.shape
-    thr = torch.clamp(grid_mean, max=train["occupancy_threshold"])
-    idx = [torch.clamp(torch.round((x[..., a] + 1.0) * 0.5 * (r - 1)), 0, r - 1).long()
-           for a, r in enumerate((r0, r1, r2))]
-    occupied = grid.reshape(-1)[(idx[0] * r1 + idx[1]) * r2 + idx[2]] > thr
-    return x, np.float32(step).item(), inside & occupied
+# ------------------------------------------------------------------ render
 
 
 def composite(sigma_rs: torch.Tensor, rgb_rs: torch.Tensor, keep: torch.Tensor, step: float,
@@ -262,13 +223,14 @@ def composite(sigma_rs: torch.Tensor, rgb_rs: torch.Tensor, keep: torch.Tensor, 
 def render_rays(config: dict, params, rays_o, rays_d, grid, grid_mean, prec: str,
                 jitter_seed=None, dropout_seed=None, ray_sel: Optional[torch.Tensor] = None):
     """Pixels of the rays (those of `ray_sel` only, when given) and the
-    march's keep mask [R, S]: the field is evaluated only at kept samples,
-    a sample's dropout row being its rank among all rays' kept samples."""
+    march's keep mask [R, S]: the scene's march, the field evaluated only
+    at kept samples, a sample's dropout row (for a field that applies
+    dropout) being its rank among all rays' kept samples."""
     train = config["train"]
-    x, step, keep = march(rays_o, rays_d, train, grid, grid_mean, jitter_seed)
+    x, step, keep = scene_of(config).march(rays_o, rays_d, train, grid, grid_mean, jitter_seed)
     sel = keep if ray_sel is None else keep & ray_sel[:, None]
     rows = (torch.cumsum(keep.reshape(-1).long(), 0) - 1).reshape(keep.shape)[sel] if dropout_seed is not None else None
-    feats = field_features(config, params, x[sel], prec, dropout_seed, rows)
+    feats = field_of(config).features(config, params, x[sel], prec, dropout_seed, rows)
     dirs = rays_d[:, None, :].expand(x.shape)[sel]
     sigma, rgb = decode(config, params, feats, dirs, prec)
     sigma_rs = torch.zeros(keep.shape, device=x.device).masked_scatter(sel, sigma)
@@ -291,14 +253,16 @@ def train_steps(config: dict, params0: Dict[str, torch.Tensor], pool, grid, grid
     """Training steps from params0 on the steps' (generator seed, candidate
     rays): each step marches its rays, trains on those whose samples all fit
     the cap (batch_size x n_samples, in ray order; rays with no sample
-    count), takes MSE + TV, its gradient, L2 decay on all but the tables and
-    Adam.  `half_batch` is a planted fault: the mean over the first half of
-    those rays only.  Returns per step the loss, kept samples and rays
-    trained on; the first gradient's norm per leaf (decay included, as Adam
-    receives it) and each leaf's change after the last step."""
+    count), takes MSE plus the field's extra loss terms, its gradient, L2
+    decay on all but the tables and Adam.  `half_batch` is a planted
+    fault: the mean over the first half of those rays only.  Returns per
+    step the loss, kept samples and rays trained on; the first gradient's
+    norm per leaf (decay included, as Adam receives it) and each leaf's
+    change after the last step."""
     train, opt = config["train"], config["optimizer"]
     cap = train["batch_size"] * train["n_samples"]
     dev = grid.device
+    field, scene = field_of(config), scene_of(config)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
@@ -311,16 +275,16 @@ def train_steps(config: dict, params0: Dict[str, torch.Tensor], pool, grid, grid
         for count, (seed, n_cand) in enumerate(steps, start=1):
             rays_o, rays_d, rgbs, jitter, dropout = step_batch(pool, seed, n_cand, dev)
             with torch.no_grad():
-                _, _, keep = march(rays_o, rays_d, train, grid, grid_mean, jitter)
+                _, _, keep = scene.march(rays_o, rays_d, train, grid, grid_mean, jitter)
                 counts = keep.sum(dim=-1)
                 fits = (torch.cumsum(counts, 0) <= cap) | (counts == 0)
             valid = fits & (torch.cumsum(fits.long(), 0) <= (int(fits.sum()) + 1) // 2) if half_batch else fits
-            rgb, _ = render_rays(config, params, rays_o, rays_d, grid, grid_mean, prec, jitter,
-                                 dropout if config["field"]["kind"] == "cobafa" else None, valid)
+            rgb, _ = render_rays(config, params, rays_o, rays_d, grid, grid_mean, prec, jitter, dropout, valid)
             mse = torch.mean((rgb - rgbs) ** 2, dim=-1)
             loss = torch.sum(mse * valid) / torch.clamp(valid.sum(), min=1)
-            if config["field"]["kind"] == "kplanes" and train["tv_reg_alpha"]:
-                loss = loss + train["tv_reg_alpha"] * tv_loss(config, params)
+            extra = field.extra_loss(config, params)
+            if extra is not None:
+                loss = loss + extra
             grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
             out["loss"].append(float(loss.detach()))
             out["samples"].append(int(torch.clamp(counts.sum(), max=cap)))

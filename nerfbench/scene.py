@@ -1,11 +1,9 @@
-"""The benchmark's inputs, made from the seed on the device: camera poses on
-a ring, pinhole rays, the three-spheres scene's colors, the occupancy
-states and the seeded parameters.
-
-The scene and the pose rule follow `tinynerf_tpu_torch/utils/fixtures.py`
-(`make_spheres_data`, `shell_grid`), rewritten in torch so that 100 views
-of 800x800 rays are built on the card in a few large calls instead of being
-ray-traced in numpy on the host.  Nothing here imports the program.
+"""The benchmark's inputs that every scene and field share, made from the
+seed: run-seed streams, camera poses on a ring (the pose rule of
+`tinynerf_tpu_torch/utils/fixtures.py` `make_spheres_data`), pinhole rays
+and the seeded parameters, drawn on the device in one call.  The scene
+itself is the configuration's scene file (`scenes/`), the field's
+parameters its field file (`fields/`).  Nothing here imports the program.
 """
 
 from __future__ import annotations
@@ -16,14 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-# three lambertian spheres (center, radius, base rgb) inside the [-1.5, 1.5]^3 box
-SPHERES = (
-    ((0.0, 0.0, 0.0), 0.55, (0.85, 0.25, 0.2)),
-    ((0.7, 0.5, 0.3), 0.3, (0.2, 0.6, 0.85)),
-    ((-0.6, 0.4, -0.4), 0.35, (0.95, 0.8, 0.25)),
-)
-LIGHT = np.array([0.5, -0.3, 0.8]) / np.linalg.norm([0.5, -0.3, 0.8])
-VIEWS_PER_CALL = 10  # views ray-traced together: ~640 MB of f32 temporaries
+from .reference.nerf import field_of, mlp_shapes
 
 
 def stream_seed(seed: int, stream: int) -> int:
@@ -70,99 +61,13 @@ def pinhole_rays(cams: torch.Tensor, res: int, camera_angle_x: float) -> Tuple[t
     return o, d
 
 
-def spheres_rgb(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """Colors of rays [..., 3] through the spheres, lit from LIGHT, quantized
-    to 8 bits as an image file holds them and composited over white."""
-    best = torch.full(d.shape[:-1], math.inf, device=d.device)
-    rgb = torch.zeros_like(d)
-    light = torch.tensor(LIGHT, dtype=torch.float32, device=d.device)
-    for center, radius, color in SPHERES:
-        oc = o - torch.tensor(center, dtype=torch.float32, device=d.device)
-        b = torch.sum(d * oc, dim=-1)
-        c = torch.sum(oc * oc, dim=-1) - radius * radius
-        disc = b * b - c
-        hit = disc > 0
-        t = -b - torch.sqrt(torch.clamp(disc, min=0.0))
-        hit &= (t > 0) & (t < best)
-        n = (o + d * t[..., None] - torch.tensor(center, device=d.device)) / radius
-        shade = 0.35 + 0.65 * torch.clamp(n @ light, 0.0, 1.0)
-        col = torch.tensor(color, dtype=torch.float32, device=d.device) * shade[..., None]
-        rgb = torch.where(hit[..., None], col, rgb)
-        best = torch.where(hit, t, best)
-    hit_any = torch.isfinite(best)[..., None]
-    rgb = torch.floor(torch.clamp(rgb, 0.0, 1.0) * 255.0) / 255.0
-    return torch.where(hit_any, rgb, torch.ones_like(rgb))
-
-
-def training_pool(seed: int, traffic: dict, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The ray pool of the training views: origins, directions and colors,
-    each [views * res^2, 3] f32 on `device`."""
-    n, res = traffic["views"], traffic["res"]
-    cams = torch.from_numpy(ring_poses(seed, 0, n, traffic["ring_radius"])).to(device)
-    o_all = torch.empty(n * res * res, 3, device=device)
-    d_all = torch.empty_like(o_all)
-    rgb_all = torch.empty_like(o_all)
-    per = res * res
-    for a in range(0, n, VIEWS_PER_CALL):
-        b = min(n, a + VIEWS_PER_CALL)
-        o, d = pinhole_rays(cams[a:b], res, traffic["camera_angle_x"])
-        o_all[a * per : b * per] = o.reshape(-1, 3)
-        d_all[a * per : b * per] = d.reshape(-1, 3)
-        rgb_all[a * per : b * per] = spheres_rgb(o, d).reshape(-1, 3)
-    return o_all, d_all, rgb_all
-
-
-def test_views(seed: int, traffic: dict, device) -> Tuple[np.ndarray, np.ndarray]:
-    """Rays of the serving loop's views: the first `views` of `ring_poses`
-    test poses, (origins, directions) [views, res, res, 3] f32 on the host,
-    where the program's serving entry reads them."""
-    cams = ring_poses(seed, 1, traffic["ring_poses"], traffic["ring_radius"])[: traffic["views"]]
-    o, d = pinhole_rays(torch.from_numpy(cams).to(device), traffic["res"], traffic["camera_angle_x"])
-    return o.contiguous().cpu().numpy(), d.contiguous().cpu().numpy()
-
-
-def occupancy_grid(kind: str, res: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(grid [res]^3 f32, its mean) of the traffic's occupancy state: "all",
-    every voxel occupied (a run's start), or "shell", a thin spherical shell
-    (radius 0.35 in contracted units, half-width 0.04: what grids converge
-    to on opaque objects)."""
-    if kind == "all":
-        grid = torch.ones(res, res, res, device=device)
-    elif kind == "shell":
-        ax = (torch.arange(res, dtype=torch.float64, device=device) + 0.5) / res * 2.0 - 1.0
-        rad = torch.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2)
-        grid = (torch.abs(rad - 0.35) < 0.04).float()
-    else:
-        raise ValueError(f"unknown occupancy state {kind!r}")
-    return grid, grid.mean()
-
-
 def param_shapes(config: dict) -> Dict[str, tuple]:
     """Every parameter of the configuration by the program's module names,
-    in draw order, from the configuration's widths alone."""
-    shapes: Dict[str, tuple] = {}
-    field = config["field"]
-
-    def mlp(prefix, dims):
-        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-            shapes[f"{prefix}.w.{i}"] = (a, b)
-        for i, b in enumerate(dims[1:]):
-            shapes[f"{prefix}.b.{i}"] = (b,)
-
-    if field["kind"] == "kplanes":
-        for s, r in enumerate(field["resolutions"]):
-            for p in range(len(field["pairs"])):
-                shapes[f"field.planes.{s}.{p}"] = (r, r, field["features"])
-    elif field["kind"] == "cobafa":
-        for i, (r, c) in enumerate(zip(field["basis_res"], field["channels"])):
-            shapes[f"field.basis.{i}"] = (r, r, r, c)
-        r = field["coef_res"]
-        shapes["field.coef"] = (r, r, r, len(field["basis_res"]))
-        mlp("field.mlp", field["mlp"])
-    else:
-        raise ValueError(f"unknown field {field['kind']!r}")
-    mlp("sigma_decoder.mlp", config["sigma_decoder"])
-    mlp("rgb_decoder.mlp", config["rgb_decoder"]["dims"])
+    in draw order, from the configuration's widths alone: the field's (its
+    field file's), then the two decoders'."""
+    shapes = dict(field_of(config).param_shapes(config))
+    shapes.update(mlp_shapes("sigma_decoder.mlp", config["sigma_decoder"]))
+    shapes.update(mlp_shapes("rgb_decoder.mlp", config["rgb_decoder"]["dims"]))
     return shapes
 
 

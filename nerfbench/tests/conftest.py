@@ -15,21 +15,24 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from nerfbench import harness, scene  # noqa: E402
+from nerfbench.reference import nerf as reference  # noqa: E402
+
+
+def tiny(config: dict) -> dict:
+    """`config` at the tiny size: small batches and grids, and the field's
+    own tiny sizes (its field file's `TINY`: a group's keys replaced, any
+    other top-level value replaced whole)."""
+    config = copy.deepcopy(config)
+    config["train"].update(batch_size=64, n_samples=32, occupancy_res=16, occupancy_update_every=2,
+                           eval_samples_per_ray=8)
+    for key, value in reference.field_of(config).TINY.items():
+        config[key] = dict(config[key], **value) if isinstance(value, dict) else value
+    config["params"] = sum(math.prod(s) for s in scene.param_shapes(config).values())
+    return config
 
 
 def tiny_config(name: str) -> dict:
-    config = copy.deepcopy(harness.load_config(harness.load_benchmark(), name))
-    config["train"].update(batch_size=64, n_samples=32, occupancy_res=16, occupancy_update_every=2,
-                           eval_samples_per_ray=8)
-    if name == "kplanes":
-        config["train"]["field_scale"] = 0.07
-        config["field"]["resolutions"] = [9, 17, 33]
-    else:
-        config["train"]["field_scale"] = 0.1
-        config["field"]["basis_res"] = [8, 8, 8, 8, 10, 12]
-        config["field"]["coef_res"] = 8
-    config["params"] = sum(math.prod(s) for s in scene.param_shapes(config).values())
-    return config
+    return tiny(harness.load_config(harness.load_benchmark(), name))
 
 
 def tiny_traffic(name: str) -> dict:

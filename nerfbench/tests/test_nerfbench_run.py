@@ -1,6 +1,7 @@
 """Whole runs at a tiny size on the CPU, the card check skipped: the result
-line, the reference against the program's plain path, a cell added as
-files alone, and no result without a card."""
+line, the reference against the program's plain path, a cell and a field
+kind added as files alone, the same served work at every seed, and no
+result without a card."""
 
 from __future__ import annotations
 
@@ -9,11 +10,13 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
-from conftest import tiny_config, tiny_run, tiny_traffic
+from conftest import tiny, tiny_config, tiny_run, tiny_traffic
 
-from nerfbench import harness
+from nerfbench import counts, harness
+from nerfbench.reference import nerf as reference
 
 REQUIRED = ["correct", "attempted", "failed", "metrics", "device"]
 # the program's plain path against the float32 reference on the CPU: bf16
@@ -77,6 +80,104 @@ def test_a_cell_added_as_files(tmp_path, monkeypatch):
                            "layer": "serving", "moves": "serve_s_per_view", "workloads": ["kplanes.dummy"]}]
     result = harness.run_cell("kplanes.dummy", 3, 0.1, True, torch.device("cpu"), 0.0, bench)
     assert result["correct"] and result["metrics"] == {"dummy.views": {"value": 2.0, "unit": "views"}}
+
+
+# the vanilla NeRF field of `tinynerf_tpu_torch/models/vanilla.py`, a field
+# kind that the benchmark's own files do not have
+VANILLA_FIELD = '''"""The vanilla NeRF field: posenc(x) into an MLP whose last layer's
+output is the feature vector."""
+
+from nerfbench.reference.nerf import mlp, mlp_shapes, posenc
+
+CONTROL = None
+TINY = {"train": {"field_scale": 0.125}, "field": {"mlp": [60] + [32] * 10}, "sigma_decoder": [32, 64, 1],
+        "rgb_decoder": {"dims": [83, 64, 64, 64, 64, 3]}}
+
+
+def param_shapes(config):
+    return mlp_shapes("field.mlp", config["field"]["mlp"])
+
+
+def features(config, params, x, prec, dropout_seed=None, rows=None):
+    field = config["field"]
+    return [mlp(params, "field.mlp", len(field["mlp"]) - 1, [posenc(x, field["n_freqs"])], prec)]
+
+
+def extra_loss(config, params):
+    return None
+'''
+
+
+def vanilla_config(train: dict) -> dict:
+    """train()'s vanilla widths: posenc(10) -> 8 x 256, the shared decoders."""
+    return {
+        "name": "vanilla", "method": "vanilla", "params": 0,
+        "field": {"kind": "vanilla", "n_freqs": 10, "mlp": [60] + [256] * 10},
+        "sigma_decoder": [256, 64, 1], "rgb_decoder": {"n_freqs": 8, "dims": [307, 64, 64, 64, 64, 3]},
+        "init": {"field.mlp": {"linear": "he"}, "sigma_decoder.mlp": {"linear": "torch"},
+                 "rgb_decoder.mlp": {"linear": "torch"}},
+        "train": dict(train, method="vanilla", field_scale=1.0),
+        "optimizer": {"lr": 1e-3, "lr_tables": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-15, "weight_decay": 1e-5,
+                      "tables": []},
+        "compute": "bf16",
+    }
+
+
+def test_a_field_kind_added_as_files(tmp_path, monkeypatch):
+    """A configuration of a field kind the benchmark does not have (its
+    field file, configuration, counts, limits, traffic and cell) is files
+    and entries alone, and runs correct."""
+    for d in ("fields", "configs", "counts", "limits", "traffic"):
+        (tmp_path / d).mkdir()
+    (tmp_path / "traffic" / "train_early.json").write_text(json.dumps(tiny_traffic("train_early")))
+    (tmp_path / "fields" / "vanilla.py").write_text(VANILLA_FIELD)
+    (tmp_path / "counts" / "peaks.json").write_text((counts.HERE / "peaks.json").read_text())
+    monkeypatch.setattr(reference, "FIELDS", tmp_path / "fields")
+    monkeypatch.setattr(counts, "HERE", tmp_path / "counts")
+    monkeypatch.setattr(harness, "TRAFFIC", tmp_path / "traffic")
+    monkeypatch.setattr(harness.check, "LIMITS", tmp_path / "limits")
+    config = tiny(vanilla_config(harness.load_config(harness.load_benchmark(), "kplanes")["train"]))
+    assert config["field"]["mlp"][1] == 32 and config["params"] == 31684
+    (tmp_path / "configs" / "vanilla.json").write_text(json.dumps(config))
+    matmuls = [[60, 32]] + [[32, 32]] * 9 + [[32, 64], [64, 1], [32, 64], [64, 64], [64, 64], [64, 64], [64, 3]]
+    (tmp_path / "counts" / "vanilla.json").write_text(json.dumps({"sample_matmuls": matmuls,
+                                                                  "direction_matmuls": [[51, 64]]}))
+    (tmp_path / "limits" / "vanilla.train.early.json").write_text(json.dumps({"limits": TRAIN}))
+    bench = harness.load_benchmark()
+    bench["configs"] = [{"name": "vanilla", "source": "https://arxiv.org/abs/2003.08934",
+                         "file": str(tmp_path / "configs" / "vanilla.json"), "reduced": [], "why": "a test"}]
+    cell = "vanilla.train.early"
+    bench["workloads"] = [{"name": cell, "config": "vanilla", "traffic": "train_early", "chips": 1, "why": "a test"}]
+    bench["end_to_end"] = [dict(m, workloads=[cell]) if "workloads" in m else m for m in bench["end_to_end"]
+                           if m.get("workloads") != ["kplanes.serve.views"]]
+    bench["per_layer"] = [dict(harness.entry(bench["per_layer"], "train.step_mfu"), workloads=[cell])]
+    for tracing in (False, True):
+        result = harness.run_cell(cell, 5, 0.2, tracing, torch.device("cpu"), 0.0, bench)
+        assert result["correct"], result["checks"]
+        names = {"train.step_mfu"} if tracing else {"setup_s", "train_rays_per_s", "peak_device_gb"}
+        assert set(result["metrics"]) == names and result["failed"] == 0
+
+
+SERVE_CELLS = [w["name"] for w in harness.load_benchmark()["workloads"]
+               if harness.load_traffic(w["traffic"])["kind"] == "serve"]
+
+
+@pytest.mark.parametrize("workload", SERVE_CELLS)
+def test_served_work_is_the_same_at_every_seed(workload):
+    """The served views do not depend on the seed, so neither do the rays,
+    the packed samples and the rays re-rendered densely; the seed still
+    draws the parameters, so the pixels differ."""
+    bench = harness.load_benchmark()
+    cell = harness.entry(bench["workloads"], workload)
+    config = tiny_config(cell["config"])
+    # a packed cap of one sample a ray, so that some rays fall back at this size
+    traffic = dict(tiny_traffic(cell["traffic"]), packed_samples_per_ray=1)
+    runs = [harness.KINDS["serve"](config, traffic, seed, 0.5, True, torch.device("cpu"), 0.0)
+            for seed in (3, 2**31 + 11)]
+    (_, _, w0, c0, _, _), (_, _, w1, c1, _, _) = runs
+    assert c0 == c1 and c0["fallback_rays"] > 0
+    assert w0["view_index"] == w1["view_index"]
+    assert not np.array_equal(w0["images"][0], w1["images"][0])
 
 
 def test_no_card_no_result():
