@@ -170,10 +170,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    on the device too, kernels 4-7 launched, Cobafa's sorted oct gradient
    within 1e-5 of the `index_add_` it replaced; (g) `tools/analyze_runs_torch.py`
    at the JAX tool's geometry: the run counts;
-13. determinism at full width, K-Planes and Cobafa: one deterministic step
-   twice from one saved state (loss, every gradient, parameter and Adam
-   moment bit-equal), and one 800x800 view served twice (packed on the skip
-   march behind the shell occupancy, the dense fallback), bit-equal;
+13. determinism at full width, K-Planes, Cobafa and Instant-NGP: one
+   deterministic step twice from one saved state (loss, every gradient,
+   parameter and Adam moment bit-equal), and one 800x800 view served twice
+   (packed on the skip march behind the shell occupancy, the dense
+   fallback), bit-equal;
 14. the fields' other lookup layouts at full width (`LAYOUTS`): K-Planes
    `lookup_mode` "quad", "mixed", "plain" and `fwd_mode="fusedfine"`,
    Cobafa "mixed" and "plain".  Each: one deterministic step (2048 rays,
@@ -205,9 +206,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    run in the replayed chunks; the graph's views
    peaking no higher than the eager views, and the graph holding under
    GRAPH_HELD_BYTES allocated; both sides' seconds a view, and the bytes
-   the graph's private pool holds reserved.
+   the graph's private pool holds reserved;
+16. Instant-NGP's hash grid at the published widths
+   (TrainConfig(method="instantngp"): 16 levels N 16..2048 of 2 features,
+   T = 2^19, levels 0-4 dense, 6,098,925 rows, 12,218,078 parameters with
+   the shared decoders): one deterministic step of `make_train_step` at
+   the early training cell's shape (bucket 2: 4,096 candidate rays drawn
+   over four generated 800x800 views, the all-occupied grid, cap 819,200,
+   bf16 compute), its launches counted (each hash kernel once), and the
+   positions and the cotangent its hash lookup took kept; on those inputs
+   each hash kernel against its plain version (the accumulation's on the
+   CPU, whose `index_add_` keeps index order), bit-equal, and bit-equal
+   over REPEATS calls: the lookup `hash_encode` [n, 3] -> [n, 32], the
+   terms `hash_terms` (row key, term index, product w g of each sample,
+   level and corner), the key-value sort of the terms by row, the
+   accumulation `hash_accumulate` (and its combine) into the [6,098,925,
+   2] table gradient, which the whole `hash_table_grad` repeats and the
+   float-atomic `index_add_` it avoids matches to GRAD_RTOL_OF_MAX; each
+   kernel timed beside its bytes bound; then the serving slice (as phase
+   5, its render through the packed CUDA graph) and the training slice
+   (as phase 6: `train()` for 64 steps crossing the occupancy updates, the
+   dense and skip steps at bucket 64, and one dense chunk's gradients
+   through the hash kernels against those through their plain versions,
+   every leaf bit-equal).  Phase 13 holds this field's step and served view
+   to themselves bit for bit as well.
 
-Each of phases 3-15 sets every kernel's launch count to 0 just before it
+Each of phases 3-16 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after (phase 11(a) in each
 rank's process, around `train()`; phase 12 around each tool); the
 comparisons with the plain versions and phase 11's deterministic and
@@ -216,7 +240,7 @@ graph launches through no wrapper: a serving phase counts the chunks it
 ran eagerly (the first one, the capture and the dense fallback), and
 phase 15 counts replayed chunks' kernels from the profiler's kernel
 records.  The last two lines are a JSON
-record of the kernels (launches summed over phases 3-15, and by phase;
+record of the kernels (launches summed over phases 3-16, and by phase;
 the float8 quad build in a row of its own, the fused fine table's builds
 under the quad build's "fine_table") and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -271,6 +295,22 @@ CHUNK_TABLE_GRAD_RTOL_OF_MAX = 2.0 ** -8
 # order (the grids' gradients through the window sort and the
 # accumulation): every leaf bit-equal
 COBAFA_CHUNK_GRAD_RTOL_OF_MAX = 0.0
+# Instant-NGP's dense chunk, hash kernels vs their plain versions: the plain
+# versions compute the kernels' values bit for bit (the lookup's corners
+# added in the same order, each row's terms in term order): every leaf
+# bit-equal
+NGP_CHUNK_GRAD_RTOL_OF_MAX = 0.0
+
+
+def hash_accumulate_on_cpu(keys_s, vals_s, prods, n_rows):
+    """`hash_accumulate_plain` run on the CPU, where `index_add_` adds in
+    index order (on the card it adds by float atomics, in no fixed order),
+    its result moved back to the inputs' device: the kernel's sums bit for
+    bit."""
+    from tinynerf_tpu_torch.ops import hashgrid
+
+    out = hashgrid.hash_accumulate_plain(keys_s.cpu(), vals_s.cpu(), prods.cpu(), n_rows)
+    return out.to(prods.device)
 TRAIN_STEPS = 64
 # the skip and dense steps behind the shell occupancy: the same sample set
 # and positions bit for bit, so only the f32 sums' order (atomics) differs
@@ -1278,22 +1318,32 @@ def _field_label(field) -> str:
     if hasattr(field, "basis_res"):
         return (f"Cobafa basis grids {field.basis_res} x channels {field.channels}, coefficients "
                 f"{field.coef_res}^3 x {len(field.basis_res)}, field MLP 36 -> {field.mlp_hidden_dim} x 6")
+    if hasattr(field, "layout"):
+        lay = field.layout
+        return (f"Instant-NGP hash grid, {len(lay.resolutions)} levels N {lay.resolutions[0]}..{lay.resolutions[-1]} "
+                f"x 2 features, T = 2^{lay.log2_size}, {sum(not h for h in lay.hashed)} levels dense, {lay.rows} rows")
     return f"vanilla posenc(10) -> {field.feature_dim} x 10 layers (He init)"
 
 
 # the kernels each driven path must launch, by (method, scene type): the
 # field's table build (the quad build for K-Planes, the oct build for
 # Cobafa, none for the vanilla MLP) and the marcher's skip march
-FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_build",)}
+FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_build",), "instantngp": ("hash_encode",)}
 SKIP_KERNEL = {"aabb": "skip_march", "unbounded": "skip_march_unbounded"}
 TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd", "segment_sum"),
                     "kplanes": ("segscan", "segscan_bwd", "segment_sum", "sort", "accumulate", "quad_build"),
                     "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "oct_accumulate",
-                               "oct_fold", "oct_build")}
-# the table-gradient kernels of the other table field, which a step must not
-# launch: Cobafa's oct rows take no payload accumulation
-TRAINING_ABSENT = {"vanilla": ("accumulate", "oct_accumulate", "oct_fold"),
-                   "kplanes": ("oct_accumulate", "oct_fold"), "cobafa": ("accumulate",)}
+                               "oct_fold", "oct_build"),
+                    "instantngp": ("segscan", "segscan_bwd", "segment_sum", "sort_pairs", "hash_encode", "hash_terms",
+                                   "hash_accumulate")}
+# the table-gradient kernels of the other table fields, which a step must
+# not launch: Cobafa's oct rows take no payload accumulation, and only the
+# hash grid launches the hash kernels (and it takes no window sort)
+HASH_KERNELS = ("hash_encode", "hash_terms", "hash_accumulate")
+TRAINING_ABSENT = {"vanilla": ("accumulate", "oct_accumulate", "oct_fold") + HASH_KERNELS,
+                   "kplanes": ("oct_accumulate", "oct_fold") + HASH_KERNELS,
+                   "cobafa": ("accumulate",) + HASH_KERNELS,
+                   "instantngp": ("sort", "accumulate", "oct_accumulate", "oct_fold")}
 
 
 def serving_kernels(method: str, scene_type: str) -> tuple:
@@ -1425,9 +1475,12 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
     """One full-width dense chunk's gradients through the kernels against a
     reference pass through a plain version: K-Planes swaps in the plain
     dense weights (kernel 3's check), Cobafa the plain oct build (kernel
-    6's), each inside this script."""
+    6's), Instant-NGP the plain versions of the three hash kernels (the
+    accumulation's on the CPU), each inside this script."""
     from tinynerf_tpu_torch.core import renderer as renderer_module
-    from tinynerf_tpu_torch.ops import interp, octbuild, weights, weights_dense
+    from tinynerf_tpu_torch.ops import hashgrid, interp, octbuild, weights, weights_dense
+
+    hash_kernels = hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate
 
     # one full-width dense chunk, f32 compute: d loss / d sigma, kept by a
     # hook on the sigma decoder, and every parameter's gradient
@@ -1449,6 +1502,9 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
         renderer.zero_grad(set_to_none=True)
         if impl == "plain" and method == "kplanes":
             renderer_module.compute_weights_dense = weights.compute_weights
+        elif impl == "plain" and method == "instantngp":
+            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate = (
+                hashgrid.hash_encode_plain, hashgrid.hash_terms_plain, hash_accumulate_on_cpu)
         elif impl == "plain":
             interp.build_oct = octbuild.build_oct_plain
         zero_counts()
@@ -1458,6 +1514,7 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
         finally:
             renderer_module.compute_weights_dense = weights_dense.compute_weights_dense
             interp.build_oct = octbuild.build_oct
+            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate = hash_kernels
         if impl == "kernel":
             launches = read_counts(f"{name} dense chunk", CHUNK_KERNELS[method])
         grads[impl] = {k: p.grad.detach().clone() for k, p in renderer.named_parameters()}
@@ -1473,6 +1530,8 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
     if method == "kplanes":
         # the plane tables' gradient passes the bf16 payload (see the limits)
         limits = (GRAD_RTOL_OF_MAX, CHUNK_GRAD_RTOL_OF_MAX, CHUNK_TABLE_GRAD_RTOL_OF_MAX)
+    elif method == "instantngp":
+        limits = (NGP_CHUNK_GRAD_RTOL_OF_MAX,) * 3
     else:
         limits = (COBAFA_CHUNK_GRAD_RTOL_OF_MAX,) * 3
     print(f"{name} dense chunk [{cfg.batch_size} x {cfg.n_samples}] f32, {n_valid} valid samples, "
@@ -1487,8 +1546,8 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
 
 
 def run_training(tmp: str, card: str, method: str, scene_type: str = "aabb", pool=None) -> dict:
-    """Phases 4 (K-Planes), 6 (Cobafa), 8 (vanilla) and 10 (K-Planes,
-    unbounded): `train()` at full width on `pool` (default: four generated
+    """Phases 4 (K-Planes), 6 (Cobafa), 8 (vanilla), 10 (K-Planes,
+    unbounded) and 16 (Instant-NGP): `train()` at full width on `pool` (default: four generated
     800x800 views), the launch counts inside it, the dense and skip steps
     at bucket 64; then the dense chunk's gradients against a plain version
     (the table fields) or the remat check (vanilla)."""
@@ -1548,8 +1607,8 @@ def run_training(tmp: str, card: str, method: str, scene_type: str = "aabb", poo
 
 def run_slice(tmp: str, card: str, method: str, scene_type: str = "aabb", pose_set=None) -> dict:
     """Phases 3 (K-Planes, two views), 5 (Cobafa, one view), 7 (vanilla,
-    one view) and 9 (K-Planes, unbounded, the nerfstudio test split's two
-    views): serving at full width from a checkpoint of seeded random
+    one view), 9 (K-Planes, unbounded, the nerfstudio test split's two
+    views) and 16 (Instant-NGP, one view): serving at full width from a checkpoint of seeded random
     parameters behind the shell occupancy."""
     from tinynerf_tpu_torch.convert import occ_state_to_numpy, params_to_numpy
     from tinynerf_tpu_torch.data import PoseSet
@@ -1968,6 +2027,10 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("skip_march", "skipmarch.skip_march", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:357"),
     ("skip_march_unbounded", "skipmarch.skip_march_unbounded", "skipmarch.cu",
      "tinynerf_tpu/core/skipmarch.py:209"),
+    # Instant-NGP's field has no counterpart in the JAX package
+    ("hash_encode", "hashgrid.hash_encode", "hashgrid.cu", None),
+    ("hash_terms", "hashgrid.hash_terms", "hashgrid.cu", None),
+    ("hash_accumulate", "hashgrid.hash_accumulate", "hashgrid.cu", None),
 )
 
 
@@ -1997,11 +2060,11 @@ def run_phases(card: str, ns_root) -> dict:
 
 # phase 13, determinism at full width: one deterministic step twice from
 # one saved state, and one served 800x800 view twice, bit for bit
-DETERMINISM_METHODS = ("kplanes", "cobafa")
+DETERMINISM_METHODS = ("kplanes", "cobafa", "instantngp")
 
 
 def run_determinism(tmp: str, card: str) -> dict:
-    """Phase 13: for K-Planes and Cobafa at the TrainConfig defaults (2048
+    """Phase 13: for K-Planes, Cobafa and Instant-NGP at the TrainConfig defaults (2048
     rays drawn over four generated 800x800 views, 400 samples, bf16
     compute, the all-occupied grid): one deterministic step (after a first
     one, so that Adam's moments are not zero) twice from the same saved
@@ -2486,6 +2549,152 @@ def run_serve_graph(tmp: str, card: str) -> dict:
     return {"15_kplanes_serve_graph": ours_counts, "15_kplanes_serve_eager": ref_counts}
 
 
+# phase 16, Instant-NGP's hash grid at the published widths
+NGP_RESOLUTIONS = (16, 22, 30, 42, 58, 80, 111, 153, 212, 294, 406, 561, 776, 1072, 1482, 2048)
+NGP_ROWS, NGP_PARAMS = 6_098_925, 12_218_078
+NGP_BUCKET = 2  # the early training cell's bucket: 4,096 candidate rays
+
+
+def _ngp_step(renderer, cfg, pool, card: str) -> tuple:
+    """One deterministic step of `make_train_step` at the early training
+    cell's shape, its launches counted; returns (counts, positions [n, 3]
+    and cotangent [n, 32] of its hash lookup, as the step passed them)."""
+    from tinynerf_tpu_torch.models import hashgrid as ngp_field
+    from tinynerf_tpu_torch.train import make_optimizer, make_train_step
+
+    n_cand = NGP_BUCKET * cfg.batch_size
+    gen = torch.Generator("cuda").manual_seed(9)
+    rays = torch.randperm(pool.n_rays, device="cuda", generator=gen)[:n_cand]
+    batch = tuple(a[rays].contiguous() for a in pool.arrays())
+    occ = renderer.occupancy.init_state("cuda")
+    step = make_train_step(renderer, make_optimizer(cfg, renderer), cfg, n_cand, deterministic=True)
+    seen = {}
+    lookup = ngp_field.hash_lookup
+
+    def keep(tables, pos, layout):
+        out = lookup(tables, pos, layout)
+        if out.requires_grad:  # the training pass, not a no-grad evaluation
+            seen["pos"] = pos.detach().float().contiguous()
+            out.register_hook(lambda g: seen.__setitem__("g", g.detach().float().contiguous()))
+        return out
+
+    ngp_field.hash_lookup = keep
+    zero_counts()
+    try:
+        m = step(occ, *batch)
+    finally:
+        ngp_field.hash_lookup = lookup
+    counts = read_counts("phase 16 Instant-NGP early-shaped step", TRAINING_KERNELS["instantngp"],
+                         TRAINING_ABSENT["instantngp"])
+    print(f"phase 16 step [{n_cand} candidate rays, cap {cfg.sample_cap}]: loss {float(m['loss']):.6f}, "
+          f"{float(m['rays_used']):.0f} rays used, fill {float(m['fill']):.4f} [{card}]")
+    if not (np.isfinite(float(m["loss"])) and all(counts[k] == 1 for k in HASH_KERNELS)):
+        raise AssertionError("phase 16: the step's loss is not finite, or a hash kernel ran other than once")
+    return counts, seen["pos"], seen["g"]
+
+
+def run_hashgrid(card: str, results: dict) -> dict:
+    """Phase 16 (module docstring).  Adds the hash kernels' rows to
+    `results`; returns label -> kernel -> launches."""
+    from tinynerf_tpu_torch.data import RayPool
+    from tinynerf_tpu_torch.ops import bitonic, hashgrid
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+    from tinynerf_tpu_torch.utils import make_spheres_data
+
+    cfg = TrainConfig(method="instantngp", seed=0)
+    pool = RayPool(make_spheres_data(n_views=4, res=800, seed=1), device="cuda")
+    renderer = build_renderer(cfg, pool.scene_scale, pool.bg_color, device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    lay = renderer.field.layout
+    n_params = sum(p.numel() for p in renderer.parameters())
+    print(f"phase 16: {_field_label(renderer.field)}, {n_params} params")
+    if (lay.resolutions, lay.size, lay.rows, n_params) != (NGP_RESOLUTIONS, 2**19, NGP_ROWS, NGP_PARAMS):
+        raise AssertionError(f"phase 16: the field is not at the published widths: {lay}, {n_params} params")
+    counts, pos, g = _ngp_step(renderer, cfg, pool, card)
+    launches = {"16_instantngp_step": counts}
+    t16 = renderer.field.tables.detach().to(torch.bfloat16)
+    del renderer, pool
+    torch.cuda.empty_cache()
+
+    n, n_levels = pos.shape[0], len(lay.resolutions)
+    n_terms, bits = n * n_levels * 8, lay.rows.bit_length()
+    n_live = int((g != 0).any(dim=1).sum())
+    print(f"phase 16 hash lookup of the step: {n} samples ({n_live} with a cotangent), {n_terms} terms into "
+          f"{lay.rows} rows, sorted by {bits} key bits")
+    feats = _repeats(f"kernel hash_encode [{n}] x {n_levels} levels", lambda: hashgrid.hash_encode(pos, t16, lay))
+    if not torch.equal(feats, hashgrid.hash_encode_plain(pos, t16, lay)):
+        raise AssertionError("phase 16: hash_encode differs from its plain version")
+    terms = _repeats(f"kernel hash_terms [{n_terms}]", lambda: torch.cat(
+        [t.view(torch.int32).reshape(n_terms, -1) for t in hashgrid.hash_terms(pos, g, lay)], dim=1))
+    keys, vals, prods = hashgrid.hash_terms(pos, g, lay)
+    if not all(torch.equal(a, b) for a, b in zip((keys, vals, prods), hashgrid.hash_terms_plain(pos, g, lay))):
+        raise AssertionError("phase 16: hash_terms differs from its plain version")
+    del terms
+    keys_s, vals_s = bitonic.sort_pairs_i32(keys, vals, 0, bits)
+    if not all(torch.equal(a, b) for a, b in zip((keys_s, vals_s), bitonic.sort_pairs_i32_plain(keys, vals, 0, bits))):
+        raise AssertionError("phase 16: sort_pairs_i32 of the hash terms differs from its plain version")
+    grad = _repeats(f"kernel hash_accumulate [{n_terms}] -> [{lay.rows}, 2]",
+                    lambda: hashgrid.hash_accumulate(keys_s, vals_s, prods, lay.rows))
+    if not torch.equal(grad, hash_accumulate_on_cpu(keys_s, vals_s, prods, lay.rows)):
+        raise AssertionError("phase 16: hash_accumulate differs from its plain version")
+    if not torch.equal(hashgrid.hash_table_grad(g, pos, lay), grad):
+        raise AssertionError("phase 16: hash_table_grad differs from its kernels called one by one")
+    live = keys < lay.rows
+    live_keys, live_prods = keys[live].long(), prods[live]
+
+    def scatter():  # the float-atomic scatter the fixed order avoids
+        return torch.zeros(lay.rows, 2, device=g.device).index_add_(0, live_keys, live_prods)
+
+    err = _rel_err(grad, scatter())
+    print(f"phase 16 hash lookup and table gradient: every kernel bit-equal to its plain version; the table "
+          f"gradient against index_add_: max|diff| / max = {err:.3e} (tol {GRAD_RTOL_OF_MAX:g}), "
+          f"{int((grad != 0).any(dim=1).sum())} of {lay.rows} rows touched")
+    if not err <= GRAD_RTOL_OF_MAX:
+        raise AssertionError(f"phase 16: the table gradient disagrees with index_add_: {err}")
+
+    # each kernel beside its bytes bound: each input read once, each output written once
+    timed = {
+        "hash_encode": time_pair(
+            f"kernel hash_encode [{n}, 3] and the bf16 table -> [{n}, {n_levels * 2}]",
+            lambda: hashgrid.hash_encode(pos, t16, lay), lambda: hashgrid.hash_encode_plain(pos, t16, lay),
+            bound(nbytes(pos, t16, feats))),
+        "hash_terms": time_pair(
+            f"kernel hash_terms [{n}] -> {n_terms} keys, values and products",
+            lambda: hashgrid.hash_terms(pos, g, lay), lambda: hashgrid.hash_terms_plain(pos, g, lay),
+            bound(nbytes(pos, g, keys, vals, prods))),
+        "hash_accumulate": time_pair(
+            f"kernels hash_accumulate and combine, {n_terms} sorted terms -> [{lay.rows}, 2]",
+            lambda: hashgrid.hash_accumulate(keys_s, vals_s, prods, lay.rows),
+            lambda: hashgrid.hash_accumulate_plain(keys_s, vals_s, prods, lay.rows),
+            bound(nbytes(keys_s, vals_s, prods, grad)), scatter),
+    }
+    # the key-value sort between them (kernel 4), over the terms' 23 key bits
+    sort_t = time_pair(f"kernel sort_pairs [1, {n_terms}], the hash terms by row ({bits} key bits)",
+                       lambda: bitonic.sort_pairs_i32(keys, vals, 0, bits),
+                       lambda: bitonic.sort_pairs_i32_plain(keys, vals, 0, bits),
+                       bound(nbytes(keys, vals, keys_s, vals_s)))
+    results.setdefault("sort_pairs", {}).update({f"hash_terms_{k}": v for k, v in sort_t.items()})
+    for key, t in (*timed.items(), ("sort_pairs of the hash terms", sort_t)):
+        if key in ("hash_encode", "hash_terms"):
+            _one_launch(f"kernel {key}", t)
+        share = f"{t['bound_ms'] / t['device_ms']:.1%}" if t["device_ms"] else "not measured"
+        print(f"kernel {key}: device {_ms(t['device_ms'])} against its bound {t['bound_ms']:.4f} ms: {share} "
+              f"[{card}]")
+    for key, t in timed.items():
+        results[key] = dict(max_abs_err=0.0, **t)
+    results["hash_accumulate"]["max_abs_err"] = float((grad - scatter()).abs().max())
+    del feats, keys, vals, prods, keys_s, vals_s, grad, live_keys, live_prods, pos, g, t16
+    torch.cuda.empty_cache()
+
+    for run in (run_slice, run_training):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            for part, c in run(tmp, card, "instantngp").items():
+                launches[f"16_instantngp_aabb_{part}"] = c
+        print(f"phase 16 (instantngp aabb {run.__name__}): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # phase 12, the port's four tools through their main(argv), as a user runs
 # them.  (c) trains K-Planes with the JAX tool's defaults (spheres, 12 views
 # at 100, batch 1024 x 128, f32) for QUALITY_STEPS steps: the occupancy
@@ -2680,6 +2889,9 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(run_serve_graph(tmp, card))
         print(f"phase 15 (serving graph): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches.update(run_hashgrid(card, kern))
+        print(f"phase 16 (Instant-NGP): {time.perf_counter() - t0:.1f} s")
 
     # the quad build's counter counts every launch; its float8 launches
     # have a row of their own

@@ -1016,7 +1016,8 @@ DET_FIELDS = {"kplanes_bf16": ("kplanes", {}), "kplanes_f32": ("kplanes", dict(b
               "kplanes_plain": ("kplanes", dict(lookup_mode="plain")),
               "kplanes_fusedfine": ("kplanes", dict(fwd_mode="fusedfine")),
               "cobafa": ("cobafa", {}), "cobafa_mixed": ("cobafa", dict(lookup_mode="mixed")),
-              "cobafa_plain": ("cobafa", dict(lookup_mode="plain")), "vanilla": ("vanilla", {})}
+              "cobafa_plain": ("cobafa", dict(lookup_mode="plain")), "vanilla": ("vanilla", {}),
+              "instantngp": ("instantngp", {})}
 DET_RUNS = 3
 
 
@@ -1149,7 +1150,7 @@ def test_kplanes_batch_8192_step_takes_the_kernels_and_repeats(det_pool, monkeyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("march", ["dense", "skip"])
-@pytest.mark.parametrize("name", ["kplanes_bf16", "kplanes_fusedfine", "cobafa", "cobafa_plain", "vanilla"])
+@pytest.mark.parametrize("name", ["kplanes_bf16", "kplanes_fusedfine", "cobafa", "cobafa_plain", "vanilla", "instantngp"])
 def test_served_chunk_repeats_bit_for_bit(det_pool, name, march):
     """One 2048-ray packed serving chunk (64 samples per ray, the shell
     occupancy), rendered DET_RUNS times: colors, flags and counts bit-equal."""

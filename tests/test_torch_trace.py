@@ -184,11 +184,12 @@ def test_train_profile_hook_spans(tmp_path):
 
 
 def test_every_listed_span_is_placed():
-    """The module's list is what the tests above look for, each name once."""
+    """The module's list is what the tests above look for, each name once
+    (`field.hash_encode`: `tests/test_torch_hashgrid.py`)."""
     placed = {"train_step", "field.table_grad", "train_step.all_reduce", "occupancy.sweep", "occupancy.skip_grid",
               "train.readback", "serve.view", "serve.upload", "serve.enqueue", "serve.readback", "serve.fallback",
-              "serve.image", *STEP_CHILDREN}
-    assert len(trace.NAMES) == len(set(trace.NAMES)) == 19
+              "serve.image", "field.hash_encode", *STEP_CHILDREN}
+    assert len(trace.NAMES) == len(set(trace.NAMES)) == 20
     assert set(trace.NAMES) == placed
 
 

@@ -39,7 +39,7 @@ def main(argv=None) -> None:
     parser.add_argument("--datatype", type=str, required=True, choices=["synthetic", "nerfstudio"])
     parser.add_argument("--output", type=str, required=True, help="output folder")
     parser.add_argument("--scene_type", type=str, default="aabb", choices=["aabb", "unbounded"])
-    parser.add_argument("--method", type=str, required=True, choices=["vanilla", "kplanes", "cobafa"])
+    parser.add_argument("--method", type=str, required=True, choices=["vanilla", "kplanes", "cobafa", "instantngp"])
     parser.add_argument("--batch_size", type=int, default=2048)
     parser.add_argument("--n_samples", type=int, default=400, help="samples per ray")
     parser.add_argument("--eval", action="store_true")

@@ -8,7 +8,8 @@ The JAX renderer's parameters are a pytree
 
 for K-Planes, with the field {"basis": [grid [r, r, r, C] per level],
 "coef": [R, R, R, L], "mlp": [...]} for Cobafa and {"mlp": [...]} for the
-vanilla field, of arrays; the port keeps
+vanilla field, of arrays (the port's Instant-NGP field, which the JAX
+package lacks, is {"tables": [rows, 2]}); the port keeps
 the same tensors, in the same layouts, in the renderer's field and decoder
 modules (a K-Planes explicit opacity decoder holds {"linear": {"w", "b"}}
 where an MLP decoder holds {"mlp": [...]}) (`param_tree` lists them in that layout, which the optimizer state
@@ -25,6 +26,7 @@ import torch
 from .core.occupancy import OccupancyState
 from .core.renderer import NerfRenderer
 from .models.cobafa import CobafaFeatureField
+from .models.hashgrid import HashGridFeatureField
 from .models.kplanes import KPlanesExplicitOpacityDecoder
 from .models.vanilla import VanillaFeatureField
 
@@ -56,6 +58,9 @@ def _field_into(field, src: dict) -> None:
             _copy_into(dst, a, f"basis[{i}]")
         _copy_into(field.coef, src["coef"], "coef")
         _mlp_into(field.mlp, src["mlp"], "field mlp")
+        return
+    if isinstance(field, HashGridFeatureField):
+        _copy_into(field.tables, src["tables"], "tables")
         return
     planes = src["planes"]
     if len(planes) != len(field.planes):
@@ -101,6 +106,8 @@ def param_tree(renderer: NerfRenderer) -> dict:
         field_tree = {"mlp": _mlp_tree(field.mlp)}
     elif isinstance(field, CobafaFeatureField):
         field_tree = {"basis": list(field.basis), "coef": field.coef, "mlp": _mlp_tree(field.mlp)}
+    elif isinstance(field, HashGridFeatureField):
+        field_tree = {"tables": field.tables}
     else:
         field_tree = {"planes": [list(scale) for scale in field.planes]}
     return {

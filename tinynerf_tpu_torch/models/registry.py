@@ -1,19 +1,22 @@
 """Method registry: field + the shared decoders, wired as the JAX package's
 `tinynerf_tpu/models/registry.py:make_model` does, for the vanilla, K-Planes
-and Cobafa fields."""
+and Cobafa fields, and for Instant-NGP's hash grid, which only the port has."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..ops.hashgrid import level_resolutions
 from .cobafa import CobafaFeatureField
+from .hashgrid import NGP_LOG2_HASHMAP_SIZE, HashGridFeatureField
 from .kplanes import KPlanesFeatureField
 from .vanilla import ColorDecoder, OpacityDecoder, VanillaFeatureField
 
-METHODS = ("vanilla", "kplanes", "cobafa")
+METHODS = ("vanilla", "kplanes", "cobafa", "instantngp")
 
 
 def make_model(
@@ -23,7 +26,8 @@ def make_model(
     generator: Optional[torch.Generator] = None,
     device=None,
     **field_kw,
-) -> Tuple[Union[VanillaFeatureField, KPlanesFeatureField, CobafaFeatureField], OpacityDecoder, ColorDecoder]:
+) -> Tuple[Union[VanillaFeatureField, KPlanesFeatureField, CobafaFeatureField, HashGridFeatureField],
+           OpacityDecoder, ColorDecoder]:
     """Returns (feature_field, sigma_decoder, rgb_decoder), initialized from
     `generator` on `device`.
 
@@ -33,7 +37,10 @@ def make_model(
     max(9, round(129 * s) | 1) and the nesting (b, 2b-1, 4b-3) the fused
     multiscale lookup requires; 1.0 gives the reference's (129, 257, 513).  Cobafa: basis grids max(8, int(r * s))
     for r in linspace(32, 128, 6) and a coefficient grid max(8, int(64 * s)),
-    with the channels, frequencies and MLP width unchanged.
+    with the channels, frequencies and MLP width unchanged.  Instant-NGP:
+    16 levels from N_min 16 to N_max max(32, round(2048 s)) and T =
+    2^max(13, round(19 + 3 log2 s)) rows a hashed level; 1.0 gives the
+    published widths, 0.1 levels 0-1 dense and 14 hashed.
 
     `field_kw` go to the field's constructor as they are (the JAX tools
     `dataclasses.replace` the field with them): K-Planes takes
@@ -61,6 +68,12 @@ def make_model(
             freqs=tuple(float(f) for f in np.linspace(2.0, 8.0, 6)),
             channels=(8, 8, 8, 4, 4, 4),
             mlp_hidden_dim=128,
+            generator=generator, device=device, **field_kw,
+        )
+    elif method == "instantngp":
+        field = HashGridFeatureField(
+            resolutions=level_resolutions(16, max(32, int(round(2048 * s))), 16),
+            log2_hashmap_size=max(13, int(round(NGP_LOG2_HASHMAP_SIZE + 3 * math.log2(s)))),
             generator=generator, device=device, **field_kw,
         )
     else:

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "tn_skip_march": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P),
     "tn_skip_march_unbounded": (_P, _P, _P, _P, _I, _I, _I, _I) + (_F,) * 7 + (_P, _P, _P),
+    "tn_hash_encode": (_P, _P, _P, _I, _P, _P),
+    "tn_hash_terms": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "tn_hash_accumulate": (_P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P),
     "tn_skip_lanes": (_I,),  # returns the lanes per ray both marches take, not an error code
 }
 
@@ -179,7 +182,7 @@ def launch_counters() -> dict:
     Each wrapper adds one where it launches its kernel and nowhere else;
     the quad build counts its float8 launches apart as well."""
     from ..core import skipmarch
-    from . import bitonic, octbuild, segscan, table_grad, weights_dense
+    from . import bitonic, hashgrid, octbuild, segscan, table_grad, weights_dense
 
     return {
         "segscan": (segscan.compute_weights_packed, "launches"),
@@ -195,6 +198,9 @@ def launch_counters() -> dict:
         "oct_fold": (octbuild.oct_fold, "launches"),
         "quad_build": (octbuild.build_quad, "launches"),
         "quad_build_fp8": (octbuild.build_quad, "fp8_launches"),
+        "hash_encode": (hashgrid.hash_encode, "launches"),
+        "hash_terms": (hashgrid.hash_terms, "launches"),
+        "hash_accumulate": (hashgrid.hash_accumulate, "launches"),
         "skip_march": (skipmarch.skip_march, "launches"),
         "skip_march_unbounded": (skipmarch.skip_march_unbounded, "launches"),
     }

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 @dataclass
 class TrainConfig:
-    method: str = "kplanes"  # vanilla | kplanes | cobafa
+    method: str = "kplanes"  # vanilla | kplanes | cobafa | instantngp
     scene_type: str = "aabb"  # aabb | unbounded
     output: Path = Path("output")
 
@@ -88,7 +88,7 @@ class TrainConfig:
             return 1e-3
         if self.method == "cobafa":
             return 3e-3
-        return 1e-2
+        return 1e-2  # kplanes; instantngp, the paper's for every parameter
 
     @property
     def effective_lr_tables(self) -> Optional[float]:

@@ -18,13 +18,15 @@ The spans, each where it is opened and what it covers:
                               gather of positions
     `render.field`            the same: the field on the packed (or dense) samples (the occupancy
                               sweep's `sigma_fn` is outside it)
+    `field.hash_encode`       `models/hashgrid.py` `apply_pieces`: the hash grid's lookup of every
+                              level (`ops/hashgrid.py` `hash_lookup`, its forward)
     `render.decode`           the same: sigma decoder, the gather of step sizes, weights, rgb
                               decoder, per-ray sums and compositing
     `train_step.loss`         both steps: per-ray MSE, the masked mean, TV and L1
     `train_step.backward`     both steps: `torch.autograd.grad` and the zero fill of unused leaves
     `field.table_grad`        `ops/interp.py`: the backward of `_MultiProj`, `_QuadLookup`,
-                              `_CornerLookup` and `_TrilinearOct` (on the autograd engine's thread
-                              on a card)
+                              `_CornerLookup` and `_TrilinearOct`; `ops/hashgrid.py`: the backward
+                              of `_HashLookup` (on the autograd engine's thread on a card)
     `train_step.adam`         both steps: `FusedAdam.step`
     `train_step.all_reduce`   `_make_group_step`: each collective of the loss pieces and of the
                               gradients
