@@ -219,11 +219,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    CPU, whose `index_add_` keeps index order), bit-equal, and bit-equal
    over REPEATS calls: the lookup `hash_encode` [n, 3] -> [n, 32], the
    terms `hash_terms` (row key, term index, product w g of each sample,
-   level and corner), the key-value sort of the terms by row, the
-   accumulation `hash_accumulate` (and its combine) into the [6,098,925,
-   2] table gradient, which the whole `hash_table_grad` repeats and the
-   float-atomic `index_add_` it avoids matches to GRAD_RTOL_OF_MAX; each
-   kernel timed beside its bytes bound; then the serving slice (as phase
+   level and corner), their grouping by row `hash_group` (bit-equal to
+   kernel 4's key-value sort of the terms, too), the accumulation
+   `hash_accumulate` (and its combine) into the [6,098,925, 2] table
+   gradient, bit-equal to the sort-based path's, which the whole
+   `hash_table_grad` repeats and the float-atomic `index_add_` it avoids
+   matches to GRAD_RTOL_OF_MAX; the runs' lengths (the longest, and the
+   live terms' shares by run length); each kernel timed beside its bytes
+   bound, the grouping beside kernel 4's sort too; then the serving slice (as phase
    5, its render through the packed CUDA graph) and the training slice
    (as phase 6: `train()` for 64 steps crossing the occupancy updates, the
    dense and skip steps at bucket 64, and one dense chunk's gradients
@@ -1334,16 +1337,17 @@ TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd", "segment_sum"),
                     "kplanes": ("segscan", "segscan_bwd", "segment_sum", "sort", "accumulate", "quad_build"),
                     "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "oct_accumulate",
                                "oct_fold", "oct_build"),
-                    "instantngp": ("segscan", "segscan_bwd", "segment_sum", "sort_pairs", "hash_encode", "hash_terms",
+                    "instantngp": ("segscan", "segscan_bwd", "segment_sum", "hash_encode", "hash_terms", "hash_group",
                                    "hash_accumulate")}
 # the table-gradient kernels of the other table fields, which a step must
 # not launch: Cobafa's oct rows take no payload accumulation, and only the
-# hash grid launches the hash kernels (and it takes no window sort)
-HASH_KERNELS = ("hash_encode", "hash_terms", "hash_accumulate")
+# hash grid launches the hash kernels (and it takes no window sort and no
+# key-value sort: its terms are grouped by `hash_group`)
+HASH_KERNELS = ("hash_encode", "hash_terms", "hash_group", "hash_accumulate")
 TRAINING_ABSENT = {"vanilla": ("accumulate", "oct_accumulate", "oct_fold") + HASH_KERNELS,
                    "kplanes": ("oct_accumulate", "oct_fold") + HASH_KERNELS,
                    "cobafa": ("accumulate",) + HASH_KERNELS,
-                   "instantngp": ("sort", "accumulate", "oct_accumulate", "oct_fold")}
+                   "instantngp": ("sort", "sort_pairs", "accumulate", "oct_accumulate", "oct_fold")}
 
 
 def serving_kernels(method: str, scene_type: str) -> tuple:
@@ -1475,12 +1479,12 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
     """One full-width dense chunk's gradients through the kernels against a
     reference pass through a plain version: K-Planes swaps in the plain
     dense weights (kernel 3's check), Cobafa the plain oct build (kernel
-    6's), Instant-NGP the plain versions of the three hash kernels (the
+    6's), Instant-NGP the plain versions of the four hash kernels (the
     accumulation's on the CPU), each inside this script."""
     from tinynerf_tpu_torch.core import renderer as renderer_module
     from tinynerf_tpu_torch.ops import hashgrid, interp, octbuild, weights, weights_dense
 
-    hash_kernels = hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate
+    hash_kernels = hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_group, hashgrid.hash_accumulate
 
     # one full-width dense chunk, f32 compute: d loss / d sigma, kept by a
     # hook on the sigma decoder, and every parameter's gradient
@@ -1503,8 +1507,9 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
         if impl == "plain" and method == "kplanes":
             renderer_module.compute_weights_dense = weights.compute_weights
         elif impl == "plain" and method == "instantngp":
-            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate = (
-                hashgrid.hash_encode_plain, hashgrid.hash_terms_plain, hash_accumulate_on_cpu)
+            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_group, hashgrid.hash_accumulate = (
+                hashgrid.hash_encode_plain, hashgrid.hash_terms_plain, hashgrid.hash_group_plain,
+                hash_accumulate_on_cpu)
         elif impl == "plain":
             interp.build_oct = octbuild.build_oct_plain
         zero_counts()
@@ -1514,7 +1519,7 @@ def chunk_check(renderer, occ_state, pool, cfg, name: str, method: str) -> dict:
         finally:
             renderer_module.compute_weights_dense = weights_dense.compute_weights_dense
             interp.build_oct = octbuild.build_oct
-            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_accumulate = hash_kernels
+            hashgrid.hash_encode, hashgrid.hash_terms, hashgrid.hash_group, hashgrid.hash_accumulate = hash_kernels
         if impl == "kernel":
             launches = read_counts(f"{name} dense chunk", CHUNK_KERNELS[method])
         grads[impl] = {k: p.grad.detach().clone() for k, p in renderer.named_parameters()}
@@ -2030,6 +2035,7 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     # Instant-NGP's field has no counterpart in the JAX package
     ("hash_encode", "hashgrid.hash_encode", "hashgrid.cu", None),
     ("hash_terms", "hashgrid.hash_terms", "hashgrid.cu", None),
+    ("hash_group", "hashgrid.hash_group", "hashgrid.cu", None),
     ("hash_accumulate", "hashgrid.hash_accumulate", "hashgrid.cu", None),
 )
 
@@ -2630,15 +2636,30 @@ def run_hashgrid(card: str, results: dict) -> dict:
     if not all(torch.equal(a, b) for a, b in zip((keys, vals, prods), hashgrid.hash_terms_plain(pos, g, lay))):
         raise AssertionError("phase 16: hash_terms differs from its plain version")
     del terms
-    keys_s, vals_s = bitonic.sort_pairs_i32(keys, vals, 0, bits)
-    if not all(torch.equal(a, b) for a, b in zip((keys_s, vals_s), bitonic.sort_pairs_i32_plain(keys, vals, 0, bits))):
-        raise AssertionError("phase 16: sort_pairs_i32 of the hash terms differs from its plain version")
+    grouped = _repeats(f"kernels hash_group [{n_terms}]", lambda: torch.stack(hashgrid.hash_group(keys, lay.rows)))
+    keys_s, vals_s = grouped.unbind(0)
+    sort_k, sort_v = bitonic.sort_pairs_i32(keys, vals, 0, bits)
+    if not (torch.equal(keys_s, sort_k) and torch.equal(vals_s, sort_v)):
+        raise AssertionError("phase 16: hash_group differs from kernel 4's key-value sort of the terms")
+    if not all(torch.equal(a, b) for a, b in zip((keys_s, vals_s), hashgrid.hash_group_plain(keys, lay.rows))):
+        raise AssertionError("phase 16: hash_group differs from its plain version")
+    lengths = torch.bincount(keys_s.long(), minlength=lay.rows + 1)[:lay.rows]
+    n_live_terms = int(lengths.sum())
+    shares = {f"<= {hi}" if lo == 0 else f"{lo + 1}-{hi}" if hi else f"> {lo}":
+              float(lengths[(lengths > lo) & ((lengths <= hi) if hi else True)].sum()) / n_live_terms
+              for lo, hi in ((0, 16), (16, 1024), (1024, 0))}
+    print(f"phase 16 runs: {n_live_terms} live terms on {int((lengths > 0).sum())} rows, the longest run "
+          f"{int(lengths.max())} terms; live terms by run length: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
     grad = _repeats(f"kernel hash_accumulate [{n_terms}] -> [{lay.rows}, 2]",
                     lambda: hashgrid.hash_accumulate(keys_s, vals_s, prods, lay.rows))
     if not torch.equal(grad, hash_accumulate_on_cpu(keys_s, vals_s, prods, lay.rows)):
         raise AssertionError("phase 16: hash_accumulate differs from its plain version")
+    if not torch.equal(grad, hashgrid.hash_accumulate(sort_k, sort_v, prods, lay.rows)):
+        raise AssertionError("phase 16: the table gradient differs from the sort-based path's")
     if not torch.equal(hashgrid.hash_table_grad(g, pos, lay), grad):
         raise AssertionError("phase 16: hash_table_grad differs from its kernels called one by one")
+    del grouped, sort_k, sort_v
     live = keys < lay.rows
     live_keys, live_prods = keys[live].long(), prods[live]
 
@@ -2668,12 +2689,19 @@ def run_hashgrid(card: str, results: dict) -> dict:
             lambda: hashgrid.hash_accumulate_plain(keys_s, vals_s, prods, lay.rows),
             bound(nbytes(keys_s, vals_s, prods, grad)), scatter),
     }
-    # the key-value sort between them (kernel 4), over the terms' 23 key bits
+    # the grouping, and the key-value sort (kernel 4) it replaced, over the terms' 23 key bits
+    timed["hash_group"] = time_pair(
+        f"kernels hash_group, {n_terms} terms grouped by row ({bits} key bits)",
+        lambda: hashgrid.hash_group(keys, lay.rows), lambda: hashgrid.hash_group_plain(keys, lay.rows),
+        bound(nbytes(keys, keys_s, vals_s)))
     sort_t = time_pair(f"kernel sort_pairs [1, {n_terms}], the hash terms by row ({bits} key bits)",
                        lambda: bitonic.sort_pairs_i32(keys, vals, 0, bits),
                        lambda: bitonic.sort_pairs_i32_plain(keys, vals, 0, bits),
                        bound(nbytes(keys, vals, keys_s, vals_s)))
     results.setdefault("sort_pairs", {}).update({f"hash_terms_{k}": v for k, v in sort_t.items()})
+    print(f"phase 16 the grouping against the sort it replaced: call {timed['hash_group']['ms']:.4f} / "
+          f"{sort_t['ms']:.4f} ms, device {_ms(timed['hash_group']['device_ms'])} / {_ms(sort_t['device_ms'])} "
+          f"[{card}]")
     for key, t in (*timed.items(), ("sort_pairs of the hash terms", sort_t)):
         if key in ("hash_encode", "hash_terms"):
             _one_launch(f"kernel {key}", t)

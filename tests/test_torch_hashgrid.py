@@ -1,9 +1,11 @@
 """Instant-NGP's hash-grid field of the port (`models/hashgrid.py`,
 `ops/hashgrid.py`) against the plain reference `tests/plain_hashgrid.py` on
 seeded random tables, on the CPU at field_scale 0.1 (16 levels from 16 to
-205, T = 2^13: levels 0-1 dense, 2-15 hashed, 126,460 rows); the published
-widths at 1.0; one training step, `train()` and `render_only`; the spans.  The kernels against their plain versions, and the table
-gradient repeating itself, on the card (marked `cuda`).
+205, T = 2^13: levels 0-1 dense, 2-15 hashed, 126,460 rows); the terms'
+grouping by row against a stable sort; the published widths at 1.0; one
+training step, `train()` and `render_only`; the spans.  The kernels against
+their plain versions, the grouping against kernel 4's key-value sort, and
+the table gradient repeating itself, on the card (marked `cuda`).
 
 Tolerances: the corner rows are integers and must be equal; the weights are
 the same f32 products (exact).  The features in bf16 differ from the
@@ -135,6 +137,44 @@ def test_accumulation_splits_runs_in_chunk_order():
     torch.testing.assert_close(out[5], prods[43:45].sum(0), rtol=1e-6, atol=0.0)
 
 
+@pytest.mark.parametrize("case", ["dead_mixed", "hot_row", "empty_rows", "single", "layout_terms"])
+def test_grouping_is_the_stable_sort(field, case):
+    """`hash_group` on the CPU (its plain version) against numpy's stable
+    argsort of the keys: keys in order, each row's term indices ascending;
+    dead terms (key n_rows) last."""
+    gen = torch.Generator().manual_seed(10)
+    if case == "dead_mixed":
+        n_rows = 50
+        keys = torch.randint(0, n_rows + 1, (800,), generator=gen)
+    elif case == "hot_row":  # one row holding thousands of terms
+        n_rows = 40
+        keys = torch.randint(0, n_rows, (6000,), generator=gen)
+        keys[torch.rand(6000, generator=gen) < 0.6] = 7
+    elif case == "empty_rows":  # terms on every 97th row of 1000 only
+        n_rows = 1000
+        keys = torch.randint(0, 10, (400,), generator=gen) * 97
+    elif case == "single":
+        n_rows = 3
+        keys = torch.tensor([2])
+    else:  # the test layout's own terms, with dropped (sample, level)s
+        x = _positions(300, seed=11)
+        g = torch.randn(x.shape[0], 32, generator=gen)
+        g[::5] = 0.0
+        g[1::5, 4:10] = 0.0
+        keys, _, _ = hashgrid.hash_terms(x, g, field.layout)
+        n_rows = field.layout.rows
+    keys = keys.to(torch.int32)
+    keys_s, vals_s = hashgrid.hash_group(keys, n_rows)
+    order = np.argsort(keys.numpy(), kind="stable")
+    assert keys_s.dtype == vals_s.dtype == torch.int32
+    assert np.array_equal(keys_s.numpy(), keys.numpy()[order]) and np.array_equal(vals_s.numpy(), order)
+    dead = int((keys == n_rows).sum())
+    live = keys_s.numel() - dead
+    assert bool((keys_s[live:] == n_rows).all()) and bool((keys_s[:live] < n_rows).all())
+    if case in ("dead_mixed", "layout_terms"):
+        assert 0 < dead < keys.numel()
+
+
 def test_published_widths():
     f, sigma, rgb = make_model("instantngp", field_scale=1.0)
     lay = f.layout
@@ -252,21 +292,41 @@ def test_kernels_match_their_plain_versions(cuda_device):
     terms = hashgrid.hash_terms(xc, gc, lay)
     for a, b in zip(terms, hashgrid.hash_terms_plain(x, g, lay)):
         assert torch.equal(a.cpu(), b)
-    keys_s, vals_s = sort_pairs_i32(terms[0], terms[1], 0, lay.rows.bit_length())
+    # the grouping against kernel 4's key-value sort and the plain version:
+    # every term bit-equal, the dropped ones last
+    launched = hashgrid.hash_group.launches
+    keys_s, vals_s = hashgrid.hash_group(terms[0], lay.rows)
+    assert hashgrid.hash_group.launches == launched + 1
+    sort_k, sort_v = sort_pairs_i32(terms[0], terms[1], 0, lay.rows.bit_length())
+    assert torch.equal(keys_s, sort_k) and torch.equal(vals_s, sort_v)
+    plain_k, plain_v = hashgrid.hash_group_plain(terms[0].cpu(), lay.rows)
+    assert torch.equal(keys_s.cpu(), plain_k) and torch.equal(vals_s.cpu(), plain_v)
+    assert 0 < int((keys_s == lay.rows).sum()) and int(torch.bincount(keys_s.long()).max()) > 20_000
+    # fewer key bits than a pass, and a ragged last tile
+    few = (terms[0][: 3 * hashgrid.GROUP_TILE + 5] % 200).contiguous()
+    for a, b in zip(hashgrid.hash_group(few, 199), hashgrid.hash_group_plain(few.cpu(), 199)):
+        assert torch.equal(a.cpu(), b)
     out = hashgrid.hash_accumulate(keys_s, vals_s, terms[2], lay.rows)
     ref = hashgrid.hash_accumulate_plain(keys_s.cpu(), vals_s.cpu(), terms[2].cpu(), lay.rows)
     assert torch.equal(out.cpu(), ref)
     full = hashgrid.hash_table_grad(gc, xc, lay)
-    assert torch.equal(full.cpu(), hashgrid.hash_table_grad(g, x, lay))
+    assert torch.equal(full.cpu(), hashgrid.hash_table_grad(g, x, lay)) and torch.equal(full, out)
 
 
 @pytest.mark.cuda
 def test_table_gradient_repeats_bit_for_bit(cuda_device):
+    """Through the grouping (no key-value sort), equal to the gradient of
+    the terms sorted by kernel 4."""
     lay, x, _, g = _card_inputs(200_000, 50_000)
     xc, gc = x.to(cuda_device), g.to(cuda_device)
+    grouped, sorted_ = hashgrid.hash_group.launches, sort_pairs_i32.launches
     runs = [hashgrid.hash_table_grad(gc, xc, lay) for _ in range(DET_RUNS)]
     torch.cuda.synchronize()
+    assert hashgrid.hash_group.launches == grouped + DET_RUNS and sort_pairs_i32.launches == sorted_
     assert all(torch.equal(r, runs[0]) for r in runs[1:]) and float(runs[0].abs().max()) > 0
+    keys, vals, prods = hashgrid.hash_terms(xc, gc, lay)
+    by_sort = hashgrid.hash_accumulate(*sort_pairs_i32(keys, vals, 0, lay.rows.bit_length()), prods, lay.rows)
+    assert torch.equal(runs[0], by_sort)
 
 
 @pytest.mark.cuda

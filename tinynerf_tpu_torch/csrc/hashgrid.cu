@@ -29,8 +29,8 @@
 //     contiguously (two 16-byte stores of keys, of values, four of
 //     products).  Terms of a (sample, level) whose cotangent is all zero get
 //     the key `sentinel` (the row count), so they sort last and are dropped.
-//   * the terms are then sorted by key with kernel 4's key-value radix sort
-//     (csrc/radix_sort.cu, stable: a row's terms stay in term order);
+//   * the hash_group kernels then group the terms by row, each row's in
+//     term order: the order a stable sort by key gives (note below);
 //   * hash_accumulate_kernel: a thread per chunk of kChunk sorted terms
 //     loads their keys and values with 16-byte loads, gathers the products
 //     of the live ones (kChunk independent 8-byte loads in flight), and sums
@@ -52,6 +52,8 @@ constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
 constexpr int kChunk = 16;  // ops/hashgrid.py ACC_CHUNK
 constexpr unsigned kPrimeY = 2654435761u, kPrimeZ = 805459861u;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kThreads / 32;
 
 struct Levels {
   int n;
@@ -254,6 +256,193 @@ hash_accumulate_combine_kernel(const int* __restrict__ keys, long long n_terms, 
   out[key] = acc;
 }
 
+// ---------------------------------------------------------------- grouping
+//
+// The hash_group kernels put the table gradient's terms in row order, each
+// row's terms in term order: the stable sort of the keys (rows) with the
+// term indices as values, bit for bit.  They replace no TPU kernel (the JAX
+// package has no hash grid).  They were added because kernel 4
+// (csrc/radix_sort.cu), which sorted the terms before, is built for rows of
+// under a million keys held in the 50 MB L2: per 8-bit pass it reads the keys
+// once to count each tile's digits and again to move them.  A training
+// step's terms are 104,857,600 pairs (840 MB) keyed by 23 bits of row, so
+// each extra read goes to device memory.  Kernel 4 stays with the window
+// sorts it was built for (K-Planes, Cobafa), which fit the L2.
+//
+// What bounds them: the grouped keys and values have to be written, 8 bytes
+// a term (0.25 ms at 3.35 TB/s at the early cell's ~780k kept samples).  A
+// counting sort would write each term once, but to a random 4-byte slot:
+// on an H100 1e8 such stores take 1.70 ms even inside an L2-resident 4 MB
+// window, and the atomics that count the rows 0.8-1.1 ms more; a sort of
+// the terms through those kernels took 5.4-8.7 ms.  So these kernels move
+// the terms in coalesced runs, an LSD radix sort of 8 bits a pass over the
+// key's bits, each pass reading every pair once:
+//   * hash_group_histogram_kernel reads the keys once and counts every
+//     pass's digits (shared-memory counts, one global add per block and
+//     digit);
+//   * hash_group_sweep_kernel, once per pass: a block takes the next tile
+//     of kTile pairs in arrival order (an atomic ticket), ranks each key
+//     among the tile's equal digits in tile order (__match_any_sync and a
+//     counter per warp and digit, as kernel 4), publishes its digit counts
+//     and finds the counts of all earlier tiles by decoupled look-back (a
+//     tile's status word per digit: its count, flagged as the tile's own or
+//     as the sum of all tiles up to it), then stages the tile in shared
+//     memory ordered by digit and writes each digit's run contiguously.  The
+//     first pass makes the values (the term index) instead of reading them.
+// Equal digits keep their order at every level, so the sort is stable.  No
+// float atomics, no host readback; the look-back waits only on tiles that
+// took their ticket earlier, so are running or done.
+
+constexpr int kBins = 256;
+constexpr int kKeysPerThread = 16;
+constexpr int kTile = kThreads * kKeysPerThread;  // 4096 pairs
+constexpr int kMaxPasses = 4;                     // keys below 2^31
+constexpr int kHistogramBlocks = 1024;            // the histogram's grid, which strides over the keys
+constexpr unsigned kOwn = 1u << 30, kUpTo = 2u << 30, kCount = kOwn - 1u;  // look-back status words
+static_assert(kThreads == kBins, "thread d owns digit d");
+
+__device__ __forceinline__ unsigned lanes_below() { return (1u << (threadIdx.x & 31)) - 1u; }
+
+__device__ __forceinline__ int warp_inclusive_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, k);
+    if (lane >= k) v += u;
+  }
+  return v;
+}
+
+// Exclusive scan of v over the block's kThreads threads; every thread calls
+// it, and `sums` ([kWarps]) is not read by another thread on entry.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sums) {
+  const int warp = threadIdx.x >> 5;
+  const int inc = warp_inclusive_scan(v);
+  if ((threadIdx.x & 31) == 31) sums[warp] = inc;
+  __syncthreads();
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += sums[w];
+  return base + inc - v;
+}
+
+// counts [passes, kBins] += the digits (key >> 8 p) & 255 of keys [n].
+__global__ void __launch_bounds__(kThreads)
+hash_group_histogram_kernel(const int* __restrict__ keys, int n, int passes, int* __restrict__ counts) {
+  __shared__ int local[kMaxPasses][kBins];
+  for (int p = 0; p < passes; ++p) local[p][threadIdx.x] = 0;
+  __syncthreads();
+  const int quads = n / 4;
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  for (int q = blockIdx.x * kThreads + threadIdx.x; q < quads; q += gridDim.x * kThreads) {
+    const int4 k = __ldg(k4 + q);
+    for (int p = 0; p < passes; ++p) {
+      const int shift = 8 * p;
+      atomicAdd(&local[p][(k.x >> shift) & (kBins - 1)], 1);
+      atomicAdd(&local[p][(k.y >> shift) & (kBins - 1)], 1);
+      atomicAdd(&local[p][(k.z >> shift) & (kBins - 1)], 1);
+      atomicAdd(&local[p][(k.w >> shift) & (kBins - 1)], 1);
+    }
+  }
+  if (blockIdx.x == 0)  // the keys past the last whole quad
+    for (int i = quads * 4 + static_cast<int>(threadIdx.x); i < n; i += kThreads)
+      for (int p = 0; p < passes; ++p) atomicAdd(&local[p][(keys[i] >> (8 * p)) & (kBins - 1)], 1);
+  __syncthreads();
+  for (int p = 0; p < passes; ++p)
+    if (local[p][threadIdx.x] != 0) atomicAdd(counts + p * kBins + threadIdx.x, local[p][threadIdx.x]);
+}
+
+// One pass over the digit (key >> shift) & 255: pairs (keys_in, vals_in) ->
+// (keys_out, vals_out), vals_in unread in the first pass (the value is the
+// pair's index).  counts: the pass's [kBins] digit counts; status: [tiles,
+// kBins], zero on entry; ticket: zero on entry.
+template <bool kFirst>
+__global__ void __launch_bounds__(kThreads, 4)
+hash_group_sweep_kernel(const int* __restrict__ keys_in, const int* __restrict__ vals_in, int* __restrict__ keys_out,
+                        int* __restrict__ vals_out, int n, int shift, const int* __restrict__ counts,
+                        unsigned* status, int* ticket) {
+  __shared__ int staged[kTile], staged_vals[kTile];
+  __shared__ int warp_count[kWarps][kBins + 1];  // bin kBins: past the end
+  __shared__ int local_base[kBins], global_base[kBins];
+  __shared__ int sums[2][kWarps];
+  __shared__ int tile_of_block;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d_own = threadIdx.x;
+  if (threadIdx.x == 0) tile_of_block = atomicAdd(ticket, 1);
+  for (int i = threadIdx.x; i < kWarps * (kBins + 1); i += kThreads) (&warp_count[0][0])[i] = 0;
+  __syncthreads();
+  const int tile = tile_of_block;
+  const int tile_base = tile * kTile;
+  const int base = tile_base + warp * (32 * kKeysPerThread) + lane;
+  const unsigned below = lanes_below();
+  int key[kKeysPerThread], rank[kKeysPerThread];
+#pragma unroll
+  for (int r = 0; r < kKeysPerThread; ++r) {
+    const int i = base + r * 32;
+    const bool valid = i < n;
+    key[r] = valid ? keys_in[i] : 0;
+    const int d = valid ? (key[r] >> shift) & (kBins - 1) : kBins;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const int before = __popc(peers & below);
+    int prev = 0;
+    if (before == 0) {  // the lowest lane of each digit keeps the warp's counter
+      prev = warp_count[warp][d];
+      warp_count[warp][d] = prev + __popc(peers);
+    }
+    __syncwarp();
+    rank[r] = __shfl_sync(kFull, prev, __ffs(peers) - 1) + before;
+  }
+  __syncthreads();
+
+  // thread d: digit d's counts scanned over the warps; the tile's total of d
+  int total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_count[w][d_own];
+    warp_count[w][d_own] = total;
+    total += c;
+  }
+  // publish the tile's count of d, then add the earlier tiles' counts of d
+  volatile unsigned* own = status + static_cast<long long>(tile) * kBins + d_own;
+  int before_tile = 0;
+  if (tile == 0) {
+    *own = kUpTo | static_cast<unsigned>(total);
+  } else {
+    *own = kOwn | static_cast<unsigned>(total);
+    for (int t = tile - 1;; --t) {
+      const volatile unsigned* at = status + static_cast<long long>(t) * kBins + d_own;
+      unsigned v;
+      do {
+        v = *at;
+      } while (v == 0);
+      before_tile += static_cast<int>(v & kCount);
+      if (v & kUpTo) break;
+    }
+    *own = kUpTo | static_cast<unsigned>(before_tile + total);
+  }
+  const int local = block_exclusive_scan(total, sums[0]);
+  const int digit_base = block_exclusive_scan(counts[d_own], sums[1]);
+  local_base[d_own] = local;
+  global_base[d_own] = digit_base + before_tile - local;
+  __syncthreads();
+
+#pragma unroll
+  for (int r = 0; r < kKeysPerThread; ++r) {
+    const int i = base + r * 32;
+    if (i < n) {
+      const int d = (key[r] >> shift) & (kBins - 1);
+      const int at = local_base[d] + warp_count[warp][d] + rank[r];
+      staged[at] = key[r];
+      staged_vals[at] = kFirst ? i : vals_in[i];  // read here, not held through the ranking
+    }
+  }
+  __syncthreads();
+  const int n_here = min(n - tile_base, kTile);
+  for (int i = threadIdx.x; i < n_here; i += kThreads) {
+    const int k = staged[i];
+    const int to = global_base[(k >> shift) & (kBins - 1)] + i;
+    keys_out[to] = k;
+    vals_out[to] = staged_vals[i];
+  }
+}
+
 int blocks_for(long long threads) { return static_cast<int>((threads + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -284,6 +473,47 @@ int tn_hash_terms(const void* pos, const void* g, const int* levels, int n, int 
   hash_terms_kernel<<<blocks_for(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float2*>(g), lv, n, sentinel, static_cast<int*>(keys),
       static_cast<int*>(vals), static_cast<float2*>(prods));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys [n_terms] int32 in [0, 2^bits) (16-byte aligned), n_terms < 2^30;
+// scratch: scratch_ints >= kMaxPasses 256 + kMaxPasses + passes 256
+// ceil(n_terms / 4096) int32; keys_s, vals_s [n_terms] int32 out, tmp_k,
+// tmp_v [n_terms] int32 (unused for one pass): keys_s the keys sorted
+// stably, vals_s their indices.
+int tn_hash_group(const void* keys, int n_terms, int bits, void* scratch, long long scratch_ints, void* keys_s,
+                  void* vals_s, void* tmp_k, void* tmp_v, void* stream) {
+  const int passes = (bits + 7) / 8;
+  const long long tiles = (static_cast<long long>(n_terms) + kTile - 1) / kTile;
+  if (n_terms < 0 || n_terms >= (1 << 30) || bits < 1 || bits > 31 ||
+      scratch_ints < static_cast<long long>(kMaxPasses) * (kBins + 1) + passes * kBins * tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* counts = static_cast<int*>(scratch);     // [kMaxPasses, kBins]
+  int* tickets = counts + kMaxPasses * kBins;   // [kMaxPasses]
+  unsigned* status = reinterpret_cast<unsigned*>(tickets + kMaxPasses);  // [passes, tiles, kBins]
+  const size_t used = (static_cast<size_t>(kMaxPasses) * (kBins + 1) + passes * kBins * tiles) * sizeof(int);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, used, s);
+  if (err != cudaSuccess || n_terms == 0) return static_cast<int>(err);
+  hash_group_histogram_kernel<<<kHistogramBlocks, kThreads, 0, s>>>(static_cast<const int*>(keys), n_terms, passes,
+                                                                    counts);
+  const int* src_k = static_cast<const int*>(keys);
+  const int* src_v = nullptr;
+  for (int p = 0; p < passes; ++p) {
+    // the last pass writes keys_s, vals_s, and the passes before it alternate
+    const bool to_out = (passes - 1 - p) % 2 == 0;
+    int* dst_k = static_cast<int*>(to_out ? keys_s : tmp_k);
+    int* dst_v = static_cast<int*>(to_out ? vals_s : tmp_v);
+    unsigned* st = status + static_cast<long long>(p) * kBins * tiles;
+    if (p == 0)
+      hash_group_sweep_kernel<true><<<static_cast<int>(tiles), kThreads, 0, s>>>(
+          src_k, nullptr, dst_k, dst_v, n_terms, 0, counts, st, tickets);
+    else
+      hash_group_sweep_kernel<false><<<static_cast<int>(tiles), kThreads, 0, s>>>(
+          src_k, src_v, dst_k, dst_v, n_terms, 8 * p, counts + p * kBins, st, tickets + p);
+    src_k = dst_k;
+    src_v = dst_v;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

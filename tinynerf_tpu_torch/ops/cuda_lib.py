@@ -51,6 +51,7 @@ _SIGNATURES = {
     "tn_skip_march_unbounded": (_P, _P, _P, _P, _I, _I, _I, _I) + (_F,) * 7 + (_P, _P, _P),
     "tn_hash_encode": (_P, _P, _P, _I, _P, _P),
     "tn_hash_terms": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "tn_hash_group": (_P, _I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P),
     "tn_hash_accumulate": (_P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P),
     "tn_skip_lanes": (_I,),  # returns the lanes per ray both marches take, not an error code
 }
@@ -200,6 +201,7 @@ def launch_counters() -> dict:
         "quad_build_fp8": (octbuild.build_quad, "fp8_launches"),
         "hash_encode": (hashgrid.hash_encode, "launches"),
         "hash_terms": (hashgrid.hash_terms, "launches"),
+        "hash_group": (hashgrid.hash_group, "launches"),
         "hash_accumulate": (hashgrid.hash_accumulate, "launches"),
         "skip_march": (skipmarch.skip_march, "launches"),
         "skip_march_unbounded": (skipmarch.skip_march_unbounded, "launches"),

@@ -14,8 +14,8 @@ to [0, N_l - 1], so x = 1 interpolates inside the last cell with t = 1 (as
 corner's weight is (wx wy) wz, and the lerp adds the corners in that order
 in f32.
 
-Three kernels (`csrc/hashgrid.cu`), each with a plain PyTorch version that
-the CPU runs and that the kernel repeats bit for bit:
+Four steps of kernels (`csrc/hashgrid.cu`), each with a plain PyTorch
+version that the CPU runs and that the kernels repeat bit for bit:
 
   * `hash_encode`: the features [n, L F] f32 of n positions, every level's
     eight corner rows gathered from a bf16 copy of the table;
@@ -24,14 +24,16 @@ the CPU runs and that the kernel repeats bit for bit:
     the level's cotangent; a (sample, level) whose cotangent is all zero
     (the packed buffer's pad samples) gets the key `n_rows`, past every
     row, so that its terms are sorted last and dropped;
+  * `hash_group`: the terms grouped by row, each row's in term order (the
+    stable sort of the keys with the term indices as values), an LSD radix
+    sort whose passes each read the pairs once; no library sort;
   * `hash_accumulate`: the sorted terms summed per row, each thread over a
     chunk of ACC_CHUNK of them in order, the runs that cross a chunk's end
     completed by a second kernel that adds the following chunks' partial
     sums in chunk order.  No float atomics.
 
-The table gradient (`hash_table_grad`) is `hash_terms`, the key-value radix
-sort of `ops/bitonic.py` (kernel 4, stable, over the bits of `n_rows`),
-then `hash_accumulate`: each row's terms summed in term order, so a step
+The table gradient (`hash_table_grad`) is `hash_terms`, `hash_group`, then
+`hash_accumulate`: each row's terms summed in term order, so a step
 repeats itself bit for bit.  `hash_lookup` is the autograd Function of the
 field; it saves only the positions, and its backward runs under the span
 `field.table_grad`.
@@ -48,7 +50,7 @@ from typing import Tuple
 import torch
 
 from . import cuda_lib
-from .bitonic import sort_pairs_i32
+from .bitonic import sort_pairs_i32_plain
 from .octbuild import CORNERS_3D
 from ..utils.trace import span
 
@@ -58,6 +60,8 @@ FEATURES = 2  # per level: a row is one bf16 pair, 4 bytes, in the kernels
 MAX_LEVELS = 32
 # sorted terms summed in order by one thread of the accumulation kernel
 ACC_CHUNK = 16
+# terms a block of the grouping's passes moves (`csrc/hashgrid.cu` kTile)
+GROUP_TILE = 4096
 
 
 def level_resolutions(n_min: int, n_max: int, n_levels: int) -> Tuple[int, ...]:
@@ -227,6 +231,45 @@ def hash_terms(pos: torch.Tensor, g: torch.Tensor, layout: HashLayout):
 hash_terms.launches = 0
 
 
+def hash_group_plain(keys: torch.Tensor, n_rows: int):
+    """Plain PyTorch `hash_group`: the stable sort of the keys by their
+    `n_rows.bit_length()` bits with the term indices as values."""
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
+    return sort_pairs_i32_plain(keys, vals, 0, n_rows.bit_length())
+
+
+def hash_group(keys: torch.Tensor, n_rows: int):
+    """keys [T] int32 of `hash_terms` (rows, `n_rows` for a dropped term)
+    -> (keys_s, vals_s) [T] int32: the terms grouped by row, each row's in
+    term order, vals_s their term indices, the dropped terms last: the
+    stable sort of the keys (`hash_group_plain`).  On CUDA tensors the
+    `hash_group` kernels (an LSD radix sort of 8 bits a pass over the bits
+    of `n_rows`, each pass one read of the pairs), on CPU tensors the plain
+    version."""
+    if cuda_lib.runs_plain("hash_group", keys):
+        return hash_group_plain(keys, n_rows)
+    n_terms = keys.numel()
+    cuda_lib.check_cuda_inputs("hash_group", torch.int32, (n_terms,), keys)
+    if n_terms >= 2**30 or not 1 <= n_rows < 2**31 - 1 or keys.data_ptr() % 16:
+        raise ValueError(f"hash_group: {n_terms} terms (below 2^30, 16-byte aligned) into {n_rows} rows")
+    bits = n_rows.bit_length()
+    passes, tiles = -(-bits // 8), -(-n_terms // GROUP_TILE)
+    keys_s, vals_s = torch.empty_like(keys), torch.empty_like(keys)
+    # the passes before the last write here, in turns with keys_s, vals_s
+    tmp_k, tmp_v = (torch.empty_like(keys), torch.empty_like(keys)) if passes > 1 else (keys_s, vals_s)
+    # per pass its digit counts, its tile ticket and its tiles' look-back words
+    scratch_ints = 4 * 257 + passes * 256 * tiles
+    scratch = torch.empty(scratch_ints, dtype=torch.int32, device=keys.device)
+    cuda_lib.library().call("tn_hash_group", keys.data_ptr(), n_terms, bits, scratch.data_ptr(), scratch_ints,
+                            keys_s.data_ptr(), vals_s.data_ptr(), tmp_k.data_ptr(), tmp_v.data_ptr(),
+                            cuda_lib.stream_of(keys))
+    hash_group.launches += 1
+    return keys_s, vals_s
+
+
+hash_group.launches = 0
+
+
 def hash_accumulate_plain(keys_s: torch.Tensor, vals_s: torch.Tensor, prods: torch.Tensor, n_rows: int):
     """Plain PyTorch `hash_accumulate`, in the kernel's association: the runs
     of equal keys inside each chunk of ACC_CHUNK terms summed in order from
@@ -278,11 +321,12 @@ hash_accumulate.launches = 0
 
 def hash_table_grad(g: torch.Tensor, pos: torch.Tensor, layout: HashLayout) -> torch.Tensor:
     """The table gradient [rows, F] f32 of `hash_encode` at positions pos
-    [n, 3] for the cotangent g [n, L F]: its terms, sorted stably by row,
-    each row's summed in term order."""
+    [n, 3] for the cotangent g [n, L F]: its terms, grouped by row in term
+    order, each row's summed in that order."""
     keys, vals, prods = hash_terms(pos, g.float().contiguous(), layout)
-    keys_s, vals_s = sort_pairs_i32(keys, vals, 0, layout.rows.bit_length())
-    del keys, vals
+    del vals  # the term indices, which `hash_group` makes itself
+    keys_s, vals_s = hash_group(keys, layout.rows)
+    del keys
     return hash_accumulate(keys_s, vals_s, prods, layout.rows)
 
 
