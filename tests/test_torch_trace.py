@@ -1,10 +1,11 @@
 """The program's spans (`tinynerf_tpu_torch/utils/trace.py`) under a CPU
 `torch.profiler`: a K-Planes and a Cobafa step on the dense and the skip
-march, the data-parallel step on a one-rank gloo group, one `infer` view
-with the packed chunk and a forced fallback, and a few `train()` steps
-through its `profile_start` hook.  Every span of the module's list appears
-where that list puts it; with no profiler `span()` is one shared null
-context; a deterministic step is bit-equal with the profiler on and off.
+march, the step on a one-rank gloo group, one `infer` view with the packed
+chunk and a forced fallback, and a few `train()` steps through its
+`profile_start` hook.  Every span of the module's list appears where that
+list puts it; with no profiler `span()` is one shared null context; a
+deterministic step is bit-equal with the profiler on and off, and a step
+with no group, with `single("cpu")` and on a one-rank gloo group bit-equal.
 
 At the size of tests/torch_world.py (planes 9 / 17 / 33, Cobafa's basis
 grids 8..12), 64 rays of the spheres scene, the shell occupancy."""
@@ -17,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 from tinynerf_tpu_torch.data import RayPool
-from tinynerf_tpu_torch.parallel.mesh import wrap_default_group
+from tinynerf_tpu_torch.parallel import single, wrap_default_group
 from tinynerf_tpu_torch.train import (
     InferStats,
     TrainConfig,
@@ -36,6 +37,7 @@ torch.set_num_threads(2)
 CFGS = {
     "kplanes": dict(field_scale=0.07, n_samples=32, batch_size=64, occupancy_res=16, seed=1),
     "cobafa": dict(method="cobafa", field_scale=0.1, n_samples=32, batch_size=64, occupancy_res=16, seed=1),
+    "instantngp": dict(method="instantngp", field_scale=0.1, n_samples=32, batch_size=64, occupancy_res=16, seed=1),
 }
 STEP_CHILDREN = ["train_step.batch", "render.march", "render.field", "render.decode", "train_step.loss",
                  "train_step.backward", "train_step.adam"]
@@ -119,15 +121,41 @@ def test_group_step_spans(gloo_group):
     _, spans = _step_spans("kplanes", "dense", gloo_group)
     steps = _named(spans, "train_step")
     reduces = _named(spans, "train_step.all_reduce")
-    # the loss pieces' sum before the backward, the gradients' after it,
-    # and then the regularizer's backward (replicated: computed whole)
+    # the loss pieces' sum before the one backward (its objective holds the
+    # regularizer), the gradients' after it
     assert len(steps) == 1 and len(reduces) == 2 and all(_inside(r, steps[0]) for r in reduces)
     backward = _named(spans, "train_step.backward")
-    assert len(backward) == 2 and reduces[0][1] <= backward[0][0] <= backward[0][1] <= reduces[1][0]
-    assert reduces[1][1] <= backward[1][0]
+    assert len(backward) == 1 and reduces[0][1] <= backward[0][0] <= backward[0][1] <= reduces[1][0]
     for name in STEP_CHILDREN:
         assert _named(spans, name) and _each_inside(spans, name, "train_step"), name
     assert _each_inside(spans, "field.table_grad", "train_step.backward")
+
+
+@pytest.mark.parametrize("deterministic", [True, False], ids=["deterministic", "sampled"])
+@pytest.mark.parametrize("method", ["kplanes", "cobafa", "instantngp"])
+def test_one_rank_groups_step_alike(gloo_group, method, deterministic):
+    """One step with no group, with `single("cpu")` and on a one-rank gloo
+    group: the loss, the counts, every gradient (deterministic) and every
+    updated parameter bit-equal.  K-Planes with TV and L1 on; a sampled
+    step draws its batch, the jitter and Cobafa's dropout mask from one
+    seed."""
+
+    def run(group):
+        cfg, renderer, occ, pool = _world(method, **({"l1_reg_alpha": 1e-3} if method == "kplanes" else {}))
+        opt = make_optimizer(cfg, renderer, group)
+        step = make_train_step(renderer, opt, cfg, n_cand=CHUNK, deterministic=deterministic, group=group)
+        gen = () if deterministic else (torch.Generator().manual_seed(3),)
+        return step(occ, *pool, *gen), [p.detach().clone() for p in opt.params]
+
+    (m0, p0), *others = [run(g) for g in (None, single("cpu"), gloo_group)]
+    assert torch.isfinite(m0["loss"]) and float(m0["rays_used"]) > 0
+    for m, p in others:
+        for key in ("loss", "rays_used", "fill", "complete_frac"):
+            assert torch.equal(m[key], m0[key]), key
+        if deterministic:
+            g0, g = dict(_leaves(m0["grads"])), dict(_leaves(m["grads"]))
+            assert g.keys() == g0.keys() and all(torch.equal(g[k], g0[k]) for k in g0)
+        assert len(p) == len(p0) and all(torch.equal(a, b) for a, b in zip(p, p0))
 
 
 def test_infer_spans(tmp_path):

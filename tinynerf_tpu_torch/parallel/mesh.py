@@ -48,8 +48,10 @@ class DataGroup:
         return self.pg is not None
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` over ranks, in place; returns `t`."""
+        """The sum of `t` over ranks, in place (in a contiguous copy of a
+        `t` that is not contiguous); returns it."""
         if self.pg is not None:
+            t = t.contiguous()
             dist.all_reduce(t, group=self.pg)
         return t
 

@@ -10,17 +10,17 @@ serving entry points (`make_render_chunk`, `make_render_chunk_packed`,
   * parameters live in the renderer's modules and the Adam state in the
     optimizer object, so the step and chunk functions take no `params`
     argument; checkpoints still hold both in the JAX layout (`convert.py`);
-  * one device, named by the caller (`device`), or a `parallel.DataGroup`
-    (`group`, one process per device, the JAX mesh's counterpart): each
-    rank keeps its 1/N of the ray pool, samples and packs 1/N of a step's
-    rays with 1/N of the sample cap, and the step all-reduces the loss
-    pieces and the gradients (`shard_tables`: reduce-scatters the table
-    gradients, keeps 1/N of the tables' Adam moments and all-gathers the
-    updated tables; `shard_bwd`: splits the K-Planes pullback by row
-    bands); serving splits each chunk's rays over the ranks and gathers
-    the results; only rank 0 writes files.  With no group (or a group of
-    one rank and no process group) every function runs the one-device
-    code;
+  * every function runs over a `parallel.DataGroup` (`group`, one process
+    per device, the JAX mesh's counterpart): each rank keeps its 1/N of the
+    ray pool, samples and packs 1/N of a step's rays with 1/N of the
+    sample cap, and the step all-reduces the loss pieces and the gradients
+    (`shard_tables`: reduce-scatters the table gradients, keeps 1/N of the
+    tables' Adam moments and all-gathers the updated tables; `shard_bwd`:
+    splits the K-Planes pullback by row bands); serving splits each chunk's
+    rays over the ranks and gathers the results; only rank 0 writes files.
+    One device is a group of one rank with no process group
+    (`parallel.single`), whose collectives are identities; `group=None`
+    means that group on the caller's `device` (the renderer's);
   * PyTorch runs eagerly, so a "compiled step" is a closure, and the random
     streams are `torch.Generator`s seeded from (seed, step), and the batch
     stream from the rank as well, so a resumed run continues its stream as
@@ -33,6 +33,8 @@ serving entry points (`make_render_chunk`, `make_render_chunk_packed`,
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import time
 from dataclasses import asdict, dataclass, field
@@ -60,7 +62,7 @@ from ..core.renderer import NerfRenderer
 from ..data.pipeline import PoseSet, RayPool, sample_ray_batch
 from ..models.registry import make_model
 from ..parallel import zero
-from ..parallel.mesh import DataGroup, shard_rays
+from ..parallel.mesh import DataGroup, shard_rays, single
 from ..utils.image import save_png
 from ..utils.trace import span
 from .checkpoint import ScaleByAdamState, latest_checkpoint, load_checkpoint, save_checkpoint
@@ -286,6 +288,7 @@ def make_optimizer(cfg: TrainConfig, renderer: NerfRenderer, group: Optional[Dat
     initial state as `init_opt_state` makes it: the tables' moments sharded
     over `group` with `cfg.shard_tables` on a group of several ranks and a
     field that declares tables, else whole."""
+    group = _group_of(renderer, group)
     tree = param_tree(renderer)
     mask = _decay_mask(tree, renderer.field.table_keys, renderer.field.mlp_keys)
     decay_tree = tree_map(lambda _: True, tree) if cfg.decay_tables else mask
@@ -303,12 +306,21 @@ def make_optimizer(cfg: TrainConfig, renderer: NerfRenderer, group: Optional[Dat
                      decay_tree, ratio, table_tree, group=group, sharded_tree=sharded_tree)
 
 
-def _zero_sharded(cfg: TrainConfig, renderer: NerfRenderer, group: Optional[DataGroup]) -> bool:
+def _zero_sharded(cfg: TrainConfig, renderer: NerfRenderer, group: DataGroup) -> bool:
     """The JAX rule for the sharded-table (ZeRO-1) step: `shard_tables`, a
     group of several ranks and a field with declared tables; on one rank
     `shard_tables` changes nothing."""
-    return (cfg.shard_tables and group is not None and group.grouped and group.world > 1
+    return (cfg.shard_tables and group.world > 1
             and zero.has_tables(param_tree(renderer), frozenset(renderer.field.table_keys)))
+
+
+def _renderer_device(renderer: NerfRenderer) -> torch.device:
+    return next(renderer.parameters()).device
+
+
+def _group_of(renderer: NerfRenderer, group: Optional[DataGroup]) -> DataGroup:
+    """`group`, or for None one rank on the renderer's device."""
+    return group or single(_renderer_device(renderer))
 
 
 # ---------------------------------------------------------------- train step
@@ -323,96 +335,29 @@ def make_train_step(
     march: str = "dense",
     group: Optional[DataGroup] = None,
 ) -> Callable:
-    """One train step for `n_cand` candidate rays:
+    """One train step for `n_cand` candidate rays over `group` (no group:
+    one rank on the renderer's device), as `tinynerf_tpu/train/loop.py:
+    make_train_step` on a mesh, and `_make_zero_step`:
     fn(occ_state, pool_o, pool_d, pool_rgb, generator) -> metrics, a dict of
-    device scalars (loss, rays_used, fill, complete_frac); with
-    `march="skip"` the step takes the skip grid (`renderer.skip_grid`,
-    rebuilt at each occupancy update) right after occ_state.  The step
-    samples the batch and four seed words from `generator` (two for the
-    sample jitter, two for a field's dropout mask), renders the packed path
-    on the chosen march, takes the per-ray MSE
-    over rays that fit the sample cap plus the K-Planes TV/L1 regularizers,
-    and updates the parameters in place.
+    the group's device scalars (loss, rays_used, fill over the global cap,
+    complete_frac of the global candidates); with `march="skip"` the step
+    takes the skip grid (`renderer.skip_grid`, rebuilt at each occupancy
+    update) right after occ_state.  `pool_*` are this rank's shard of the
+    pool.
 
-    `deterministic=True` (tests) takes the pool's first `n_cand` rays with no
-    jitter and no dropout (the JAX step's `krender=None`), and adds the
-    gradients (JAX layout, the update's input) to the metrics: the JAX
-    package's seam for comparing steps.
+    Each rank samples n_cand / N rays from its shard and four seed words
+    from `generator` (two for the sample jitter, two for a field's dropout
+    mask), packs them with cap / N samples and renders them on the chosen
+    march.  One all-reduce sums the per-ray MSE numerator over rays that fit
+    the cap, its denominator, the sample and complete-ray counts and the
+    ranks' shares of the field's TV / L1 regularizer (K-Planes').  Each rank
+    then takes one gradient of its objective, numerator times
+    1 / max(global den, 1) plus its share, and
 
-    With a `group` that has a process group, the data-parallel step of
-    `_make_group_step`; otherwise this one-device step.
-    """
-    if group is not None and group.grouped:
-        return _make_group_step(renderer, optimizer, cfg, n_cand, deterministic, march, group)
-    cap = cfg.sample_cap
-    field_ = renderer.field
-    has_reg = cfg.method == "kplanes" and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
-    params = optimizer.params
-    if march not in ("dense", "skip"):
-        raise ValueError(f"unknown march {march!r}")
-    use_skip = march == "skip"
-
-    def step(occ_state, *rest):
-        with span("train_step"):
-            return body(occ_state, *rest)
-
-    def body(occ_state, *rest):
-        skip_grid = rest[0] if use_skip else None
-        pool_o, pool_d, pool_rgb, *gen = rest[1:] if use_skip else rest
-        generator = gen[0] if gen else None
-        with span("train_step.batch"):
-            if deterministic:
-                rays_o, rays_d, rgbs = pool_o[:n_cand], pool_d[:n_cand], pool_rgb[:n_cand]
-                jitter_seed = dropout_seed = None
-            else:
-                rays_o, rays_d, rgbs = sample_ray_batch(generator, pool_o, pool_d, pool_rgb, n_cand)
-                words = torch.randint(0, 2**32, (4,), generator=generator, device=pool_o.device)
-                jitter_seed, dropout_seed = words[:2], words[2:]
-        out = renderer.render_packed(occ_state, rays_o, rays_d, cap,
-                                     jitter_seed=jitter_seed, dropout_seed=dropout_seed,
-                                     march=march, skip_grid=skip_grid)
-        with span("train_step.loss"):
-            per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
-            num = torch.sum(per_ray_mse * out.ray_valid)
-            den = torch.sum(out.ray_valid)
-            loss = num * (1.0 / torch.clamp(den, min=1.0))
-            if has_reg:
-                reg = cfg.tv_reg_alpha * field_.loss_tv()
-                if cfg.l1_reg_alpha != 0.0:
-                    reg = reg + cfg.l1_reg_alpha * field_.loss_l1()
-                loss = loss + reg
-        with span("train_step.backward"):
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        with span("train_step.adam"):
-            optimizer.step(grads)
-        metrics = {"loss": loss.detach(), "rays_used": den, "fill": out.n_samples.float() / cap,
-                   "complete_frac": out.n_complete.float() / n_cand}
-        if deterministic:
-            metrics["grads"] = optimizer.as_tree(grads)
-        return metrics
-
-    return step
-
-
-def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainConfig, n_cand: int,
-                     deterministic: bool, march: str, group: DataGroup) -> Callable:
-    """The data-parallel step over `group` (`tinynerf_tpu/train/loop.py:
-    make_train_step` on a mesh, and `_make_zero_step`), with the one-device
-    step's signature; `pool_*` are this rank's shard of the pool.
-
-    Each rank samples n_cand / N rays from its shard (`deterministic`: the
-    shard's leading n_cand / N rays, no jitter, no dropout), packs them with
-    cap / N samples and renders them.  One all-reduce sums the loss
-    numerator, its denominator, the sample and complete-ray counts (and,
-    sharded, the regularizer's row blocks); each rank then takes the
-    gradient of its numerator times 1 / max(global den, 1), and
-
-      * replicated: the gradients are all-reduced, and the K-Planes TV / L1
-        regularizer's (computed whole on every rank) added after;
+      * replicated: rank 0's share is the whole regularizer and the other
+        ranks' none, and the gradients are all-reduced;
       * `shard_tables` (a group of several ranks and a field with tables):
-        the regularizer is this rank's row block (`loss_tv_partial`), its
-        gradient joins the data gradient before the reduction, table
+        the share is this rank's row block (`loss_tv_partial`), table
         gradients are reduce-scattered to this rank's flat slice and the
         others all-reduced (`zero.reduce_grads`), and Adam updates the
         slices and all-gathers the tables (`FusedAdam`);
@@ -420,9 +365,14 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
         backward splits its pullback over the ranks (`shard_bwd_group`), and
         its per-rank table gradients are partials the reduction completes.
 
-    The metrics are the group's: global loss, rays used, fill over the
-    global cap, complete fraction of the global candidates; with
-    `deterministic` also the reduced gradients in the JAX layout."""
+    On one rank with no process group every collective is an identity: the
+    step is the one-device step.
+
+    `deterministic=True` (tests) takes the shard's first n_cand / N rays with
+    no jitter and no dropout (the JAX step's `krender=None`), and adds the
+    reduced gradients (JAX layout, the update's input) to the metrics: the
+    JAX package's seam for comparing steps."""
+    group = _group_of(renderer, group)
     world, rank = group.world, group.rank
     if n_cand % world or cfg.sample_cap % world:
         raise ValueError(f"candidate rays {n_cand} and sample cap {cfg.sample_cap} must divide "
@@ -438,23 +388,27 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
         raise ValueError("the optimizer's state layout does not fit this step: build it with "
                          "make_optimizer(cfg, renderer, group)")
     bwd_group = group if (sharded and cfg.shard_bwd and hasattr(field_, "shard_bwd_group")) else None
-    has_reg = cfg.method == "kplanes" and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
+    has_reg = hasattr(field_, "loss_tv") and (cfg.tv_reg_alpha != 0.0 or cfg.l1_reg_alpha != 0.0)
     params = optimizer.params
 
-    def regularizer(partial: bool) -> torch.Tensor:
-        if partial:
-            reg = cfg.tv_reg_alpha * field_.loss_tv_partial(rank, world)
-            if cfg.l1_reg_alpha != 0.0:
-                reg = reg + cfg.l1_reg_alpha * field_.loss_l1_partial(rank, world)
-            return reg
-        reg = cfg.tv_reg_alpha * field_.loss_tv()
+    def reg_share() -> Optional[torch.Tensor]:
+        # the ranks' shares sum to the group's regularizer, and so their
+        # gradients to its gradient
+        if sharded:
+            loss_tv = functools.partial(field_.loss_tv_partial, rank, world)
+            loss_l1 = functools.partial(field_.loss_l1_partial, rank, world)
+        elif rank == 0:
+            loss_tv, loss_l1 = field_.loss_tv, field_.loss_l1
+        else:
+            return None
+        reg = cfg.tv_reg_alpha * loss_tv()
         if cfg.l1_reg_alpha != 0.0:
-            reg = reg + cfg.l1_reg_alpha * field_.loss_l1()
+            reg = reg + cfg.l1_reg_alpha * loss_l1()
         return reg
 
-    def grads_of(objective) -> list:
-        grads = torch.autograd.grad(objective, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g.contiguous() for p, g in zip(params, grads)]
+    def collective():
+        # the span of a collective that a process group runs
+        return span("train_step.all_reduce") if group.grouped else contextlib.nullcontext()
 
     def step(occ_state, *rest):
         with span("train_step"):
@@ -481,40 +435,43 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
                 per_ray_mse = torch.mean((out.rgb - rgbs) ** 2, dim=-1)
                 num = torch.sum(per_ray_mse * out.ray_valid)
                 den = torch.sum(out.ray_valid)
-                reg = regularizer(sharded) if has_reg else None
-                # [num, den, samples, complete rays, regularizer block]: one sum
-                stats = torch.stack([num.detach(), den, out.n_samples.float(), out.n_complete.float(),
-                                     reg.detach() if sharded and has_reg else torch.zeros_like(den)])
-            with span("train_step.all_reduce"):
+                reg = reg_share() if has_reg else None
+                # [num, den, samples, complete rays, regularizer share]: one sum
+                pieces = [num.detach(), den, out.n_samples.float(), out.n_complete.float()]
+                if has_reg:
+                    pieces.append(torch.zeros_like(den) if reg is None else reg.detach())
+                stats = torch.stack(pieces)
+            with collective():
                 group.all_reduce_sum(stats)
             scale = 1.0 / torch.clamp(stats[1], min=1.0)
             objective = num * scale
-            if sharded and has_reg:
+            if reg is not None:
                 objective = objective + reg
             with span("train_step.backward"):
-                grads = grads_of(objective)
+                grads = torch.autograd.grad(objective, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         finally:
             if bwd_group is not None:
                 field_.shard_bwd_group = None
-        loss = stats[0] * scale
-        if sharded:
+        # the ranks' objectives sum to the group's loss: one rank's is it
+        if world == 1:
+            loss = objective.detach()
+        else:
+            loss = stats[0] * scale
             if has_reg:
                 loss = loss + stats[4]
-            with span("train_step.all_reduce"):
+        if sharded:
+            with collective():
                 gview = [v for _, v in tree_leaves_with_path(
                     zero.reduce_grads(optimizer.as_tree(grads), table_keys, group))]
             with span("train_step.adam"):
                 optimizer.step(gview)
             if deterministic:
-                with span("train_step.all_reduce"):
+                with collective():
                     full = zero.unview(optimizer.as_tree(gview), optimizer.tree, table_keys, group)
         else:
-            with span("train_step.all_reduce"):
+            with collective():
                 grads = [group.all_reduce_sum(g) for g in grads]
-            if has_reg:
-                loss = loss + reg.detach()
-                with span("train_step.backward"):
-                    grads = [g + r for g, r in zip(grads, grads_of(reg))]
             with span("train_step.adam"):
                 optimizer.step(grads)
             if deterministic:
@@ -531,46 +488,42 @@ def _make_group_step(renderer: NerfRenderer, optimizer: FusedAdam, cfg: TrainCon
 def make_occupancy_update(renderer: NerfRenderer, group: Optional[DataGroup] = None) -> Callable:
     """fn(occ_state, generator) -> the state after one decay/confirm sweep.
 
-    With a `group` (a process group whose world size divides the grid's
-    x-resolution, as the JAX mesh update asks): every rank draws the same
-    full jitter from the same stream, sweeps its contiguous x-slab
-    (`OccupancyGrid.update_slab`), and the slabs are all-gathered once, so
-    every rank holds the one-rank sweep's grid."""
+    Every rank draws the same full jitter from the same stream, sweeps its
+    contiguous x-slab (`OccupancyGrid.update_slab`), and the slabs are
+    all-gathered once, so every rank holds the one-rank sweep's grid.  The
+    grid is one slab, swept whole and gathered from nowhere, on one rank and
+    where the group's world size does not divide the grid's x-resolution
+    (the JAX mesh update asks that it divide)."""
     occ = renderer.occupancy
-    if group is None or not group.grouped:
-        def update(occ_state, generator=None):
-            with span("occupancy.sweep"):
-                return occ.update(occ_state, renderer.sigma_fn, generator)
+    group = _group_of(renderer, group)
+    n_slabs = group.world if occ.size[0] % group.world == 0 else 1
+    slab = group.rank if n_slabs > 1 else 0
 
-        return update
-    if occ.size[0] % group.world:
-        raise ValueError(f"occupancy resolution {occ.size[0]} does not split over {group.world} ranks")
-
-    def update_sharded(occ_state, generator=None):
+    def update(occ_state, generator=None):
         with span("occupancy.sweep"):
             jitter = torch.rand((*occ.size, 3), generator=generator, device=occ_state.grid.device)
-            slab = occ.update_slab(occ_state, renderer.sigma_fn, jitter, group.rank, group.world)
-            grid = group.all_gather(slab)
+            grid = occ.update_slab(occ_state, renderer.sigma_fn, jitter, slab, n_slabs)
+            if n_slabs > 1:
+                grid = group.all_gather(grid)
             return OccupancyState(grid=grid, mean=grid.mean())
 
-    return update_sharded
+    return update
 
 
 def make_render_chunk(renderer: NerfRenderer, group: Optional[DataGroup] = None) -> Callable:
     """Dense render of one ray chunk: fn(occ_state, rays_o, rays_d) -> rgb.
-    With a `group` (whose world size divides the chunk) each rank renders
-    its 1/N of the rays and every rank gets the gathered chunk."""
+    Over a `group` with a process group (whose world size divides the
+    chunk) each rank renders its 1/N of the rays and every rank gets the
+    gathered chunk."""
+    group = _group_of(renderer, group)
 
     def render_chunk(occ_state, rays_o, rays_d):
         return renderer.render_dense(occ_state, rays_o, rays_d).rgb
 
-    if group is None or not group.grouped:
-        return render_chunk
-
     def render_chunk_sharded(occ_state, rays_o, rays_d):
         return group.all_gather(render_chunk(occ_state, *shard_rays(group, rays_o, rays_d)))
 
-    return render_chunk_sharded
+    return render_chunk_sharded if group.grouped else render_chunk
 
 
 def packed_graph_key(renderer: NerfRenderer, cap: int, march: str, occ_state, rays_o: torch.Tensor,
@@ -631,31 +584,31 @@ def make_render_chunk_packed(renderer: NerfRenderer, cap: int, march: str = "den
     argument): fn(occ_state, rays_o, rays_d, *grid) -> (rgb [R, 3], ok [R]
     bool, n_samples, n_complete).  ok=False rays overflowed the cap or
     exhausted the skip march's rounds; `infer` re-renders exactly those
-    through the dense path, so packed serving is exact.  With a `group`
-    (whose world size divides the chunk and `cap`) each rank packs its 1/N
-    of the rays into cap / N samples, and every rank gets the gathered
-    colors and flags and the summed counts.
+    through the dense path, so packed serving is exact.  Over a `group`
+    with a process group (whose world size divides the chunk and `cap`)
+    each rank packs its 1/N of the rays into cap / N samples, and every rank
+    gets the gathered colors and flags and the summed counts.
 
-    Without a group, on CUDA rays and with grad mode off, the chunk runs as
-    one CUDA graph: the first call for a `packed_graph_key` runs eagerly
-    (its result is returned) and captures the graph, every later call with
-    that key replays it, bit for bit the eager chunk.  One graph is kept,
-    the last key's, until `fn.release()` drops it and its memory pool.
-    `fn.captures` and `fn.replays` count both.  Anything else (the CPU, a
-    group's collectives, gradients) runs eagerly."""
+    Without a process group, on CUDA rays and with grad mode off, the chunk
+    runs as one CUDA graph: the first call for a `packed_graph_key` runs
+    eagerly (its result is returned) and captures the graph, every later
+    call with that key replays it, bit for bit the eager chunk.  One graph
+    is kept, the last key's, until `fn.release()` drops it and its memory
+    pool.  `fn.captures` and `fn.replays` count both.  Anything else (the
+    CPU, a group's collectives, gradients) runs eagerly."""
     if march not in ("dense", "skip"):
         raise ValueError(f"unknown march {march!r}")
-    grouped = group is not None and group.grouped
-    if grouped and cap % group.world:
+    group = _group_of(renderer, group)
+    if cap % group.world:
         raise ValueError(f"eval cap {cap} does not split over {group.world} ranks")
-    local_cap = cap // group.world if grouped else cap
+    local_cap = cap // group.world
 
     def render(occ_state, rays_o, rays_d, *grid):
         out = renderer.render_packed(occ_state, rays_o, rays_d, local_cap, rgb_dir_branch="ray",
                                      march=march, skip_grid=grid[0] if grid else None)
         return out.rgb, out.ray_valid > 0.0, out.n_samples, out.n_complete
 
-    if grouped:
+    if group.grouped:
         def render_sharded(occ_state, rays_o, rays_d, *grid):
             rgb, ok, n_samples, n_complete = render(occ_state, *shard_rays(group, rays_o, rays_d), *grid)
             both = group.all_gather(torch.cat([rgb, ok.float()[:, None]], dim=1))
@@ -713,10 +666,6 @@ def _graph_counts(packed_fn: Optional[Callable]) -> Tuple[int, int]:
     """(captures, replays) of a packed chunk function; (0, 0) for one that
     never captures (a group's, or none)."""
     return getattr(packed_fn, "captures", 0), getattr(packed_fn, "replays", 0)
-
-
-def _renderer_device(renderer: NerfRenderer) -> torch.device:
-    return next(renderer.parameters()).device
 
 
 def infer(
@@ -838,10 +787,9 @@ def render_only(
     package splits it over the mesh).  Writes `{name}_{i:04d}.png` per pose
     and, with ground truth, `metrics_render.json` (rank 0); returns the
     per-image metrics (None without ground truth)."""
-    grouped = group is not None and group.grouped
-    if grouped:
-        device = group.device
-    lead = not grouped or group.rank == 0
+    group = group or single(device)
+    device = group.device
+    lead = group.rank == 0
     output = Path(cfg.output)
     ck = latest_checkpoint(output)
     if ck is None:
@@ -894,15 +842,15 @@ def render_only(
     return metrics
 
 
-def _serving_groups(cfg: TrainConfig, group: Optional[DataGroup]) -> Tuple:
-    """(dense chunk group, packed chunk group): the group where the chunk
-    (and the packed path's eval cap) split over its ranks, else None (every
-    rank renders whole chunks), as the JAX package picks its mesh."""
-    if group is None or not group.grouped or cfg.batch_size % group.world:
-        return None, None
+def _serving_groups(cfg: TrainConfig, group: DataGroup) -> Tuple:
+    """(dense chunk group, packed chunk group): `group` where the chunk (and
+    the packed path's eval cap) split over its ranks, else this rank alone
+    (it renders whole chunks), as the JAX package picks its mesh."""
+    alone = single(group.device)
+    if cfg.batch_size % group.world:
+        return alone, alone
     eval_cap = cfg.batch_size * cfg.eval_samples_per_ray
-    return group, (group if eval_cap % group.world == 0 else None)
-
+    return group, (group if eval_cap % group.world == 0 else alone)
 
 
 # ------------------------------------------------------------------ bucket
@@ -1047,11 +995,8 @@ def train(
     its head), samples its 1/N of each step's rays from a batch stream
     folded with its rank, sweeps its x-slab of the occupancy grid from the
     shared occupancy stream, and renders its 1/N of each serving chunk."""
-    grouped = group is not None and group.grouped
-    if grouped:
-        device = group.device
-    n_dev = group.world if grouped else 1
-    rank = group.rank if grouped else 0
+    group = group or single(device)
+    device, n_dev, rank = group.device, group.world, group.rank
     lead = rank == 0
     output = Path(cfg.output)
     output.mkdir(parents=True, exist_ok=True)
@@ -1061,11 +1006,8 @@ def train(
         np.asarray(train_rays.bg_color) if train_rays.bg_color is not None else None,
         device=device,
     )
-    optimizer = make_optimizer(cfg, renderer, group if grouped else None)
-    if grouped:
-        pool_o, pool_d, pool_rgb = shard_rays(group, *train_rays.arrays())
-    else:
-        pool_o, pool_d, pool_rgb = (a.to(device) for a in train_rays.arrays())
+    optimizer = make_optimizer(cfg, renderer, group)
+    pool_o, pool_d, pool_rgb = shard_rays(group, *train_rays.arrays())
     occ_state = renderer.occupancy.init_state(device)
     start_step = 0
     # the sharded optimizer state is laid out per group size
@@ -1095,20 +1037,18 @@ def train(
         print(f"Using {cfg.method} with {n_params} parameters on {device}"
               + (f" and {n_dev - 1} more rank(s) ({group.backend})." if n_dev > 1 else "."))
 
-    step_group = group if grouped else None
     steps_by_key: Dict[Tuple[int, str], Callable] = {}
 
     def get_step(bucket: int, march: str) -> Callable:
         if (bucket, march) not in steps_by_key:
             steps_by_key[bucket, march] = make_train_step(
-                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march, group=step_group)
+                renderer, optimizer, cfg, n_cand=bucket * cfg.batch_size, march=march, group=group)
         return steps_by_key[bucket, march]
 
     policy = MarchPolicy(renderer.supports_skip_march, cfg.march, renderer.skip_steps)
     skip_grid = renderer.skip_grid(occ_state) if policy.can_skip else None
-    occ_update = make_occupancy_update(
-        renderer, step_group if grouped and cfg.occupancy_res % n_dev == 0 else None)
-    chunk_group, packed_group = _serving_groups(cfg, step_group)
+    occ_update = make_occupancy_update(renderer, group)
+    chunk_group, packed_group = _serving_groups(cfg, group)
     render_chunk_fn = make_render_chunk(renderer, chunk_group)
     packed_chunk_fn = None
     if cfg.eval_render == "packed":
@@ -1124,8 +1064,7 @@ def train(
         state = _state(renderer, optimizer, occ_state, ckpt_meta)  # every rank: gathers moments
         if lead:
             save_checkpoint(output, step, state)
-        if grouped:
-            group.barrier()
+        group.barrier()
 
     train_metrics: List[TrainMetrics] = []
     eval_acc: List[EvalMetrics] = []
@@ -1262,8 +1201,7 @@ def train(
             "steps": steps - start_step,
             "n_devices": n_dev,
         })
-    if grouped:
-        group.barrier()
+    group.barrier()
     return {
         "renderer": renderer,
         "occ_state": occ_state,

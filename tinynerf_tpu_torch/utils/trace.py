@@ -10,9 +10,9 @@ kernel is put down to the spans open when the host launched it.
 
 The spans, each where it is opened and what it covers:
 
-    `train_step`              `train/loop.py` `make_train_step` and `_make_group_step` `step()`: the
-                              whole step, from the host's side
-    `train_step.batch`        the same steps: `sample_ray_batch` and the four seed words
+    `train_step`              `train/loop.py` `make_train_step` `step()`: the whole step, from the
+                              host's side
+    `train_step.batch`        the same step: `sample_ray_batch` and the four seed words
     `render.march`            `core/renderer.py` `render_packed` and `render_dense`: the dense or
                               skip march, jitter, contraction, occupancy query, `compact` and the
                               gather of positions
@@ -22,15 +22,16 @@ The spans, each where it is opened and what it covers:
                               level (`ops/hashgrid.py` `hash_lookup`, its forward)
     `render.decode`           the same: sigma decoder, the gather of step sizes, weights, rgb
                               decoder, per-ray sums and compositing
-    `train_step.loss`         both steps: per-ray MSE, the masked mean, TV and L1
-    `train_step.backward`     both steps: `torch.autograd.grad` and the zero fill of unused leaves
+    `train_step.loss`         the step: per-ray MSE, its masked sum, TV and L1, the stack of the
+                              pieces the group sums
+    `train_step.backward`     the step: `torch.autograd.grad` and the zero fill of unused leaves
     `field.table_grad`        `ops/interp.py`: the backward of `_MultiProj`, `_QuadLookup`,
                               `_CornerLookup` and `_TrilinearOct`; `ops/hashgrid.py`: the backward
                               of `_HashLookup` (on the autograd engine's thread on a card)
-    `train_step.adam`         both steps: `FusedAdam.step`
-    `train_step.all_reduce`   `_make_group_step`: each collective of the loss pieces and of the
-                              gradients
-    `occupancy.sweep`         `make_occupancy_update`, both update functions: the sweep
+    `train_step.adam`         the step: `FusedAdam.step`
+    `train_step.all_reduce`   the step, over a process group only: each collective of the loss
+                              pieces and of the gradients
+    `occupancy.sweep`         `make_occupancy_update`: the sweep of the rank's slab, and its gather
     `occupancy.skip_grid`     `NerfRenderer.skip_grid`: the skip-grid build
     `train.readback`          `BucketEstimator.observe` and `MarchPolicy.observe` when they read,
                               `train()`'s `flush_pending`

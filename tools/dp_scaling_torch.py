@@ -68,7 +68,7 @@ def main() -> None:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             tcfg = TrainConfig(method="kplanes", output=f"{tmp}/{name}", steps=args.steps, seed=0, **kw)
-            out = train(tcfg, pool, device=group.device, group=group if group.grouped else None)
+            out = train(tcfg, pool, device=group.device, group=group)
             torch.cuda.synchronize()
             losses = [m.loss for m in out["train_metrics"]]
             rec["train"][name] = dict(ms_per_step=out["elapsed_s"] / args.steps * 1e3,
