@@ -49,10 +49,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    float8, byte-equal to its plain version and timed beside its bound; and the
    skip march on the shell occupancy's skip grid, at a 2048-ray serving
    chunk and a 131,072-ray training bucket (64 rounds), with and without
-   jitter, k_idx and complete equal to its plain version's (and the skip
-   grid's build timed); and the unbounded skip march on the isotropic grid
-   of the shell occupancy, rays drawn over the nerfstudio capture's
-   training views (a 2048-ray serving chunk and a 131,072-ray bucket, 96
+   jitter, k_idx and complete equal to its plain version's; the cone
+   skip grid of the 128^3 shell occupancy in one launch, byte-equal to its
+   plain version, both timed beside the bytes bound; and the unbounded
+   skip march on the isotropic grid of the shell occupancy, rays drawn
+   over the nerfstudio capture's training views (a 2048-ray serving
+   chunk and a 131,072-ray bucket, 96
    rounds, with and without jitter), k_idx and complete equal to its plain
    version's, timed the same way; each march's times printed beside the
    bound that holds for any design (its bytes or the launch floor, the
@@ -1195,10 +1197,38 @@ def _check_march(label: str, kernel, plain, pool, gen, seed, n_steps: int, march
     return {"max_abs_err": 0.0, **out["serving"], **{f"train_bucket_{k}": v for k, v in out["training"].items()}}
 
 
+def check_skip_grid(dev) -> dict:
+    """The cone skip grid of the 128^3 shell occupancy, thresholded as the
+    renderer thresholds it: the kernel byte-equal to its plain version, one
+    launch a build, both timed beside the bytes bound (the bool grid read
+    once, the six int32 grids written once)."""
+    from tinynerf_tpu_torch.core import skipmarch
+    from tinynerf_tpu_torch.train import TrainConfig, build_renderer
+    from tinynerf_tpu_torch.utils import make_shell_occupancy
+
+    occupancy = build_renderer(TrainConfig(), 1.0, None, device="meta").occupancy
+    state = make_shell_occupancy(occupancy, device=dev)
+    occ = state.grid > occupancy._threshold(state)
+    before = skipmarch.make_skip_grid.launches
+    grid = skipmarch.make_skip_grid(occ)
+    torch.cuda.synchronize()
+    launches = skipmarch.make_skip_grid.launches - before
+    equal = _bytes_equal(grid, skipmarch.make_skip_grid_plain(occ))
+    print(f"skip grid {tuple(grid.shape)} from the {tuple(occ.shape)} shell occupancy ({int(occ.sum())} voxels "
+          f"occupied): byte-equal to the plain version: {equal}; {launches} launch a build")
+    if launches != 1 or not equal:
+        raise AssertionError("skip grid: the kernel differs from its plain version or did not launch once")
+    t = time_pair("skip grid (kernel vs the plain slice loop)", lambda: skipmarch.make_skip_grid(occ),
+                  lambda: skipmarch.make_skip_grid_plain(occ), bound(nbytes(occ, grid)))
+    _one_launch("skip grid", t)
+    _share("skip grid", t)
+    return {"skip_grid": {"max_abs_err": 0.0, "launches_per_build": launches, **t}}
+
+
 def check_skip_march(dev, probe=None):
     """The skip march on the shell occupancy's skip grid (the smoke's
     serving state), with rays drawn over a generated 800x800 view, 64
-    rounds; and the skip grid's build.  `probe`: as `_check_march`'s."""
+    rounds.  `probe`: as `_check_march`'s."""
     from tinynerf_tpu_torch.core import skipmarch
     from tinynerf_tpu_torch.data import RayPool
     from tinynerf_tpu_torch.train import TrainConfig, build_renderer
@@ -1208,10 +1238,7 @@ def check_skip_march(dev, probe=None):
     renderer = build_renderer(cfg, 1.0, None, device="meta")
     marcher, occupancy, aabb = renderer.marcher, renderer.occupancy, renderer.contraction.aabb
     occ = make_shell_occupancy(occupancy, device=dev)
-    grid_ms = median_ms(lambda: renderer.skip_grid(occ), runs=5)
     grid = renderer.skip_grid(occ)
-    print(f"skip grid {tuple(grid.shape)} from the {occupancy.size[0]}^3 shell occupancy: "
-          f"{grid_ms:.3f} ms (median of 5, CUDA events; plain PyTorch)")
 
     def march_args(o, d):
         t_min, t_exit = marcher.entry_exit(o, d)
@@ -1222,7 +1249,7 @@ def check_skip_march(dev, probe=None):
                        torch.Generator(dev).manual_seed(4),
                        torch.tensor([0x1234567, 0x89ABCDE], dtype=torch.int64, device=dev),
                        renderer.skip_steps, march_args, SKIP_ROUND_FLOPS, cfg.batch_size, probe)
-    return {"skip_march": {**rec, "skip_grid_ms": grid_ms}}
+    return {"skip_march": rec}
 
 
 def check_skip_march_unbounded(dev, ns_root, probe=None) -> dict:
@@ -1333,6 +1360,8 @@ def _field_label(field) -> str:
 # Cobafa, none for the vanilla MLP) and the marcher's skip march
 FIELD_KERNELS = {"vanilla": (), "kplanes": ("quad_build",), "cobafa": ("oct_build",), "instantngp": ("hash_encode",)}
 SKIP_KERNEL = {"aabb": "skip_march", "unbounded": "skip_march_unbounded"}
+# the skip grid's kernel: the cone grids (AABB); the iso grid is plain PyTorch
+GRID_KERNEL = {"aabb": ("skip_grid",), "unbounded": ()}
 TRAINING_KERNELS = {"vanilla": ("segscan", "segscan_bwd", "segment_sum"),
                     "kplanes": ("segscan", "segscan_bwd", "segment_sum", "sort", "accumulate", "quad_build"),
                     "cobafa": ("segscan", "segscan_bwd", "segment_sum", "sort", "sort_pairs", "oct_accumulate",
@@ -1351,7 +1380,8 @@ TRAINING_ABSENT = {"vanilla": ("accumulate", "oct_accumulate", "oct_fold") + HAS
 
 
 def serving_kernels(method: str, scene_type: str) -> tuple:
-    return ("segscan", "segment_sum", "weights_dense", SKIP_KERNEL[scene_type]) + FIELD_KERNELS[method]
+    return (("segscan", "segment_sum", "weights_dense", SKIP_KERNEL[scene_type]) + GRID_KERNEL[scene_type]
+            + FIELD_KERNELS[method])
 
 
 def march_kernels(method: str, scene_type: str, march: str) -> tuple:
@@ -1568,7 +1598,8 @@ def run_training(tmp: str, card: str, method: str, scene_type: str = "aabb", poo
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     out = train(cfg, pool, device="cuda")
-    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method], TRAINING_ABSENT[method])}
+    launches = {"train": read_counts(f"{name} train()", TRAINING_KERNELS[method] + GRID_KERNEL[scene_type],
+                                     TRAINING_ABSENT[method])}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = np.array([m.loss for m in out["train_metrics"]])
@@ -2032,6 +2063,7 @@ KERNELS = (  # (record key, name, source, the TPU kernel it replaces)
     ("skip_march", "skipmarch.skip_march", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:357"),
     ("skip_march_unbounded", "skipmarch.skip_march_unbounded", "skipmarch.cu",
      "tinynerf_tpu/core/skipmarch.py:209"),
+    ("skip_grid", "skipmarch.make_skip_grid", "skipmarch.cu", "tinynerf_tpu/core/skipmarch.py:92"),
     # Instant-NGP's field has no counterpart in the JAX package
     ("hash_encode", "hashgrid.hash_encode", "hashgrid.cu", None),
     ("hash_terms", "hashgrid.hash_terms", "hashgrid.cu", None),
@@ -2472,6 +2504,10 @@ def run_serve_graph(tmp: str, card: str) -> dict:
     def serve(label: str, packed_fn, indices, required) -> tuple:
         st = InferStats()
         zero_counts()
+        # earlier phases' garbage out first: the collector could otherwise
+        # free it inside one window and not the other, and the windows'
+        # peaks would differ by it
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         infer(renderer, shell, poses, indices, tmp, label, chunk=cfg.batch_size,
               render_chunk_fn=make_render_chunk(renderer), packed_fn=packed_fn, stats=st,
@@ -2894,6 +2930,7 @@ def main() -> None:
         kern.update(check_oct_build(dev))
         kern.update(check_quad_build(dev))
         kern["quad_build"].update(check_fine_table_build(dev))
+        kern.update(check_skip_grid(dev))
         kern.update(check_skip_march(dev))
         kern.update(check_skip_march_unbounded(dev, ns_root))
         for key in ("skip_march", "skip_march_unbounded"):

@@ -4,11 +4,11 @@ backwards, the per-ray segment sum, the radix sort (keys, and key-value
 pairs), the windowed table-gradient accumulation, Cobafa's oct gradient
 (the accumulation through the sort's permutation) and its fold onto the
 grid, the oct and quad cell-pack builds (the quad build also at the
-fused fine table's 96 channels) and both skip marches (AABB and
-unbounded); and that a training step and a served chunk repeat themselves
-bit for bit, in every lookup layout of both fields, and that a K-Planes
-step at batch 8192 takes the key-value sort and the accumulation kernel
-and no `index_add`.
+fused fine table's 96 channels), the cone skip grid and both skip marches
+(AABB and unbounded); and that a training step and a served chunk repeat
+themselves bit for bit, in every lookup layout of both fields, and that a
+K-Planes step at batch 8192 takes the key-value sort and the accumulation
+kernel and no `index_add`.
 
 The kernel tests are marked `cuda`: they need a card and skip without one
 (a CUDA kernel has no CPU mode).  This file imports neither jax nor the JAX package, so it runs on
@@ -27,9 +27,10 @@ largest magnitude (f32 sums in another order), and where no window splits
 the oct accumulation bit-equal to the payload route it replaced (the same
 fmas in the same order); the oct and quad builds bit-equal (a relayout
 that rounds each value once, to nearest even in both); the oct fold
-bit-equal (the same adds in the same order); the skip marches' k_idx and
-complete equal (each kernel repeats its plain version's f32 operations,
-each rounded once).
+bit-equal (the same adds in the same order); the cone skip grid
+byte-equal (integer minima); the skip marches' k_idx and complete equal
+(each kernel repeats its plain version's f32 operations, each rounded
+once).
 """
 
 import numpy as np
@@ -77,6 +78,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         table_grad.windowed_accumulate(
             torch.empty(1, 8, 128, device="meta"), torch.empty(1, 2, dtype=torch.int32), 4, 4, 256, 256)
+    with pytest.raises(ValueError):
+        skipmarch.make_skip_grid(torch.empty(4, 4, 4, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError):
         octbuild.build_oct(torch.empty(4, 4, 4, 2, device="meta"))
     with pytest.raises(ValueError):
@@ -928,6 +931,64 @@ def _poisoned(march, *args):
     n_rays, n_steps = args[0].shape[0], args[-1]
     torch.full((n_rays, n_steps), -2, dtype=torch.int32, device=args[0].device)
     return march(*args)
+
+
+SKIP_GRID_SHAPES = [(128, 128, 128), (9, 12, 7), (64, 96, 128)]
+SKIP_GRID_DENSITIES = [0.005, 0.05, 0.3, 0.9, 0.0, 1.0]  # the last two: all empty, all occupied
+
+
+def _skip_grid_runs(occ: torch.Tensor, runs: int = 2) -> list:
+    """`make_skip_grid` `runs` times on a CUDA occupancy, each after freeing
+    an output-sized block of -2, a value no cone grid holds: the allocator
+    hands it to the kernel's `torch.empty`, so a voxel left unwritten shows;
+    one launch a call."""
+    outs = []
+    for _ in range(runs):
+        torch.full((6, *occ.shape), -2, dtype=torch.int32, device=occ.device)
+        before = skipmarch.make_skip_grid.launches
+        outs.append(skipmarch.make_skip_grid(occ))
+        assert skipmarch.make_skip_grid.launches == before + 1
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", SKIP_GRID_DENSITIES)
+@pytest.mark.parametrize("shape", SKIP_GRID_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_skip_grid_kernel_equals_plain(cuda_device, shape, density):
+    """The cone grids of random occupancies (and of the all-empty and
+    all-occupied grid), at 128^3, at a shape whose rows take no 16-byte
+    stores and at one whose slices are not square: byte-equal to the plain
+    version on the card, and equal run to run."""
+    rng = np.random.default_rng(47)
+    occ = T(rng.random(shape) < density).to(cuda_device)
+    outs = _skip_grid_runs(occ)
+    ref = skipmarch.make_skip_grid_plain(occ)
+    assert outs[0].dtype == torch.int32 and outs[0].shape == (6, *shape)
+    assert torch.equal(outs[0], ref), (shape, density, int((outs[0] != ref).sum()))
+    assert torch.equal(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_skip_grid_kernel_largest_grid_and_refusals(cuda_device):
+    """The largest cube whose sweeps fit a block's shared memory, byte-equal
+    to the plain version; one voxel more a side is refused with no launch,
+    as are a grid that is not bool and one that is not 3-D."""
+    lib = cuda_lib.library().lib
+    limit = lib.tn_smem_optin()
+    assert limit > 0
+    n = max(k for k in range(2, 1024) if lib.tn_skip_grid_smem(k, k, k) <= limit)
+    assert n >= 128  # the training and serving occupancy grids
+    occ = T(np.random.default_rng(53).random((n,) * 3) < 0.02).to(cuda_device)
+    out = _skip_grid_runs(occ, runs=1)[0]
+    assert torch.equal(out, skipmarch.make_skip_grid_plain(occ))
+    before = skipmarch.make_skip_grid.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        skipmarch.make_skip_grid(torch.zeros((n + 1,) * 3, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(TypeError):
+        skipmarch.make_skip_grid(torch.zeros((8,) * 3, dtype=torch.uint8, device=cuda_device))
+    with pytest.raises(ValueError):
+        skipmarch.make_skip_grid(torch.zeros((8,) * 2, dtype=torch.bool, device=cuda_device))
+    assert skipmarch.make_skip_grid.launches == before
 
 
 SKIP_RAY_COUNTS = [1, 33, 2048, 4096, 8192, 16_384, 32_768, 131_072]  # every lanes-per-ray pick, 32 down to 1

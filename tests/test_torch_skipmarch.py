@@ -91,6 +91,72 @@ def test_make_skip_grid_from_renderer_state():
     np.testing.assert_array_equal((sg[0] == 0).numpy(), kept)
 
 
+_WORD = np.uint64(0xFFFFFFFF)
+
+
+def _sweep_model(occ: np.ndarray) -> np.ndarray:
+    """A numpy model of `csrc/skipmarch.cu` skip_grid_kernel: per (axis,
+    sign) a sweep whose carry is a byte saturating at 128 (the plain
+    version's carry runs to 2^20), the lateral dilation taken from rows of
+    32-bit occupancy words by OR over 5 rows and shifts across the
+    neighbouring words, the carry's 3x3 minimum over a plane padded with
+    128, the output 0 on occupied voxels, else the carry clamped to 1..127."""
+    grids = np.empty((6, *occ.shape), np.int32)
+    for axis in range(3):
+        o = np.moveaxis(occ, axis, 0)
+        ra, rb, rc = o.shape
+        nw = -(-rc // 32)
+        cols = np.zeros((ra, rb, nw * 32), bool)
+        cols[..., :rc] = o
+        words = (cols.reshape(ra, rb, nw, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+        x = np.zeros_like(words)
+        for d in range(-2, 3):  # rows p - 2 .. p + 2, zero outside
+            lo, hi = max(d, 0), rb + min(d, 0)
+            x[:, lo - d : hi - d] |= words[:, lo:hi]
+        xl, xr = np.zeros_like(x), np.zeros_like(x)
+        xl[..., 1:], xr[..., :-1] = x[..., :-1], x[..., 1:]
+        s = np.uint64
+        dil = (x | x << s(1) | x << s(2) | x >> s(1) | x >> s(2) | xl >> s(30) | xl >> s(31) | xr << s(30)
+               | xr << s(31)) & _WORD
+        dil = ((dil[..., None] >> np.arange(32, dtype=np.uint64)) & s(1)).reshape(ra, rb, nw * 32)[..., :rc] > 0
+        for sign, order in ((0, range(ra - 1, -1, -1)), (1, range(ra))):
+            carry = np.full((rb + 2, rc + 2), 128, np.uint8)
+            out = np.empty((ra, rb, rc), np.int32)
+            for i in order:
+                m = np.minimum(np.minimum(carry[:-2], carry[1:-1]), carry[2:])
+                m = np.minimum(np.minimum(m[:, :-2], m[:, 1:-1]), m[:, 2:])
+                new = np.where(dil[i], 0, np.minimum(m.astype(np.int32) + 1, 128)).astype(np.uint8)
+                carry[1:-1, 1:-1] = new
+                out[i] = np.where(o[i], 0, np.clip(new, 1, 127))
+            grids[2 * axis + sign] = np.moveaxis(out, 0, axis)
+    return grids
+
+
+@pytest.mark.parametrize("shape", [(300, 6, 5), (5, 260, 7), (7, 6, 290), (20, 45, 70), (9, 12, 7)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("density", [0.0, 0.003, 0.05, 0.3, 1.0])
+def test_skip_grid_saturating_carry_equals_plain(shape, density):
+    """The kernel's premise on the plain path: a carry saturating at 128
+    (`_sweep_model`) gives `make_skip_grid`'s values, on grids whose empty
+    runs pass 128 slices (a band of 200 slices cleared on the long axis) and
+    rows of more than one 32-bit word (45, 70 columns); a CPU tensor takes
+    the plain version and launches nothing."""
+    occ = np.random.default_rng(int(density * 1000) + sum(shape)).random(shape) < density
+    long_axis = int(np.argmax(shape))
+    if shape[long_axis] > 200 and 0.0 < density < 1.0:
+        band = [slice(None)] * 3
+        band[long_axis] = slice(40, 240)
+        occ[tuple(band)] = False
+        occ[(slice(None),) * long_axis + (20,)] = True  # something to see across the band
+    before = make_skip_grid.launches
+    ours = make_skip_grid(T(occ))
+    assert make_skip_grid.launches == before
+    assert torch.equal(ours, skipmarch.make_skip_grid_plain(T(occ)))
+    np.testing.assert_array_equal(_sweep_model(occ), ours.numpy())
+    if shape[long_axis] > 200 and 0.0 < density < 1.0:
+        assert int((ours == 127).sum()) > 0  # distances that the byte carry saturates
+
+
 @pytest.mark.parametrize("aabb", [AABB, ANISO], ids=("cube", "aniso"))
 @pytest.mark.parametrize("density,seed", [(0.05, 0), (0.3, 1), (0.01, 2)])
 def test_skip_march_plain_matches_jax(aabb, density, seed):

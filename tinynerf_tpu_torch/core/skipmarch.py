@@ -29,8 +29,11 @@ launch dozens of small ops per round) and the plain round loop (`walk`
 over `aabb_candidates` / `unbounded_candidates`, as `skip_march_plain`,
 `skip_march_unbounded_plain`) on a CPU tensor.  The JAX `_probe` is a TPU
 lane trick for the same lookup; here it is a plain gather.  The grids are
-plain PyTorch: they are built once per `render_only` and once per occupancy
-update.
+built once per `render_only` and once per occupancy update: the cone grids
+by one kernel on a CUDA tensor (`tn_skip_grid`: a cluster of blocks a
+direction, each keeping a band of its sweep's carry plane in shared memory;
+the plain slice loop, `make_skip_grid_plain`, launches ~3,570 small ops a
+128^3 build), the isotropic grid in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -87,7 +90,34 @@ def make_skip_grid(occ_bool: torch.Tensor) -> torch.Tensor:
     order (+x, -x, +y, -y, +z, -z): int32 [6, r0, r1, r2].  Per voxel v and
     direction, 0 = v is occupied (the march emits it), k = every voxel a ray
     can visit within the next k - 1 axis slices (|lateral| <= advance + 1)
-    is unoccupied.  Bit-equal to the JAX package's."""
+    is unoccupied.  Bit-equal to the JAX package's.  The kernel on a CUDA
+    tensor (one launch; it raises on a grid whose slices do not fit a
+    block's shared memory), the plain version on a CPU tensor."""
+    if cuda_lib.runs_plain("make_skip_grid", occ_bool):
+        return make_skip_grid_plain(occ_bool)
+    if occ_bool.dim() != 3 or min(occ_bool.shape) < 1:
+        raise ValueError(f"make_skip_grid: expected an occupancy grid [r0, r1, r2], got {tuple(occ_bool.shape)}")
+    cuda_lib.check_cuda_inputs("make_skip_grid", torch.bool, occ_bool.shape, occ_bool)
+    lib = cuda_lib.library()
+    r0, r1, r2 = occ_bool.shape
+    need, limit = lib.lib.tn_skip_grid_smem(r0, r1, r2), lib.lib.tn_smem_optin()
+    if limit < 0:
+        raise RuntimeError(f"make_skip_grid: reading the card's shared memory failed with CUDA error {-limit}")
+    if need > limit:
+        raise ValueError(f"make_skip_grid: the sweeps of a {(r0, r1, r2)} grid take {need} bytes of shared "
+                         f"memory a block, the card gives {limit}")
+    out = torch.empty((6, r0, r1, r2), dtype=torch.int32, device=occ_bool.device)
+    lib.call("tn_skip_grid", occ_bool.data_ptr(), r0, r1, r2, out.data_ptr(), cuda_lib.stream_of(occ_bool))
+    make_skip_grid.launches += 1
+    return out
+
+
+make_skip_grid.launches = 0
+
+
+def make_skip_grid_plain(occ_bool: torch.Tensor) -> torch.Tensor:
+    """The plain version of `make_skip_grid`: the JAX package's sweeps, one
+    slice at a time."""
     grids = []
     for axis in (0, 1, 2):
         # 2-voxel lateral dilation: nearest-voxel rounding at both ends of a

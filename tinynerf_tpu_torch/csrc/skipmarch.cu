@@ -2,7 +2,8 @@
 // [R, n_steps] (-1 = none) and the completeness flag [R].  Two marches, one
 // per marcher: Aabb (below) and Unbounded (the Mip-360 disparity grid,
 // further down), each a set of per-candidate functions that one kernel
-// template walks (march_kernel, at the end).
+// template walks (march_kernel); and the cone skip grid that the Aabb march
+// reads, built in one launch (skip_grid_kernel, at the end).
 //
 // Replaces the lax.scan of tinynerf_tpu/core/skipmarch.py:skip_march (not a
 // Pallas kernel: XLA fuses the scan body on the TPU; eager PyTorch would
@@ -31,9 +32,12 @@
 // The kernel (march_kernel, at the end) runs several candidates of a ray
 // at once and resolves the walk among them in registers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -409,6 +413,302 @@ int launch_march(const typename M::Params& p, int lanes, int n_rays, int n_steps
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- cone grid
+// The cone skip grid the AABB march reads (core/skipmarch.py make_skip_grid;
+// the JAX package's six lax.scan sweeps, tinynerf_tpu/core/skipmarch.py:92
+// _cone_sweep), in one launch where the eager slice loop took ~3,570 small
+// ones a 128^3 build.  Each (axis, sign) direction walks that axis's slices
+// in sweep order (+axis from the far end down, -axis from 0 up) and carries
+// a plane of minima from slice to slice.  Per slice and voxel v of the plane:
+//   carry(v) = 0 where the occupancy dilated by +-2 along both lateral axes
+//              is set, else min(3x3 lateral neighbours of the previous
+//              slice's carry, outside the plane INF) + 1
+//   out(v)   = 0 where v is occupied, else clamp(carry(v), 1, 127)
+//
+// What bounds it on an H100: not bytes (2.1 MB read and 50.3 MB written at
+// 128^3, 0.016 ms at 3.35 TB/s) but the chain of dependent slices, and what
+// one SM can move: a first design, one block a direction, took 1.16 ms, each
+// SM writing its 8 MB at ~12 bytes a cycle (PERF.md section 6).  So:
+//   - a cluster of kGridCluster blocks takes a direction, each block a band
+//     of rows of the plane; at each slice a block pushes its edge rows of the
+//     new carry into its neighbours' planes (distributed shared memory), and
+//     the cluster's barrier is the slice's only synchronisation;
+//   - the carry is a byte saturating at 128: min and +1 are monotone, so it
+//     sweeps to min(plain carry, 128), and the output clamps at 127: bit-equal;
+//   - a thread takes 16 voxels of a row as four words, the minima and the +1
+//     four bytes at a time (__vminu4, __vaddus4);
+//   - the occupancy of the band and two rows each side is staged kGridChunk
+//     slices at a time as rows of 32-bit words, so a slice's dilation is 15
+//     word loads and shifts.
+// The grid is written in its final layout [6, r0, r1, r2]: on axes 0 and 1
+// a slice's rows are runs of the output (16-byte stores); axis 2's slices
+// are strided columns, staged kGridChunk deep and written as whole runs.
+
+constexpr int kGridCluster = 8;  // blocks a direction
+constexpr int kGridThreads = 512;
+constexpr int kGridChunk = 32;           // slices staged at once: occupancy bits, and axis 2's output
+constexpr uint32_t kSat4 = 0x80808080u;  // four carries at 128, which stands for the plain version's INF
+// the launch's vector flags: rows of the occupancy 4-byte aligned (axes 0,
+// 1), its columns 16-byte aligned (axis 2), the output's rows 16-byte aligned
+constexpr int kVecRowsIn = 1, kVecColsIn = 2, kVecOut = 4;
+
+// A direction's view of the grid: its axis's slices (ra), each slice's rows
+// (rb) and columns (rc), the other two axes in order, and the strides of the
+// three in the occupancy and in one output grid (both [r0, r1, r2]); a block
+// of its cluster takes `rows` of the rows.
+struct SweepShape {
+  int ra, rb, rc;
+  long long ss, sp, sq;
+  int rows;   // a block's band
+  int cols;   // rc rounded up to a thread's strip of 16
+  int words;  // 32-bit words of a row of occupancy bits
+  int width;  // bytes of a carry row: cols and 16 of padding each side
+  __host__ __device__ SweepShape(int axis, int r0, int r1, int r2) {
+    const long long plane = static_cast<long long>(r1) * r2;
+    ra = axis == 0 ? r0 : (axis == 1 ? r1 : r2);
+    rb = axis == 0 ? r1 : r0;
+    rc = axis == 2 ? r1 : r2;
+    ss = axis == 0 ? plane : (axis == 1 ? r2 : 1);
+    sp = axis == 0 ? r2 : plane;
+    sq = axis == 2 ? r2 : 1;
+    rows = (rb + kGridCluster - 1) / kGridCluster;
+    cols = (rc + 15) / 16 * 16;
+    words = (rc + 31) / 32;
+    width = cols + 32;
+  }
+  // two carry planes of the band and a row each side, the staged bits of the
+  // band and two rows each side, and axis 2's staged output
+  __host__ __device__ long long carry_bytes() const { return static_cast<long long>(rows + 2) * width; }
+  __host__ __device__ long long bits_bytes() const { return 4LL * kGridChunk * (rows + 4) * words; }
+  __host__ __device__ long long stage_bytes() const { return static_cast<long long>(kGridChunk) * rows * cols; }
+};
+
+long long skip_grid_smem(int r0, int r1, int r2) {
+  long long most = 0;
+  for (int axis = 0; axis < 3; ++axis) {
+    const SweepShape g(axis, r0, r1, r2);
+    const long long need = 2 * g.carry_bytes() + g.bits_bytes() + (axis == 2 ? g.stage_bytes() : 0);
+    most = need > most ? need : most;
+  }
+  return most;
+}
+
+// bit i of nib -> byte i all ones
+__device__ __forceinline__ uint32_t byte_mask(uint32_t nib) { return ((nib * 0x00204081u) & 0x01010101u) * 0xFFu; }
+
+// bits[t][r][w] bit l = the occupancy at slice s0 + t, row pb + r, column
+// 32 w + l, for r < rows + 4 (0 outside the grid, past rc and past n_t).
+// Rows of the occupancy (axes 0 and 1): a warp reads 128 columns of a
+// (slice, row), 4 a lane, and ORs the lanes' nibbles into words with
+// shuffles, eight (slice, row)s loaded at once.  Columns (axis 2, whose
+// slices are contiguous): a lane reads a column's n_t bytes, and a ballot a
+// slice makes the words.
+__device__ void stage_bits(const uint8_t* __restrict__ occ, const SweepShape& g, int s0, int n_t, int pb,
+                           int vec, uint32_t* bits) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5, n_r = g.rows + 4;
+  if (g.sq == 1) {
+    constexpr int kBatch = 8;
+    const int groups = (g.rc + 127) / 128, tasks = n_t * n_r * groups;
+    for (int base = warp * kBatch; base < tasks; base += n_warps * kBatch) {
+      uint32_t x[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int task = base + j, grp = task % groups, r = task / groups % n_r, t = task / groups / n_r;
+        const int p = pb + r, q = grp * 128 + 4 * lane;
+        x[j] = 0;
+        if (task < tasks && p >= 0 && p < g.rb && q < g.rc) {
+          const uint8_t* src = occ + (s0 + t) * g.ss + p * g.sp + q;
+          if (vec & kVecRowsIn) {
+            x[j] = __ldg(reinterpret_cast<const uint32_t*>(src));
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (q + i < g.rc) x[j] |= static_cast<uint32_t>(__ldg(src + i)) << (8 * i);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int task = base + j;  // the same in every lane
+        if (task >= tasks) break;
+        const uint32_t nib = ((__vcmpne4(x[j], 0u) & 0x01010101u) * 0x01020408u) >> 24;
+        uint32_t word = nib << (4 * (lane & 7));
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 1);
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 2);
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 4);
+        const int grp = task % groups, r = task / groups % n_r, t = task / groups / n_r, w = grp * 4 + (lane >> 3);
+        if ((lane & 7) == 0 && w < g.words) bits[(t * n_r + r) * g.words + w] = word;
+      }
+    }
+  } else {
+    const int tasks = n_r * g.words;
+    for (int task = warp; task < tasks; task += n_warps) {
+      const int r = task / g.words, w = task - r * g.words, p = pb + r, q = w * 32 + lane;
+      uint32_t x[kGridChunk / 4] = {};
+      if (p >= 0 && p < g.rb && q < g.rc) {
+        const uint8_t* src = occ + p * g.sp + q * g.sq + s0;
+        if ((vec & kVecColsIn) && n_t % 16 == 0) {
+#pragma unroll
+          for (int k = 0; k < kGridChunk / 16; ++k)
+            if (16 * k < n_t) {
+              const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + k);
+              x[4 * k] = v.x, x[4 * k + 1] = v.y, x[4 * k + 2] = v.z, x[4 * k + 3] = v.w;
+            }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kGridChunk; ++t)
+            if (t < n_t) x[t >> 2] |= static_cast<uint32_t>(__ldg(src + t)) << (8 * (t & 3));
+        }
+      }
+      uint32_t mine = 0;
+#pragma unroll
+      for (int t = 0; t < kGridChunk; ++t) {
+        const uint32_t word = __ballot_sync(0xFFFFFFFFu, (x[t >> 2] >> (8 * (t & 3))) & 0xFFu);
+        if (lane == t) mine = word;
+      }
+      if (lane < n_t) bits[(lane * n_r + r) * g.words + w] = mine;
+    }
+  }
+}
+
+// One slice of the sweep for the strip of 16 columns q0 .. q0 + 15 of row p
+// (the block's carry row pl): the new carry from `cur` into `nxt` and
+// `carry` (columns past rc stay 128), and the output bytes (byte i of word
+// j: column q0 + 4 j + i).  `bits_t`: the slice's staged rows, from row pb.
+__device__ __forceinline__ uint4 sweep_strip(const SweepShape& g, const uint32_t* bits_t, int pb, const uint8_t* cur,
+                                             uint8_t* nxt, int p, int pl, int q0, uint4& carry) {
+  // the occupancy dilated by +-2 rows (OR of rows p - 2 .. p + 2) and +-2
+  // columns (shifts, across the neighbouring words), and the occupancy
+  const int w = q0 >> 5, o = q0 & 16;
+  uint32_t x = 0, xl = 0, xr = 0;
+  for (int r = max(p - 2, 0); r <= min(p + 2, g.rb - 1); ++r) {
+    const uint32_t* row = bits_t + (r - pb) * g.words;
+    x |= row[w];
+    if (w > 0) xl |= row[w - 1];
+    if (w + 1 < g.words) xr |= row[w + 1];
+  }
+  const uint32_t dil = (x | x << 1 | x << 2 | x >> 1 | x >> 2 | xl >> 30 | xl >> 31 | xr << 30 | xr << 31) >> o;
+  const uint32_t occ16 = bits_t[(p - pb) * g.words + w] >> o;
+  // the previous carry's minimum over rows p - 1 .. p + 1, for the 16
+  // columns and the one each side (bytes 3 of ml and 0 of mr), then along
+  // the row
+  const uint8_t* at = cur + pl * g.width + 16 + q0;
+  uint4 m = *reinterpret_cast<const uint4*>(at);
+  uint32_t ml = *reinterpret_cast<const uint32_t*>(at - 4), mr = *reinterpret_cast<const uint32_t*>(at + 16);
+#pragma unroll
+  for (int d = -1; d <= 1; d += 2) {
+    const uint8_t* a = at + d * g.width;
+    const uint4 n = *reinterpret_cast<const uint4*>(a);
+    m = make_uint4(__vminu4(m.x, n.x), __vminu4(m.y, n.y), __vminu4(m.z, n.z), __vminu4(m.w, n.w));
+    ml = __vminu4(ml, *reinterpret_cast<const uint32_t*>(a - 4));
+    mr = __vminu4(mr, *reinterpret_cast<const uint32_t*>(a + 16));
+  }
+  const uint32_t c[6] = {ml, m.x, m.y, m.z, m.w, mr};
+  const int n_in = min(16, g.rc - q0);
+  const uint32_t past = n_in < 16 ? 0xFFFFu << n_in : 0u;
+  uint32_t cw[4], out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t left = __byte_perm(c[j], c[j + 1], 0x6543), right = __byte_perm(c[j + 1], c[j + 2], 0x4321);
+    const uint32_t ahead = __vminu4(__vaddus4(__vminu4(__vminu4(left, c[j + 1]), right), 0x01010101u), kSat4);
+    const uint32_t beyond = byte_mask((past >> (4 * j)) & 0xFu);
+    cw[j] = (ahead & ~byte_mask((dil >> (4 * j)) & 0xFu) & ~beyond) | (kSat4 & beyond);
+    out[j] = __vminu4(__vmaxu4(cw[j], 0x01010101u), 0x7F7F7F7Fu) & ~byte_mask((occ16 >> (4 * j)) & 0xFu);
+  }
+  carry = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+  *reinterpret_cast<uint4*>(nxt + pl * g.width + 16 + q0) = carry;
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+__device__ __forceinline__ int4 widen(uint32_t w) {
+  return make_int4(w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF, w >> 24);
+}
+
+// The first n of a strip's 16 output bytes as int32 at dst (a row of the
+// grid): four 16-byte stores where whole and aligned.
+__device__ __forceinline__ void store_row(int* dst, uint4 o, int n, bool vec) {
+  if (vec && n == 16) {
+    int4* d = reinterpret_cast<int4*>(dst);
+    d[0] = widen(o.x), d[1] = widen(o.y), d[2] = widen(o.z), d[3] = widen(o.w);
+    return;
+  }
+  const uint32_t w[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i < n) dst[i] = (w[i >> 2] >> (8 * (i & 3))) & 0xFF;
+}
+
+// Axis 2's staged slices s0 .. s0 + n_t - 1 of rows p0 .. p1 - 1 into the
+// grid, where the slices are the innermost axis: a thread a voxel, its n_t
+// values contiguous (16-byte stores where aligned: whole lines at 32).
+__device__ void write_columns(const uint8_t* stage, const SweepShape& g, int p0, int p1, int s0, int n_t, bool vec,
+                              int* grid) {
+  const int plane = g.rows * g.cols;
+  for (int v = threadIdx.x; v < (p1 - p0) * g.rc; v += blockDim.x) {
+    const int pr = v / g.rc, q = v - pr * g.rc;
+    const uint8_t* src = stage + pr * g.cols + q;
+    int* dst = grid + (p0 + pr) * g.sp + q * g.sq + s0;
+    if (vec) {
+      for (int t = 0; t < n_t; t += 4)
+        *reinterpret_cast<int4*>(dst + t) = make_int4(src[t * plane], src[(t + 1) * plane], src[(t + 2) * plane],
+                                                      src[(t + 3) * plane]);
+    } else {
+      for (int t = 0; t < n_t; ++t) dst[t] = src[t * plane];
+    }
+  }
+}
+
+// Blocks: 6 clusters (the directions +x, -x, +y, -y, +z, -z) of
+// kGridCluster blocks, block `rank` of a cluster taking rows [rank * rows,
+// (rank + 1) * rows).
+__global__ void __cluster_dims__(kGridCluster, 1, 1) __launch_bounds__(kGridThreads)
+    skip_grid_kernel(const uint8_t* __restrict__ occ, int r0, int r1, int r2, int vec, int* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t sweep_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank()), dir = blockIdx.x / kGridCluster, axis = dir >> 1;
+  const bool down = (dir & 1) == 0;
+  const SweepShape g(axis, r0, r1, r2);
+  const int p0 = min(rank * g.rows, g.rb), p1 = min(p0 + g.rows, g.rb);
+  uint8_t* cur = sweep_smem;
+  uint8_t* nxt = sweep_smem + g.carry_bytes();
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sweep_smem + 2 * g.carry_bytes());
+  uint8_t* stage = sweep_smem + 2 * g.carry_bytes() + g.bits_bytes();
+  int* grid = out + static_cast<long long>(dir) * r0 * r1 * r2;
+
+  for (int i = threadIdx.x; i < 2 * g.carry_bytes() / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(sweep_smem)[i] = kSat4;  // outside the plane, and before the first slice
+  cluster.sync();  // every block filled before any pushes into it
+  const int per_row = g.cols / 16, n_strips = (p1 - p0) * per_row;
+  const int n_chunks = (g.ra + kGridChunk - 1) / kGridChunk;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int s0 = (down ? n_chunks - 1 - ci : ci) * kGridChunk, n_t = min(kGridChunk, g.ra - s0);
+    stage_bits(occ, g, s0, n_t, p0 - 2, vec, bits);
+    __syncthreads();
+    for (int i = 0; i < n_t; ++i) {
+      const int t = down ? n_t - 1 - i : i;
+      for (int st = threadIdx.x; st < n_strips; st += blockDim.x) {
+        const int pr = st / per_row, p = p0 + pr, q0 = (st - pr * per_row) * 16;
+        uint4 carry;
+        const uint4 o = sweep_strip(g, bits + t * (g.rows + 4) * g.words, p0 - 2, cur, nxt, p, pr + 1, q0, carry);
+        // the band's edge rows into the neighbours' planes: the row after
+        // the band above, the row before the band below
+        if (pr == 0 && rank > 0)
+          *cluster.map_shared_rank(reinterpret_cast<uint4*>(nxt + (g.rows + 1) * g.width + 16 + q0), rank - 1) = carry;
+        if (p == p1 - 1 && p1 < g.rb)
+          *cluster.map_shared_rank(reinterpret_cast<uint4*>(nxt + 16 + q0), rank + 1) = carry;
+        if (axis == 2)
+          *reinterpret_cast<uint4*>(stage + (t * g.rows + pr) * g.cols + q0) = o;
+        else
+          store_row(grid + (s0 + t) * g.ss + p * g.sp + q0, o, min(16, g.rc - q0), vec & kVecOut);
+      }
+      cluster.sync();
+      uint8_t* done = cur;
+      cur = nxt, nxt = done;
+    }
+    if (axis == 2) write_columns(stage, g, p0, p1, s0, n_t, vec & kVecOut, grid);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,5 +746,42 @@ int tn_skip_march_unbounded(const void* rays_o, const void* rays_d, const void* 
 
 // The lanes per ray both marches take for n_rays rays.
 int tn_skip_lanes(int n_rays) { return lanes_for(n_rays); }
+
+// The shared memory a block may opt in to on the current device, or minus
+// the CUDA error.
+int tn_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}
+
+// The shared memory a block of tn_skip_grid takes for an [r0, r1, r2] grid
+// (at most INT_MAX).
+int tn_skip_grid_smem(int r0, int r1, int r2) {
+  const long long need = skip_grid_smem(r0, r1, r2);
+  return need > 0x7FFFFFFFLL ? 0x7FFFFFFF : static_cast<int>(need);
+}
+
+// occ: [r0, r1, r2] bool (a byte a voxel); out: [6, r0, r1, r2] int32, the
+// cone grids of the directions (+x, -x, +y, -y, +z, -z).  Both contiguous on
+// one device.  Refused (cudaErrorInvalidValue) where a block's planes do not
+// fit its shared memory.
+int tn_skip_grid(const void* occ, int r0, int r1, int r2, void* out, void* stream) {
+  if (r0 < 1 || r1 < 1 || r2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = skip_grid_smem(r0, r1, r2);
+  const int limit = tn_smem_optin();
+  if (limit < 0) return -limit;
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      cudaFuncSetAttribute(skip_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uintptr_t o = reinterpret_cast<uintptr_t>(occ), d = reinterpret_cast<uintptr_t>(out);
+  const int vec = (r2 % 4 == 0 && o % 4 == 0 ? kVecRowsIn : 0) | (r2 % 16 == 0 && o % 16 == 0 ? kVecColsIn : 0) |
+                  (r2 % 4 == 0 && d % 16 == 0 ? kVecOut : 0);
+  skip_grid_kernel<<<6 * kGridCluster, kGridThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(occ), r0, r1, r2, vec, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // extern "C"

@@ -53,7 +53,11 @@ _SIGNATURES = {
     "tn_hash_terms": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
     "tn_hash_group": (_P, _I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P),
     "tn_hash_accumulate": (_P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P),
-    "tn_skip_lanes": (_I,),  # returns the lanes per ray both marches take, not an error code
+    "tn_skip_grid": (_P, _I, _I, _I, _P, _P),
+    # these three return a value, not an error code
+    "tn_skip_lanes": (_I,),  # the lanes per ray both marches take
+    "tn_skip_grid_smem": (_I, _I, _I),  # a tn_skip_grid block's shared memory
+    "tn_smem_optin": (),  # the shared memory a block may take on the current device
 }
 
 
@@ -205,6 +209,7 @@ def launch_counters() -> dict:
         "hash_accumulate": (hashgrid.hash_accumulate, "launches"),
         "skip_march": (skipmarch.skip_march, "launches"),
         "skip_march_unbounded": (skipmarch.skip_march_unbounded, "launches"),
+        "skip_grid": (skipmarch.make_skip_grid, "launches"),
     }
 
 
